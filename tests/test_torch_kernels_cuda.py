@@ -1,0 +1,165 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA card and skips without one (the kernels have
+no CPU mode). The file imports neither JAX nor the JAX package, so it runs
+where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from move2kube_tpu_torch.ops import attention as tatt  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# kernel vs plain version in fp32 on the same inputs, rounded to the
+# kernel's output type: (atol, rtol). fp32 kernels: sums in another order.
+# bf16 kernels compute in fp32 and round once: one bf16 ulp (at most 2**-7
+# of the value) where the two results straddle a rounding boundary, plus
+# fp32 sum-order noise on values near zero
+TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-5, 2.0 ** -7)}
+
+
+def _assert_kernel_close(out, ref, dtype):
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.to(dtype).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape):
+    return torch.from_numpy(gen.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,sk,h,kvh,d,causal", [
+    (100, 100, 8, 2, 64, True),     # ragged tail, GQA 4
+    (64, 200, 4, 4, 128, False),    # more keys than queries, full
+    (257, 257, 32, 8, 128, True),   # the slice's heads, ragged
+    (1, 1, 2, 1, 64, True),
+])
+def test_flash_kernel_matches_plain(cuda, dtype, s, sk, h, kvh, d, causal):
+    gen = np.random.default_rng(s + sk + d)
+    q = _randn(gen, 2, s, h, d).to(cuda, dtype)
+    k = _randn(gen, 2, sk, kvh, d).to(cuda, dtype)
+    v = _randn(gen, 2, sk, kvh, d).to(cuda, dtype)
+    before = tatt.FLASH_FWD.launches
+    out = tatt.flash_attention(q, k, v, causal=causal)
+    ref = tatt.reference_attention(q.float(), k.float(), v.float(), causal,
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    assert tatt.FLASH_FWD.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_kernel_close(out, ref, dtype)
+
+
+def _paged(gen, b, h, kvh, d, bs, seq_lens):
+    mb = max(-(-n // bs) for n in seq_lens) + 1
+    need = [-(-n // bs) for n in seq_lens]
+    num_pages = 1 + sum(need) + 3
+    order = gen.permutation(np.arange(1, num_pages)).tolist()
+    tables = np.zeros((b, mb), np.int32)
+    for i, n in enumerate(need):
+        tables[i, :n] = [order.pop() for _ in range(n)]
+    q = _randn(gen, b, h, d)
+    kp = _randn(gen, num_pages, bs, kvh, d)
+    vp = _randn(gen, num_pages, bs, kvh, d)
+    kp[0] = 0
+    vp[0] = 0
+    return q, kp, vp, torch.from_numpy(tables), torch.tensor(
+        seq_lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs,seq_lens", [
+    (32, 8, 128, 16, [17, 2048, 1, 300, 16, 33, 1000, 5]),  # the slice
+    (4, 2, 128, 8, [5, 11, 32]),      # tests/test_serving.py's shapes
+    (8, 8, 64, 8, [9, 64]),           # MHA
+    (16, 2, 64, 24, [100, 47]),       # 8 heads per KV head, pages of 24
+])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, h, kvh, d, bs,
+                                           seq_lens):
+    """The kernel runs on pools whose null page holds NaN (it must never
+    read it); the plain version, which gathers every table entry, on the
+    same pools with the null page zeroed."""
+    gen = np.random.default_rng(len(seq_lens) + h)
+    q, kp, vp, bt, sl = _paged(gen, len(seq_lens), h, kvh, d, bs, seq_lens)
+    q, kp, vp = (t.to(cuda, dtype) for t in (q, kp, vp))
+    bt, sl = bt.to(cuda), sl.to(cuda)
+    ref = tatt.paged_decode_reference(q.float(), kp.float(), vp.float(), bt,
+                                      sl, d ** -0.5)
+    kp[0] = float("nan")
+    vp[0] = float("nan")
+    before = tatt.PAGED_DECODE.launches
+    out = tatt.paged_decode_attention(q, kp, vp, bt, sl)
+    torch.cuda.synchronize()
+    assert tatt.PAGED_DECODE.launches == before + 1
+    assert torch.isfinite(out).all()
+    _assert_kernel_close(out, ref, dtype)
+
+
+def test_kernels_raise_on_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 32, device=cuda)  # head_dim 32
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tatt.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 8, 64, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tatt.flash_attention(q, q, q)
+    pages = torch.zeros(3, 8, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        tatt.paged_decode_attention(
+            torch.zeros(1, 4, 64, device=cuda), pages, pages,
+            torch.zeros(1, 2, dtype=torch.int64, device=cuda),
+            torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tatt.paged_decode_attention(
+            torch.zeros(1, 4, 64, device=cuda), pages, pages,
+            torch.zeros(1, 2, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32))
+
+
+def test_engine_on_card_matches_engine_on_cpu(cuda):
+    """A small model (head_dim 64) in fp32: the engine on the card, through
+    both kernels, streams the same greedy tokens as on the CPU."""
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        init_llama,
+        llama_tiny,
+    )
+
+    cfg = dataclasses.replace(llama_tiny(), d_model=256, attn_impl="flash")
+    cpu_model = init_llama(cfg, seed=0, device="cpu", dtype=torch.float32)
+    card_model = init_llama(cfg, seed=0, device="cpu",
+                            dtype=torch.float32).to(cuda)
+    econf = EngineConfig(max_batch=2, max_seq=64, block_size=8,
+                         buckets=(16, 32))
+    gen = np.random.default_rng(0)
+    prompts = [gen.integers(1, 500, size=n).tolist() for n in (5, 20, 9)]
+
+    def run(model, device):
+        eng = ServingEngine(model.eval(), econf, device=device)
+        return {c.rid: c.tokens for c in eng.run(
+            [Request(f"r{i}", p, 6) for i, p in enumerate(prompts)])}
+
+    tatt.reset_launch_counts()
+    on_card = run(card_model, cuda)
+    assert tatt.FLASH_FWD.launches == cfg.num_layers * 3
+    assert tatt.PAGED_DECODE.launches > 0
+    assert on_card == run(cpu_model, "cpu")
