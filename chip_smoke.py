@@ -8,17 +8,29 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name
-2. build: both CUDA kernels from ``move2kube_tpu_torch/csrc`` with nvcc
-   for sm_90a, in parallel
+2. build: every CUDA kernel from ``move2kube_tpu_torch/csrc`` with nvcc
+   for sm_90a, in parallel, with each one's registers, spills and shared
+   memory
 3. each kernel against its plain PyTorch version on the card, at the
-   slice's shapes in bf16, with its time, its bound and (flash) the time
-   of PyTorch's own ``scaled_dot_product_attention`` as a yardstick
+   slices' shapes in bf16, with its time, its bound and the time of
+   PyTorch's own ``scaled_dot_product_attention`` (forward; forward and
+   backward less forward) as a yardstick; the forward's logsumexp output
+   in fp32, and the forward with its logsumexp in bf16 at the training
+   slice's shape
 4. engine parity at Llama-8B width and 2 layers in fp32: the engine on
    the kernels against the same weights' plain dense path
-5. the slice: full-depth Llama-8B in bf16 serving 16 requests on the
-   engine; the kernels' launch counts show every prefill and decode step
-   went through them
-6. one JSON line with every kernel's numbers, then the result line
+5. the serving slice: full-depth Llama-8B in bf16 serving 16 requests on
+   the engine; the kernels' launch counts show every prefill and decode
+   step went through them
+6. training parity at Llama-8B width and 2 layers in fp32: 3 steps of the
+   LM train step with the attention in the kernels against the plain
+   dense attention, from the same weights on the same batches
+7. the training slice: Llama-8B widths cut to 8 layers, fp32 master
+   weights, the bf16 policy, AdamW, remat, head-folded cross-entropy,
+   batch 4 x 2048 tokens; 5 timed steps whose launch counts show every
+   layer's forward, recompute and backward went through the kernels, and
+   one step under the profiler
+8. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -45,6 +57,20 @@ BF16_ATOL = 3e-5
 # the attention in the kernels vs einsums (both fp32, TF32 off), summed
 # in other orders
 FP32_ENGINE_ATOL = 2e-3
+# the forward's logsumexp rows (O(log s), fp32 in the kernel and the plain
+# version): sums in other orders, q scaled before or after the product
+LSE_ATOL = 1e-4
+# training parity, fp32 (TF32 off), attention in the kernels vs einsums
+# and autograd: losses of ~10.9 over 3 AdamW steps at lr 1e-4 and the
+# first global grad norm agree to 6.3e-8 relative on an H100 (sums in
+# other orders). Each parameter's first-step gradient is held by the norm
+# of its difference over its own norm, so a fault confined to a few
+# leaves fails there even where the losses barely move: the worst leaf
+# reads 5.4e-6 (the embedding, whose rare tokens' rows are small), and dkv
+# summing only one query head of each GQA group reads 0.85 on the qkv
+# projection
+FP32_TRAIN_RTOL = 1e-6
+FP32_GRAD_RTOL = 1e-4
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (NVIDIA data sheet)
 H100_BYTES_S = 3.35e12     # HBM3 (NVIDIA data sheet)
 SEED = 0
@@ -228,6 +254,133 @@ def paged_phase(torch):
     return row
 
 
+def lse_phase(torch) -> float:
+    """The forward kernel's logsumexp output (fp32, a ragged length)
+    against the plain version's."""
+    from move2kube_tpu_torch.ops import attention as att
+
+    b, s, h, kvh, d = 2, 1000, 32, 8, 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=gen)
+               for n in (h, kvh, kvh))
+    out, lse = att.flash_attention_fwd(q, k, v, True, d ** -0.5)
+    ref, ref_lse = att.reference_attention_lse(q, k, v, True, d ** -0.5)
+    err = (lse - ref_lse).abs().max().item()
+    out_err = (out - ref).abs().max().item()
+    if not err <= LSE_ATOL or not out_err <= 1e-4:
+        raise RuntimeError(f"flash_fwd lse: max abs err {err:.3e} (tol "
+                           f"{LSE_ATOL}), output {out_err:.3e} (tol 1e-4)")
+    log(f"flash_fwd lse b={b} s={s} h={h} kvh={kvh} d={d} fp32 causal: "
+        f"max abs err {err:.3e} (tol {LSE_ATOL}), output {out_err:.3e}")
+    return err
+
+
+def bwd_phase(torch):
+    """The backward kernels in bf16 at the training slice's attention shape
+    against the plain backward, each with its time, its bound, the plain
+    backward's time and SDPA's backward as a yardstick; and the forward
+    with its lse at the same shape, checked and timed."""
+    import torch.nn.functional as F
+
+    from move2kube_tpu_torch.ops import attention as att
+
+    b, s, h, kvh, d = 4, 2048, 32, 8, 128
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    q, k, v, g = (torch.randn(b, s, n, d, device="cuda", generator=gen)
+                  .bfloat16() for n in (h, kvh, kvh, h))
+    o32, lse = att.reference_attention_lse(q.float(), k.float(), v.float(),
+                                           True, scale)
+    # the forward as the training slice launches it: bf16, b=4, with lse
+    o_k, lse_k = att.flash_attention_fwd(q, k, v, True, scale)
+    fwd_err = bf16_check(torch, "flash_fwd with lse (training shape)", o_k,
+                         o32)
+    lse_err = (lse_k - lse).abs().max().item()
+    if not lse_err <= LSE_ATOL:
+        raise RuntimeError(f"flash_fwd lse (training shape, bf16): max abs "
+                           f"err {lse_err:.3e} > {LSE_ATOL}")
+    o = o32.bfloat16()
+    del o32, o_k, lse_k
+    delta = att.flash_bwd_delta(o, g)
+    dq = att.flash_bwd_dq(q, k, v, g, lse, delta, True, scale)
+    dk, dv = att.flash_bwd_dkv(q, k, v, g, lse, delta, True, scale)
+    want = att.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, g.float(), True,
+        scale)
+    errs = {name: bf16_check(torch, f"flash_bwd d{name}", got, ref)
+            for name, got, ref in zip("q k v".split(), (dq, dk, dv), want)}
+    del want, dq, dk, dv
+    sets = _copies(torch, (q, k, v, g, lse, delta))
+    ms_dq = cuda_ms(torch, lambda *a: att.flash_bwd_dq(*a, True, scale),
+                    sets, 10)
+    ms_dkv = cuda_ms(torch, lambda *a: att.flash_bwd_dkv(*a, True, scale),
+                     sets, 10)
+    ms_fwd = cuda_ms(torch, lambda q_, k_, v_, *_: att.flash_attention_fwd(
+        q_, k_, v_, True, scale), sets, 10)
+    plain_sets = [(q_, k_, v_, o, lse_, g_)
+                  for q_, k_, v_, g_, lse_, _ in sets[:2]]
+    plain_ms = cuda_ms(torch, lambda *a: att.flash_attention_bwd_reference(
+        *a, True, scale), plain_sets, 4)
+    del plain_sets
+
+    # SDPA forward+backward less its forward, on head-major, GQA-repeated
+    # copies with grad (made outside the timing): a yardstick the port
+    # never calls
+    def lib_copy(t):
+        t = t.repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2)
+        return t.contiguous().requires_grad_()
+
+    lib_sets = [tuple(lib_copy(t) for t in ts[:3])
+                + (ts[3].transpose(1, 2).contiguous(),) for ts in sets]
+
+    def sdpa_fwd(q_, k_, v_, g_):
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+
+    def sdpa_fwd_bwd(q_, k_, v_, g_):
+        out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+        torch.autograd.grad(out, (q_, k_, v_), g_)
+
+    library_ms = (cuda_ms(torch, sdpa_fwd_bwd, lib_sets, 10)
+                  - cuda_ms(torch, sdpa_fwd, lib_sets, 10))
+    del lib_sets, sets
+    # bounds: each input read once, each output written once; operations
+    # under the causal mask, a product of the forward's size being
+    # 2 * b * h * d * s * (s + 1) / 2 FLOPs: dq does 3 (q.k^T, dO.v^T,
+    # ds.k), dkv 4 (q.k^T, dO.v^T, p^T.dO, ds^T.q)
+    product = b * h * d * s * (s + 1)
+    in_bytes = ((q.numel() + k.numel() + v.numel() + g.numel()) * 2
+                + (lse.numel() + delta.numel()) * 4)
+    rows = {}
+    for name, ms, n_products, out_bytes in (
+            ("flash_bwd_dq", ms_dq, 3, q.numel() * 2),
+            ("flash_bwd_dkv", ms_dkv, 4, (k.numel() + v.numel()) * 2)):
+        t_ops = n_products * product / H100_BF16_FLOPS * 1e3
+        t_bytes = (in_bytes + out_bytes) / H100_BYTES_S * 1e3
+        rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            err=errs["q"] if name == "flash_bwd_dq" else max(errs["k"],
+                                                             errs["v"]))
+    rows["flash_fwd"] = dict(ms=ms_fwd, err=max(fwd_err, lse_err))
+    log(f"flash_fwd with lse b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal:"
+        f" output max abs err {fwd_err:.3e} (within {BF16_ATOL} + "
+        f"{BF16_RTOL} |x| of the plain result rounded to bf16), lse max abs"
+        f" err {lse_err:.3e} (tol {LSE_ATOL})")
+    log(f"flash backward b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal: "
+        f"max abs err dq {errs['q']:.3e} dk {errs['k']:.3e} dv "
+        f"{errs['v']:.3e} (within {BF16_ATOL} + {BF16_RTOL} |x| of the "
+        f"plain fp32 result rounded to bf16); dq {ms_dq:.4f} ms (bound "
+        f"{rows['flash_bwd_dq']['bound_ms']:.4f}), dkv {ms_dkv:.4f} ms "
+        f"(bound {rows['flash_bwd_dkv']['bound_ms']:.4f}); plain backward "
+        f"{plain_ms:.4f} ms; sdpa backward {library_ms:.4f} ms; flash_fwd "
+        f"with lse at this shape {ms_fwd:.4f} ms")
+    return rows
+
+
 def _greedy_dense(torch, model, prompt, n):
     """Greedy continuation by full forwards of the plain dense path;
     returns the tokens and the logits rows each was argmaxed from."""
@@ -301,7 +454,7 @@ def slice_phase(torch):
         llama_8b,
         reset_launch_counts,
     )
-    from move2kube_tpu_torch.ops.attention import FLASH_FWD, PAGED_DECODE
+    from move2kube_tpu_torch.ops.attention import KERNELS
 
     torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(llama_8b(), attn_impl="flash")
@@ -327,8 +480,7 @@ def slice_phase(torch):
     comps = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": FLASH_FWD.launches,
-                "paged_decode": PAGED_DECODE.launches}
+    launches = {k.name: k.launches for k in KERNELS}
     stats = eng.stats()
     if len(comps) != 16 or any(len(c.tokens) != 64 for c in comps):
         raise RuntimeError("slice: not every request completed with 64 "
@@ -337,6 +489,7 @@ def slice_phase(torch):
         if not all(np.isfinite(r).all() for r in rows):
             raise RuntimeError(f"slice: non-finite logits for {rid}")
     want = {"flash_fwd": cfg.num_layers * stats["prefills"],
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode": cfg.num_layers * stats["decode_steps"]}
     if launches != want or stats["prefills"] != 16:
         raise RuntimeError(f"slice: launches {launches}, expected {want} "
@@ -362,6 +515,135 @@ def slice_phase(torch):
     return launches
 
 
+def _train_run(torch, cfg, policy_name, batches, remat=True,
+               first_grads=None):
+    """Steps of the LM train step on fresh fp32 master weights drawn from
+    SEED, AdamW (lr 1e-4, weight decay 0.1); returns the state, the step
+    function and the losses and grad norms (tensors). A dict passed as
+    ``first_grads`` receives a copy of each parameter's first-step
+    gradient."""
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        init_llama,
+        instrument_optimizer,
+        make_lm_train_step,
+        policy,
+    )
+
+    pol = policy(policy_name)
+    model = init_llama(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    opt = instrument_optimizer(pol.wrap_optimizer(adamw(
+        model.parameters(), 1e-4, weight_decay=0.1)))
+    state = TrainState(model, opt)
+    step = make_lm_train_step(remat=remat, precision=pol)
+    losses, norms = [], []
+    for i, ids in enumerate(batches):
+        state, loss = step(state, {"input_ids": ids})
+        losses.append(loss)
+        norms.append(opt.grad_norm.clone())
+        if i == 0 and first_grads is not None:
+            first_grads.update((n, p.grad.clone())
+                               for n, p in model.named_parameters())
+    return state, step, losses, norms
+
+
+def train_parity_phase(torch) -> None:
+    import numpy as np
+
+    from move2kube_tpu_torch import llama_8b
+
+    rng = np.random.default_rng(SEED + 6)
+    cfg = dataclasses.replace(llama_8b(), num_layers=2)
+    batches = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (3, 2, 1024))).cuda()
+    runs, grads = {}, {}
+    for impl in ("flash", "dense"):
+        grads[impl] = {}
+        state, _, losses, norms = _train_run(
+            torch, dataclasses.replace(cfg, attn_impl=impl), "fp32",
+            batches, first_grads=grads[impl])
+        runs[impl] = ([float(x) for x in losses], float(norms[0]))
+        del state
+        torch.cuda.empty_cache()
+    (fl, fn), (dl, dn) = runs["flash"], runs["dense"]
+    worst = max(abs(a - b_) / abs(b_) for a, b_ in zip(fl + [fn], dl + [dn]))
+    leaf_err = {n: float(torch.linalg.vector_norm(grads["flash"][n] - g)
+                         / torch.linalg.vector_norm(g))
+                for n, g in grads["dense"].items()}
+    worst_leaf = max(leaf_err, key=leaf_err.get)
+    del grads
+    torch.cuda.empty_cache()
+    if not (worst <= FP32_TRAIN_RTOL
+            and leaf_err[worst_leaf] <= FP32_GRAD_RTOL):
+        raise RuntimeError(
+            f"train parity: flash losses {fl} grad norm {fn} vs dense {dl} "
+            f"/ {dn}: rel err {worst:.3e} (tol {FP32_TRAIN_RTOL}); first-"
+            f"step gradient of {worst_leaf} rel err "
+            f"{leaf_err[worst_leaf]:.3e} (tol {FP32_GRAD_RTOL})")
+    log(f"train parity: llama_8b widths, 2 layers, fp32, batch 2 x 1024, 3 "
+        f"AdamW steps: flash losses {fl} vs dense {dl}, first grad norm "
+        f"{fn:.6f} vs {dn:.6f}, max rel err {worst:.3e} (tol "
+        f"{FP32_TRAIN_RTOL}); first-step gradients of {len(leaf_err)} "
+        f"parameters, worst |g - g_dense| / |g_dense| "
+        f"{leaf_err[worst_leaf]:.3e} ({worst_leaf}, tol {FP32_GRAD_RTOL})")
+
+
+def train_slice_phase(torch):
+    import numpy as np
+
+    from move2kube_tpu_torch import llama_8b, pick_chunk, reset_launch_counts
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    layers, batch, seq, timed = 8, 4, 2048, 5
+    cfg = dataclasses.replace(llama_8b(), num_layers=layers,
+                              attn_impl="flash")
+    rng = np.random.default_rng(SEED + 7)
+    batches = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (timed + 2, batch, seq))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step, _, _ = _train_run(torch, cfg, "bf16", batches[:1])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    chunk = pick_chunk(cfg.vocab_size, 2048)
+    log(f"train slice: llama_8b widths, {layers} layers ({n_params / 1e9:.3f}"
+        f" B params, fp32 masters drawn on the card), bf16 policy, AdamW, "
+        f"remat, head-folded CE in chunks of {chunk}; set-up and warm-up "
+        f"step {time.perf_counter() - t0:.1f} s")
+    opt = state.optimizer
+    losses, norms = [], []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids in batches[1:timed + 1]:
+        state, loss = step(state, {"input_ids": ids})
+        losses.append(loss)
+        norms.append(opt.grad_norm.clone())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    want = {"flash_fwd": 2 * layers * timed, "flash_bwd_dq": layers * timed,
+            "flash_bwd_dkv": layers * timed, "paged_decode": 0}
+    if launches != want:
+        raise RuntimeError(f"train slice: launches {launches}, expected "
+                           f"{want} ({layers} layers x {timed} steps)")
+    if not all(np.isfinite(losses + norms)):
+        raise RuntimeError(f"train slice: losses {losses} grad norms {norms}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train slice: {timed} steps of batch {batch} x {seq}: "
+        f"{wall / timed * 1e3:.1f} ms/step, {timed * batch * seq / wall:.1f} "
+        f"tokens/s, peak memory {peak:.2f} GiB; losses {losses}; grad norms "
+        f"{norms}")
+    log(f"train slice: launches {launches} = {layers} layers x {timed} steps"
+        " x (forward + remat recompute, dq, dkv)")
+    _profiled(torch, f"one training step (batch {batch} x {seq})",
+              lambda: step(state, {"input_ids": batches[-1]}))
+    return launches
+
+
 def _profiled(torch, label: str, fn) -> None:
     """Run ``fn`` under torch.profiler; print its wall time, the device's
     busy time (kernels on one stream do not overlap, so their times add
@@ -383,8 +665,11 @@ def _profiled(torch, label: str, fn) -> None:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    # a user annotation (``Optimizer.step#AdamW.step``) also has a range
+    # on the device that spans its kernels: count the kernels only
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(dev_us(e) for e in events)
     log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
@@ -431,15 +716,20 @@ def main() -> int:
     build_phase()
     flash_rows = flash_phase(torch)
     paged = paged_phase(torch)
+    lse_err = lse_phase(torch)
+    bwd = bwd_phase(torch)
     parity_phase(torch)
     launches = slice_phase(torch)
+    train_parity_phase(torch)
+    train_launches = train_slice_phase(torch)
     main_flash = flash_rows[-1]  # s=2048, the longest prefill bucket
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "move2kube_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "move2kube_tpu/ops/attention.py:302",
          "launches": launches["flash_fwd"],
-         "max_abs_err": max(r["err"] for r in flash_rows),
+         "max_abs_err": max([r["err"] for r in flash_rows]
+                            + [lse_err, bwd["flash_fwd"]["err"]]),
          "ms": main_flash["ms"], "plain_ms": main_flash["plain_ms"],
          "bound_ms": main_flash["bound_ms"],
          "bound_by": main_flash["bound_by"],
@@ -452,6 +742,16 @@ def main() -> int:
          "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
          "bound_by": paged["bound_by"], "library_ms": None},
     ]
+    for name, line in (("flash_bwd_dq", 439), ("flash_bwd_dkv", 487)):
+        row = bwd[name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": f"move2kube_tpu_torch/csrc/{name}.cu",
+             "replaces": f"move2kube_tpu/ops/attention.py:{line}",
+             "launches": train_launches[name], "max_abs_err": row["err"],
+             "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": row["library_ms"]})
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

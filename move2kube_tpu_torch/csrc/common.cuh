@@ -70,6 +70,15 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
   }
 }
 
+// A compiler memory barrier, free at run time. Placed between two loops
+// that read the same shared-memory rows, it makes the second loop load them
+// again: without it nvcc keeps the first loop's loads of a whole chunk of
+// rows live in registers until the second loop and spills kilobytes a
+// thread; a reload from shared memory is cheaper.
+__device__ __forceinline__ void reload_barrier() {
+  asm volatile("" ::: "memory");
+}
+
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);

@@ -1,9 +1,11 @@
 // Flash-attention forward (causal or full, GQA) for Hopper, sm_90a.
 //
 // Replaces: the TPU kernel `_flash_kernel`, launched by
-// `_flash_attention_tpu` (move2kube_tpu/ops/attention.py). Forward only;
-// the logsumexp residual that the backward kernels read comes with the
-// training slice.
+// `_flash_attention_tpu` (move2kube_tpu/ops/attention.py). Like it, the
+// kernel optionally writes each row's logsumexp, which the backward kernels
+// (flash_bwd_dq.cu, flash_bwd_dkv.cu) read to recompute the probabilities:
+// fp32, laid out [b, h, s] (the TPU kernel broadcasts it over 128 lanes),
+// lse = m + log(max(l, 1e-30)) in the units of the scaled scores.
 //
 // What bounds it on an H100: operations. Causal attention does about
 // 2*b*h*s^2*d FLOPs against (q + k + v + o) bytes, over 100 FLOPs per byte
@@ -39,8 +41,9 @@ constexpr int kKC = 16;                       // keys per softmax chunk
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int s, int sk,
-                 int h, int kvh, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int s, int sk, int h, int kvh,
+                 int causal, float scale) {
   constexpr int BK = 128 / sizeof(T);           // keys per shared tile
   constexpr int NC = D / (8 * kLanesPerRow);    // 8-wide chunks per thread
   constexpr int ROW_VECS = D * sizeof(T) / 16;  // 16-byte vectors per row
@@ -161,13 +164,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 8; ++e) out[e] = acc[c * 8 + e] * inv;
       m2kt::store_vec<8>(o_row + (c * kLanesPerRow + lane) * 8, out);
     }
+    // m and l are the same in the four lanes of a row
+    if (lse != nullptr && lane == 0) {
+      lse[(size_t)bh * s + qi] = m + logf(fmaxf(l, 1e-30f));
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int sk, int h, int kvh, int d, int causal,
-                   float scale, cudaStream_t stream) {
+                   float* lse, int b, int s, int sk, int h, int kvh, int d,
+                   int causal, float scale, cudaStream_t stream) {
   const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -176,11 +183,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   switch (d) {
     case 64:
       flash_fwd_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, op, s, sk, h, kvh, causal, scale);
+          qp, kp, vp, op, lse, s, sk, h, kvh, causal, scale);
       break;
     case 128:
       flash_fwd_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, op, s, sk, h, kvh, causal, scale);
+          qp, kp, vp, op, lse, s, sk, h, kvh, causal, scale);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -193,20 +200,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 M2KT_EXPORT_ERROR_STRING
 
 // q [b, s, h, d], k/v [b, sk, kvh, d], o [b, s, h, d]; all contiguous, of
-// one type (dtype: 0 fp32, 1 bf16). Launches on `stream` of `device` and
-// returns cudaGetLastError().
+// one type (dtype: 0 fp32, 1 bf16). lse is fp32 [b, h, s], or null when the
+// caller does not want it. Launches on `stream` of `device` and returns
+// cudaGetLastError().
 extern "C" int m2kt_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, int b, int s, int sk, int h, int kvh,
-                              int d, int causal, float scale, int dtype,
-                              int device, void* stream) {
+                              void* o, void* lse, int b, int s, int sk, int h,
+                              int kvh, int d, int causal, float scale,
+                              int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == m2kt::kFloat32) {
-    err = launch<float>(q, k, v, o, b, s, sk, h, kvh, d, causal, scale, st);
+    err = launch<float>(q, k, v, o, static_cast<float*>(lse), b, s, sk, h,
+                        kvh, d, causal, scale, st);
   } else if (dtype == m2kt::kBFloat16) {
-    err = launch<__nv_bfloat16>(q, k, v, o, b, s, sk, h, kvh, d, causal,
-                                scale, st);
+    err = launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), b, s,
+                                sk, h, kvh, d, causal, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -17,6 +17,11 @@ deviations) for ``Dense``, normal with variance 1/d_model for ``Embed``,
 ones for the norms. Drawing the 8B weights on the host in fp32 would
 take 32 GB and minutes; on the card it takes seconds. The draws differ
 from ``jax.random``'s for the same seed.
+
+Training keeps fp32 master weights: from the JAX package,
+``params_from_jax(p, dataclasses.replace(cfg, dtype=torch.float32))``;
+drawn on the card, ``init_llama(cfg, seed, dtype=torch.float32)``. The
+training step casts them to its compute dtype inside the loss.
 """
 
 from __future__ import annotations
@@ -67,7 +72,9 @@ def params_from_jax(params: dict, cfg: LlamaConfig) -> dict:
 def init_llama(cfg: LlamaConfig, seed: int = 0, device=None,
                dtype: torch.dtype | None = None) -> Llama:
     """A ``Llama`` with random weights drawn on ``device`` (the card by
-    default) from ``seed``. ``dtype`` overrides ``cfg.dtype``."""
+    default) from ``seed``. ``dtype`` overrides ``cfg.dtype``:
+    ``dtype=torch.float32`` gives the fp32 master weights a training step
+    updates. One seed gives the same draws whatever ``attn_impl`` is."""
     dev = resolve_device(device)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)

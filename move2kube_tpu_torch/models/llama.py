@@ -2,8 +2,12 @@
 ``move2kube_tpu/models/llama.py``.
 
 Numerics follow the JAX model: RMSNorm and RoPE (split halves) in fp32,
-the projections and MLP in ``cfg.dtype``, softmax in fp32, and the
-lm-head in fp32 on the fp32 hidden state. Fused ``qkv`` and ``gate_up``
+the projections and MLP in the weights' type, softmax in fp32, and the
+lm-head in fp32 on the fp32 hidden state. The forward computes in the
+types of the parameters it is run with, so a training step can run it
+(``torch.func.functional_call``) on the bf16 view of fp32 master weights
+that ``PrecisionPolicy.cast_params`` makes, norm scales and lm-head
+included, as the JAX step does. Fused ``qkv`` and ``gate_up``
 projections and GQA as there; the parameter names are the flax module
 names, so :func:`move2kube_tpu_torch.models.convert.params_from_jax`
 maps one tree onto the other.
@@ -27,6 +31,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from move2kube_tpu_torch._device import resolve_device
 from move2kube_tpu_torch.ops.attention import (
@@ -197,11 +202,16 @@ class Llama(nn.Module):
         self.to_empty(device=dev)
 
     def forward(self, input_ids, positions=None, cache=None,
-                return_kv=False, lora=None):
+                return_kv=False, return_hidden=False, remat=False,
+                lora=None):
         """Three modes, one parameter set:
 
         - full forward (default): ``input_ids [b, s] -> logits [b, s,
-          vocab]`` (fp32)
+          vocab]`` (fp32). With ``return_hidden`` it returns the pre-head
+          hidden states after ``final_norm`` instead (``[b, s, d_model]``),
+          for the head-folded loss. ``remat`` recomputes each block's
+          activations in the backward (``torch.utils.checkpoint``, non-
+          reentrant) instead of keeping them.
         - prefill (``return_kv=True``): also returns the per-layer rotary-
           embedded K/V ``[(k, v), ...]`` (``[b, s, kv_heads, head_dim]``)
           for the serving layer to scatter into its paged cache
@@ -228,8 +238,10 @@ class Llama(nn.Module):
                 }
                 x, _ = layer(x, pos2d, None, cache=layer_cache)
             x = self.final_norm(x)
-            logits = self.lm_head(x.float())
-            return logits[:, 0], cache
+            return self._head(x)[:, 0], cache
+        if remat and return_kv:
+            raise ValueError("remat recomputes the blocks in the backward; "
+                             "it does not return their K/V")
         b, s = input_ids.shape
         x = self.embed(input_ids)
         if positions is None:
@@ -241,11 +253,36 @@ class Llama(nn.Module):
                                -1e30)[None, None].float()
         kvs = []
         for layer in self.layers:
-            x, kv = layer(x, positions, mask)
-            if return_kv:
-                kvs.append(kv)
+            if remat:
+                x = _remat_block(layer, x, positions, mask)
+            else:
+                x, kv = layer(x, positions, mask)
+                if return_kv:
+                    kvs.append(kv)
         x = self.final_norm(x)
-        logits = self.lm_head(x.float())
+        if return_hidden:
+            return x
+        logits = self._head(x)
         if return_kv:
             return logits, kvs
         return logits
+
+    def _head(self, x):
+        """fp32 lm-head on the fp32 hidden state; a bf16 weight (the cast
+        view in training) is widened first, as flax's ``Dense(dtype=
+        float32)`` does."""
+        return F.linear(x.float(), self.lm_head.weight.float())
+
+
+def _remat_block(layer, x, positions, mask):
+    """One block under ``torch.utils.checkpoint``. The parameters the block
+    holds now (under ``functional_call``: the cast view, which is swapped
+    out again by the time the backward recomputes) are captured here and
+    put back for the recompute, so it runs on the same tensors."""
+    params = dict(layer.named_parameters())
+
+    def run(x_):
+        return torch.func.functional_call(layer, params,
+                                          (x_, positions, mask))[0]
+
+    return checkpoint(run, x, use_reentrant=False)

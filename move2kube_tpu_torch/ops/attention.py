@@ -1,16 +1,18 @@
-"""Attention for the port: flash forward and paged decode.
+"""Attention for the port: flash forward and backward, and paged decode.
 
-Each public function here has a hand-written CUDA kernel
-(``csrc/flash_fwd.cu``, ``csrc/paged_decode.cu``) and a plain PyTorch
-version of the same function beside it. The choice is made by where the
-tensors lie, and by nothing else: CPU tensors take the plain version (the
-tests compare it with the JAX package), CUDA tensors launch the kernel or
-raise. There is no fallback from a CUDA tensor to the plain version.
+Each public function here has hand-written CUDA kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``,
+``csrc/paged_decode.cu``) and a plain PyTorch version of the same function
+beside it. The choice is made by where the tensors lie, and by nothing
+else: CPU tensors take the plain version (the tests compare it with the JAX
+package), CUDA tensors launch the kernel or raise. There is no fallback
+from a CUDA tensor to the plain version.
 
 Layouts are the JAX package's (``move2kube_tpu/ops/attention.py``):
 ``[batch, seq, heads, head_dim]`` for flash, ``[batch, heads, head_dim]``
 queries over ``[num_pages, block_size, kv_heads, head_dim]`` pages for
-decode.
+decode. The flash logsumexp residual is fp32 ``[batch, heads, seq]`` (the
+TPU kernels broadcast it over 128 lanes; that is a TPU tiling artefact).
 """
 
 from __future__ import annotations
@@ -23,13 +25,21 @@ _NEG_INF = -1e30
 
 FLASH_FWD = CudaKernel(
     "flash_fwd", "m2kt_flash_fwd",
-    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, INT,
-     PTR])
+    [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT, INT,
+     INT, PTR])
+FLASH_BWD_DQ = CudaKernel(
+    "flash_bwd_dq", "m2kt_flash_bwd_dq",
+    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
+     FLOAT, INT, INT, PTR])
+FLASH_BWD_DKV = CudaKernel(
+    "flash_bwd_dkv", "m2kt_flash_bwd_dkv",
+    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
+     INT, FLOAT, INT, INT, PTR])
 PAGED_DECODE = CudaKernel(
     "paged_decode", "m2kt_paged_decode",
     [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, FLOAT, INT,
      INT, PTR])
-KERNELS = (FLASH_FWD, PAGED_DECODE)
+KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, PAGED_DECODE)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -60,6 +70,13 @@ def _kernel_args_ok(name: str, tensors: dict, dtype, d: int) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def _same_dtype(name: str, dtype, **tensors) -> None:
+    for key, t in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} is {t.dtype}, q is {dtype}; the "
+                            "CUDA kernel takes one type")
+
+
 def _stream_args(t: torch.Tensor) -> tuple[int, int]:
     dev = t.device.index if t.device.index is not None else (
         torch.cuda.current_device())
@@ -77,56 +94,217 @@ def _repeat_kv(t: torch.Tensor, rep: int) -> torch.Tensor:
     return t if rep == 1 else t.repeat_interleave(rep, dim=2)
 
 
-def reference_attention(q, k, v, causal: bool, scale: float):
-    """Plain version of the flash kernel (``_reference_attention`` in the
-    JAX package): scores in the input type, softmax in fp32, probabilities
-    cast to v's type for the PV product. ``k``/``v`` may carry fewer heads
-    than ``q`` (GQA) and are repeated up to it."""
-    rep = q.shape[2] // k.shape[2]
-    k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
+def _scores(q, k, causal: bool, scale: float):
+    """Scaled scores ``[b, h, s, sk]`` in fp32 over K repeated up to q's
+    heads, masked positions at -1e30 (the JAX package's order: product in
+    the input type, then fp32, then the scale)."""
+    k = _repeat_kv(k, q.shape[2] // k.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if causal:
         qi = torch.arange(q.shape[1], device=q.device)[:, None]
         ki = torch.arange(k.shape[1], device=q.device)[None, :]
         s = torch.where(qi >= ki, s, torch.full_like(s, _NEG_INF))
+    return s
+
+
+def reference_attention(q, k, v, causal: bool, scale: float):
+    """Plain version of the flash kernel (``_reference_attention`` in the
+    JAX package): scores in the input type, softmax in fp32, probabilities
+    cast to v's type for the PV product. ``k``/``v`` may carry fewer heads
+    than ``q`` (GQA) and are repeated up to it."""
+    return _weighted_values(_scores(q, k, causal, scale), v)
+
+
+def _weighted_values(s, v):
     p = torch.softmax(s, dim=-1).to(v.dtype)
+    v = _repeat_kv(v, s.shape[1] // v.shape[2])
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+def reference_attention_lse(q, k, v, causal: bool, scale: float):
+    """:func:`reference_attention` and its residual: ``(o, lse)`` with
+    ``lse`` the fp32 logsumexp of each row's scaled scores, ``[b, h, s]``
+    (what ``_flash_kernel`` writes for the backward)."""
+    s = _scores(q, k, causal, scale)
+    return _weighted_values(s, v), torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, g, causal: bool,
+                                  scale: float):
+    """Plain version of the backward kernels (``_flash_bwd_dq_kernel`` and
+    ``_flash_bwd_dkv_kernel``): ``p = exp(q.k^T * scale - lse)`` recomputed
+    from the forward's logsumexp, ``delta = rowsum(dO * O)``, ``ds = p *
+    (dO.v^T - delta)``, ``dq = scale * ds.k``, ``dk = scale * ds^T.q``,
+    ``dv = p^T.dO``, all in fp32. ``dk``/``dv`` come back at K/V's own head
+    count, summed over each GQA group (the VJP of repeating K/V). Returns
+    ``(dq, dk, dv)`` in the inputs' types."""
+    b, s, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    qf, gf = q.float(), g.float()
+    kf = _repeat_kv(k.float(), rep)
+    vf = _repeat_kv(v.float(), rep)
+    p = torch.exp(_scores(qf, k.float(), causal, scale) - lse[..., None])
+    delta = (gf * o.float()).sum(-1).transpose(1, 2)  # [b, h, s]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vf) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dk = dk.reshape(b, sk, kvh, rep, d).sum(3)
+    dv = dv.reshape(b, sk, kvh, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, want_lse: bool):
     b, s, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     _kernel_args_ok("flash_attention", {"q": q, "k": k, "v": v}, q.dtype, d)
+    _same_dtype("flash_attention", q.dtype, k=k, v=v)
     out = torch.empty_like(q)
+    lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if s == 0 or b * h == 0:
-        return out
+        return out, lse
     dev, stream = _stream_args(q)
     FLASH_FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), b, s, sk, h, kvh, d, int(causal),
-                     float(scale), _DTYPE_CODES[q.dtype], dev, stream)
-    return out
+                     out.data_ptr(), lse.data_ptr() if want_lse else None,
+                     b, s, sk, h, kvh, d, int(causal), float(scale),
+                     _DTYPE_CODES[q.dtype], dev, stream)
+    return out, lse
+
+
+def flash_bwd_delta(o, g):
+    """``delta = rowsum(dO * O)`` in fp32, ``[b, h, s]``: computed outside
+    the backward kernels, as the JAX package does (attention.py:561-565)."""
+    return (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_args_ok(q, k, v, g, lse, delta) -> None:
+    b, s, h, d = q.shape
+    _kernel_args_ok("flash_attention backward",
+                    {"q": q, "k": k, "v": v, "dO": g, "lse": lse,
+                     "delta": delta}, q.dtype, d)
+    _same_dtype("flash_attention backward", q.dtype, k=k, v=v, dO=g)
+    for key, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b, h, s):
+            raise ValueError(f"flash_attention backward: {key} must be fp32 "
+                             f"[b, h, s] = {(b, h, s)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def _bwd_common(q, k, causal: bool, scale: float):
+    b, s, h, d = q.shape
+    dev, stream = _stream_args(q)
+    return (b, s, k.shape[1], h, k.shape[2], d, int(causal), float(scale),
+            _DTYPE_CODES[q.dtype], dev, stream)
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool, scale: float):
+    """dq from ``csrc/flash_bwd_dq.cu`` (CUDA tensors only; ``delta`` from
+    :func:`flash_bwd_delta`)."""
+    _bwd_args_ok(q, k, v, g, lse, delta)
+    dq = torch.empty_like(q)
+    if q.numel():
+        FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                            dq.data_ptr(), *_bwd_common(q, k, causal, scale))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, causal: bool, scale: float):
+    """``(dk, dv)`` at K/V's head count from ``csrc/flash_bwd_dkv.cu``
+    (CUDA tensors only)."""
+    _bwd_args_ok(q, k, v, g, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if not q.numel():
+        return dk.zero_(), dv.zero_()
+    if k.numel():
+        FLASH_BWD_DKV.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                             dk.data_ptr(), dv.data_ptr(),
+                             *_bwd_common(q, k, causal, scale))
+    return dk, dv
+
+
+def _on(name: str, t: torch.Tensor) -> str:
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type == "cpu":
+        return "cpu"
+    raise ValueError(f"{name}: no implementation on {t.device}")
+
+
+def flash_attention_fwd(q, k, v, causal: bool, scale: float,
+                        want_lse: bool = True):
+    """Forward with its residual: ``(o, lse)``, ``lse`` fp32 ``[b, h, s]``
+    (``None`` when not ``want_lse``: the kernel then writes none). CUDA
+    tensors launch ``csrc/flash_fwd.cu``; CPU tensors take
+    :func:`reference_attention_lse`."""
+    if _on("flash_attention", q) == "cuda":
+        return _flash_fwd_cuda(q, k, v, causal, scale, want_lse)
+    if want_lse:
+        return reference_attention_lse(q, k, v, causal, scale)
+    return reference_attention(q, k, v, causal, scale), None
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, causal: bool, scale: float):
+    """Gradients ``(dq, dk, dv)`` of flash attention from the forward's
+    residuals (``o``, ``lse``) and the output's gradient ``g``; ``dk``/
+    ``dv`` at K/V's head count. CUDA tensors launch
+    ``csrc/flash_bwd_dq.cu`` then ``csrc/flash_bwd_dkv.cu``; CPU tensors
+    take :func:`flash_attention_bwd_reference`."""
+    if _on("flash_attention backward", q) == "cuda":
+        delta = flash_bwd_delta(o, g)
+        dq = flash_bwd_dq(q, k, v, g, lse, delta, causal, scale)
+        return (dq, *flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale))
+    return flash_attention_bwd_reference(q, k, v, o, lse, g, causal, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward saves ``q, k, v, o,
+    lse``; the backward recomputes the probabilities from ``lse`` (the
+    JAX package's ``_flash_attention_diff`` custom VJP, without its
+    fallbacks)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g.contiguous(),
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: float | None = None):
-    """Fused attention forward. ``q``: ``[b, s, h, d]``; ``k``/``v``:
-    ``[b, sk, kvh, d]`` with ``kvh`` dividing ``h`` (query head i reads KV
-    head ``i // (h // kvh)``, as repeating K/V up to ``h`` heads would).
-    Causal masking compares absolute positions (query i sees keys <= i).
-    Any ``s`` and ``sk``: the kernel masks ragged tails itself.
+    """Fused attention forward, differentiable. ``q``: ``[b, s, h, d]``;
+    ``k``/``v``: ``[b, sk, kvh, d]`` with ``kvh`` dividing ``h`` (query
+    head i reads KV head ``i // (h // kvh)``, as repeating K/V up to ``h``
+    heads would). Causal masking compares absolute positions (query i sees
+    keys <= i). Any ``s`` and ``sk``: the kernels mask ragged tails
+    themselves.
 
-    CUDA tensors launch ``csrc/flash_fwd.cu``; CPU tensors take
-    :func:`reference_attention`."""
+    When autograd records (grad enabled and an input requires grad) the
+    call goes through :class:`FlashAttention`, whose forward also writes
+    the logsumexp and whose backward runs the backward kernels; otherwise
+    (serving, ``torch.inference_mode()``) it is one forward launch with no
+    residual. CUDA tensors launch the kernels; CPU tensors take the plain
+    versions."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] or (
             k.shape[3] != q.shape[3]) or q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if q.is_cuda:
-        return _flash_fwd_cuda(q, k, v, causal, scale)
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, causal, scale)
-    raise ValueError(f"flash_attention: no implementation on {q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return flash_attention_fwd(q, k, v, causal, scale, want_lse=False)[0]
 
 
 # --------------------------------------------------------------------------

@@ -128,13 +128,16 @@ def test_plain_paged_decode_matches_jax():
 def test_cpu_wrappers_take_plain_path_without_launching():
     tatt.reset_launch_counts()
     q, k, v = _qkv(3, 1, 8, 8, 2, 2, 64)
-    tatt.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
-                         torch.from_numpy(v), causal=True)
+    tq = torch.from_numpy(q).requires_grad_()
+    out = tatt.flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v),
+                               causal=True)
+    out.sum().backward()  # the plain backward
     qp, kp, vp, tables, seq_lens = _paged_inputs()
     tatt.paged_decode_attention(
         torch.from_numpy(qp), torch.from_numpy(kp), torch.from_numpy(vp),
         torch.from_numpy(tables), torch.from_numpy(seq_lens))
-    assert [k.launches for k in tatt.KERNELS] == [0, 0]
+    assert len(tatt.KERNELS) == 4
+    assert [k.launches for k in tatt.KERNELS] == [0, 0, 0, 0]
 
 
 def test_wrappers_reject_bad_shapes():
@@ -215,4 +218,7 @@ def test_kernel_sources_are_packaged():
     for kern in tatt.KERNELS:
         assert kern.source.is_file(), kern.source
         assert kern.source.parent.name == "csrc"
+    assert sorted(k.source.name for k in tatt.KERNELS) == [
+        "flash_bwd_dkv.cu", "flash_bwd_dq.cu", "flash_fwd.cu",
+        "paged_decode.cu"]
     assert (tatt.FLASH_FWD.source.parent / "common.cuh").is_file()

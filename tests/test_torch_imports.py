@@ -89,6 +89,29 @@ def test_entry_points_default_to_the_card():
         ServingEngine(model, EngineConfig())
 
 
+def test_train_step_runs_where_the_model_lies():
+    """The training entry points take the card by default through the
+    model (``init_llama`` above raises without CUDA); a model built with
+    ``device="cpu"`` trains on the CPU, with a CPU batch."""
+    import dataclasses
+
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        init_llama,
+        llama_tiny,
+        make_lm_train_step,
+    )
+
+    cfg = dataclasses.replace(llama_tiny(), num_layers=1)
+    model = init_llama(cfg, seed=0, device="cpu", dtype=torch.float32)
+    state = TrainState(model, adamw(model.parameters(), 1e-3))
+    state, loss = make_lm_train_step(chunk=128)(
+        state, {"input_ids": torch.zeros(2, 8, dtype=torch.long)})
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
+    assert state.step == 1
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     """Without CUDA the check exits non-zero and prints no result line;
     so it does alone in a directory without the port."""

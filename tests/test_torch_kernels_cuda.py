@@ -26,8 +26,16 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-5, 2.0 ** -7)}
 
 
-def _assert_kernel_close(out, ref, dtype):
-    atol, rtol = TOL[dtype]
+# gradients (values up to ~10 at d=128) in fp32: sums of a few thousand
+# terms in another order; the bound tests/test_models.py holds the Pallas
+# backward to. bf16: as TOL.
+BWD_TOL = {torch.float32: (2e-4, 1e-5), torch.bfloat16: TOL[torch.bfloat16]}
+# lse rows of O(log s), fp32 in both dtypes: sum order and q pre-scaling
+LSE_ATOL = 1e-4
+
+
+def _assert_kernel_close(out, ref, dtype, tol=TOL):
+    atol, rtol = tol[dtype]
     torch.testing.assert_close(out.float(), ref.to(dtype).float(),
                                atol=atol, rtol=rtol)
 
@@ -63,6 +71,116 @@ def test_flash_kernel_matches_plain(cuda, dtype, s, sk, h, kvh, d, causal):
     assert tatt.FLASH_FWD.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     _assert_kernel_close(out, ref, dtype)
+
+
+FLASH_SHAPES = [
+    (100, 100, 8, 2, 64, True),     # ragged tail, GQA 4
+    (64, 200, 4, 4, 128, False),    # more keys than queries, full
+    (200, 64, 4, 2, 64, False),     # more queries than keys, full
+    (257, 257, 32, 8, 128, True),   # the slice's heads, ragged
+    (1, 1, 2, 1, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,sk,h,kvh,d,causal", FLASH_SHAPES)
+def test_flash_lse_matches_plain(cuda, dtype, s, sk, h, kvh, d, causal):
+    gen = np.random.default_rng(s + 2 * sk + d)
+    q = _randn(gen, 2, s, h, d).to(cuda, dtype)
+    k = _randn(gen, 2, sk, kvh, d).to(cuda, dtype)
+    v = _randn(gen, 2, sk, kvh, d).to(cuda, dtype)
+    out, lse = tatt.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+    ref, ref_lse = tatt.reference_attention_lse(q.float(), k.float(),
+                                                v.float(), causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (2, h, s)
+    _assert_kernel_close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,sk,h,kvh,d,causal", FLASH_SHAPES)
+def test_flash_backward_kernels_match_plain(cuda, dtype, s, sk, h, kvh, d,
+                                            causal):
+    """dq, dk, dv from the two backward kernels against the plain backward
+    in fp32 on the same inputs and residuals (o rounded to the kernels'
+    type, so both take delta from the same o); dk/dv at kvh heads."""
+    gen = np.random.default_rng(3 * s + sk + d)
+    q = _randn(gen, 2, s, h, d).to(cuda, dtype)
+    k = _randn(gen, 2, sk, kvh, d).to(cuda, dtype)
+    v = _randn(gen, 2, sk, kvh, d).to(cuda, dtype)
+    g = _randn(gen, 2, s, h, d).to(cuda, dtype)
+    scale = d ** -0.5
+    o, lse = tatt.reference_attention_lse(q.float(), k.float(), v.float(),
+                                          causal, scale)
+    o = o.to(dtype)
+    before = (tatt.FLASH_BWD_DQ.launches, tatt.FLASH_BWD_DKV.launches)
+    got = tatt.flash_attention_bwd(q, k, v, o, lse, g, causal, scale)
+    want = tatt.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, g.float(), causal,
+        scale)
+    torch.cuda.synchronize()
+    assert (tatt.FLASH_BWD_DQ.launches, tatt.FLASH_BWD_DKV.launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, x, y, t in zip("q k v".split(), got, want, (q, k, v)):
+        assert x.dtype == dtype and x.shape == t.shape, name
+        assert torch.isfinite(x).all(), name
+        _assert_kernel_close(x, y, dtype, BWD_TOL)
+
+
+def test_flash_autograd_round_trip_matches_cpu(cuda):
+    """torch.autograd through flash_attention on the card (forward with
+    lse, then both backward kernels) against the same call on the CPU
+    (the plain versions), fp32, GQA."""
+    gen = np.random.default_rng(7)
+    cpu = [_randn(gen, 2, 130, 8, 64), _randn(gen, 2, 130, 2, 64),
+           _randn(gen, 2, 130, 2, 64)]
+    g = _randn(gen, 2, 130, 8, 64)
+
+    def grads(ts, g_):
+        ts = [t.clone().requires_grad_() for t in ts]
+        out = tatt.flash_attention(*ts, causal=True)
+        return [out.detach()] + list(torch.autograd.grad(out, ts, g_))
+
+    tatt.reset_launch_counts()
+    on_card = grads([t.to(cuda) for t in cpu], g.to(cuda))
+    torch.cuda.synchronize()
+    assert [k.launches for k in tatt.KERNELS] == [1, 1, 1, 0]
+    for x, y in zip(on_card, grads(cpu, g)):
+        torch.testing.assert_close(x.cpu(), y, atol=2e-4, rtol=1e-5)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two fp32 steps of a small Llama (head_dim 64) with remat on the
+    card, through all three flash kernels, against the same steps on the
+    CPU; launches per step: 2 forwards (one is remat's recompute), one dq
+    and one dkv per layer."""
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        init_llama,
+        llama_tiny,
+        make_lm_train_step,
+        policy,
+    )
+
+    cfg = dataclasses.replace(llama_tiny(), d_model=256, attn_impl="flash")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2, 96)))
+    step = make_lm_train_step(remat=True, precision=policy("fp32"),
+                              chunk=128)
+
+    def run(device):
+        model = init_llama(cfg, seed=0, device="cpu", dtype=torch.float32)
+        model = model.to(device)
+        state = TrainState(model, adamw(model.parameters(), 1e-3, 0.1))
+        return [float(step(state, {"input_ids": b})[1]) for b in ids]
+
+    tatt.reset_launch_counts()
+    on_card = run(cuda)
+    n = cfg.num_layers * len(ids)
+    assert [k.launches for k in tatt.KERNELS] == [2 * n, n, n, 0]
+    np.testing.assert_allclose(on_card, run("cpu"), rtol=1e-5)
 
 
 def _paged(gen, b, h, kvh, d, bs, seq_lens):
@@ -120,6 +238,14 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.zeros(1, 4, 8, 64, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         tatt.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    with pytest.raises(TypeError, match="one type"):
+        tatt.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="lse"):
+        tatt.flash_attention_bwd(q, q, q, q, torch.zeros(1, 4, 8,
+                                                         device=cuda,
+                                                         dtype=torch.bfloat16),
+                                 q, True, 0.125)
     pages = torch.zeros(3, 8, 2, 64, device=cuda)
     with pytest.raises(TypeError, match="int32"):
         tatt.paged_decode_attention(
