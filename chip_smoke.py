@@ -14,23 +14,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. each kernel against its plain PyTorch version on the card, at the
    slices' shapes in bf16, with its time, its bound and the time of
    PyTorch's own ``scaled_dot_product_attention`` (forward; forward and
-   backward less forward) as a yardstick; the forward's logsumexp output
-   in fp32, and the forward with its logsumexp in bf16 at the training
-   slice's shape
+   backward less forward) as a yardstick; the int8 paged decode also with
+   an fp32 query, over shared-prefix and COW-copied pages; the forward's
+   logsumexp output in fp32, and the forward with its logsumexp in bf16
+   at the training slice's shape
 4. engine parity at Llama-8B width and 2 layers in fp32: the engine on
-   the kernels against the same weights' plain dense path
+   the kernels against the same weights' plain dense path; and the
+   int8-kv engine against the fp32 engine from the same weights, held by
+   the quant logit gate
 5. the serving slice: full-depth Llama-8B in bf16 serving 16 requests on
    the engine; the kernels' launch counts show every prefill and decode
    step went through them
-6. training parity at Llama-8B width and 2 layers in fp32: 3 steps of the
+6. the int8-kv serving slice: the same model and requests with int8
+   weights and an int8 paged KV cache, every decode step's attention in
+   the int8 kernel; its memory, and a profile of 4 decode steps beside
+   the time the weights' dequantization takes a step
+7. training parity at Llama-8B width and 2 layers in fp32: 3 steps of the
    LM train step with the attention in the kernels against the plain
    dense attention, from the same weights on the same batches
-7. the training slice: Llama-8B widths cut to 8 layers, fp32 master
+8. the training slice: Llama-8B widths cut to 8 layers, fp32 master
    weights, the bf16 policy, AdamW, remat, head-folded cross-entropy,
    batch 4 x 2048 tokens; 5 timed steps whose launch counts show every
    layer's forward, recompute and backward went through the kernels, and
    one step under the profiler
-8. one JSON line with every kernel's numbers, then the result line
+9. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -71,6 +78,14 @@ LSE_ATOL = 1e-4
 # projection
 FP32_TRAIN_RTOL = 1e-6
 FP32_GRAD_RTOL = 1e-4
+# int8 paged decode with an fp32 query against its plain version in fp32:
+# the same scale fold, sums in another order (the bound the JAX package's
+# tests hold its Pallas int8 kernel to)
+INT8_FP32_ATOL = 2e-5
+# int8 weights and KV against fp32, while the greedy streams agree: the
+# JAX package's quant gate (tests/test_quant.py), max |d logit| over the
+# reference row's range
+QUANT_GATE_REL = 0.05
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (NVIDIA data sheet)
 H100_BYTES_S = 3.35e12     # HBM3 (NVIDIA data sheet)
 SEED = 0
@@ -194,12 +209,12 @@ def flash_phase(torch):
     return rows
 
 
-def paged_phase(torch):
+def _paged_geometry(b, bs, max_seq):
+    """The paged phases' batch: lengths drawn from SEED in 17..max_seq
+    (both ends included), disjoint page runs in a shuffled pool with 64
+    pages to spare; returns (seq_lens, tables, num_pages, spare pages)."""
     import numpy as np
 
-    from move2kube_tpu_torch.ops import attention as att
-
-    b, h, kvh, d, bs, max_seq = 8, 32, 8, 128, 16, 2048
     mb = max_seq // bs
     rng = np.random.default_rng(SEED)
     seq_lens = rng.integers(17, max_seq + 1, size=b).astype(np.int32)
@@ -210,6 +225,14 @@ def paged_phase(torch):
     tables = np.zeros((b, mb), np.int32)
     for i, n in enumerate(need):
         tables[i, :n] = [order.pop() for _ in range(n)]
+    return seq_lens, tables, num_pages, order
+
+
+def paged_phase(torch):
+    from move2kube_tpu_torch.ops import attention as att
+
+    b, h, kvh, d, bs, max_seq = 8, 32, 8, 128, 16, 2048
+    seq_lens, tables, num_pages, _ = _paged_geometry(b, bs, max_seq)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     q = torch.randn(b, h, d, device="cuda", generator=gen).bfloat16()
@@ -251,6 +274,92 @@ def paged_phase(torch):
         f"bf16) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
         f"{nbytes / ms / 1e6:.1f} GB/s achieved)")
+    return row
+
+
+def paged_int8_phase(torch):
+    """The int8 paged-decode kernel at paged_phase's batch: pools from
+    ``quantize_kv_rows`` of random rows, a bf16 and an fp32 query, NaN
+    scales and +-127 rows in the null page (the kernel must never read
+    it; the plain version runs on a copy whose null page is zeroed, as
+    0 * NaN is NaN in its fold), then a shared-prefix pair and a COW-copied
+    page; time, plain time and the bytes bound."""
+    from move2kube_tpu_torch.ops import attention as att
+    from move2kube_tpu_torch.serving.kvcache import copy_page
+
+    b, h, kvh, d, bs, max_seq = 8, 32, 8, 128, 16, 2048
+    scale = d ** -0.5
+    seq_lens, tables, num_pages, spare = _paged_geometry(b, bs, max_seq)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    q = torch.randn(b, h, d, device="cuda", generator=gen).bfloat16()
+    k8, ks = att.quantize_kv_rows(torch.randn(
+        num_pages, bs, kvh, d, device="cuda", generator=gen))
+    v8, vs = att.quantize_kv_rows(torch.randn(
+        num_pages, bs, kvh, d, device="cuda", generator=gen))
+    bt = torch.from_numpy(tables).cuda()
+    sl = torch.from_numpy(seq_lens).cuda()
+    pools = (k8, v8, ks, vs)
+    for t in pools:
+        t[0] = 0
+    clean = tuple(t.clone() for t in pools)
+    ref = att.paged_decode_int8_reference(q.float(), *clean, bt, sl, scale)
+    sign = torch.where(torch.arange(d, device="cuda") % 2 == 0, 127, -127)
+    k8[0] = sign.to(torch.int8)
+    v8[0] = (-sign).to(torch.int8)
+    ks[0] = float("nan")
+    vs[0] = float("nan")
+
+    def kernel(q_, k_, v_, ks_, vs_, bt_, sl_):
+        return att.paged_decode_attention(q_, k_, v_, bt_, sl_, k_scale=ks_,
+                                          v_scale=vs_)
+
+    err = bf16_check(torch, "paged_decode_int8 (bf16 q, poisoned null "
+                     "page)", kernel(q, *pools, bt, sl), ref)
+    err32 = (kernel(q.float(), *pools, bt, sl) - ref).abs().max().item()
+    # a shared prefix and a COW copy: rows 0 and 1 read sequence 1's first
+    # 1000 tokens, row 1 through a copy of its 11th page; row 2 its first
+    # 500 with another query
+    cow = spare[0]
+    copy_page({"k": [k8], "v": [v8], "k_scale": [ks], "v_scale": [vs]},
+              int(tables[1, 10]), cow)
+    copy_page({"k": [clean[0]], "v": [clean[1]], "k_scale": [clean[2]],
+               "v_scale": [clean[3]]}, int(tables[1, 10]), cow)
+    bt3 = bt[[1, 1, 1]].clone()
+    bt3[1, 10] = cow
+    sl3 = torch.tensor([1000, 1000, 500], dtype=torch.int32, device="cuda")
+    q3 = q.float()[[1, 1, 2]].contiguous()
+    out3 = kernel(q3, *pools, bt3, sl3)
+    ref3 = att.paged_decode_int8_reference(q3, *clean, bt3, sl3, scale)
+    err3 = (out3 - ref3).abs().max().item()
+    if not (err32 <= INT8_FP32_ATOL and err3 <= INT8_FP32_ATOL
+            and torch.equal(out3[0], out3[1])):
+        raise RuntimeError(
+            f"paged_decode_int8 fp32 q: max abs err {err32:.3e}, shared/COW"
+            f" rows {err3:.3e} (tol {INT8_FP32_ATOL}); COW row equal to its"
+            f" original: {torch.equal(out3[0], out3[1])}")
+    sets = _copies(torch, (q, *pools, bt, sl))
+    ms = cuda_ms(torch, kernel, sets, 200)
+    plain_ms = cuda_ms(torch, lambda *a: att.paged_decode_int8_reference(
+        *a, scale), [(q, *clean, bt, sl)] * 2, 20)
+    del sets
+    tokens = int(seq_lens.sum())
+    # int8 K and V rows and their fp32 scales, q in, o out, tables
+    nbytes = (tokens * kvh * (d + 4) * 2 + 2 * q.numel() * 2
+              + tables.nbytes + seq_lens.nbytes)
+    ops = 4 * tokens * h * d
+    t_ops = ops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_S * 1e3
+    row = dict(err=max(err, err32, err3), ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"paged_decode_int8 b={b} h={h} kvh={kvh} d={d} bs={bs} seq_lens "
+        f"{seq_lens.tolist()} int8 pools: bf16 q max_abs_err {err:.3e} "
+        f"(within {BF16_ATOL} + {BF16_RTOL} |x| of the plain result rounded"
+        f" to bf16), fp32 q {err32:.3e}, shared-prefix / COW rows "
+        f"{err3:.3e} (tol {INT8_FP32_ATOL}), COW row bit-equal; kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {row['bound_ms']:.4f} "
+        f"ms ({row['bound_by']}, {nbytes / ms / 1e6:.1f} GB/s achieved)")
     return row
 
 
@@ -439,35 +548,90 @@ def parity_phase(torch):
     log(f"parity: llama_8b widths, 2 layers, fp32, prompts {list(lengths)}"
         f" x {n_new} tokens: streams identical, prefill/first-decode "
         f"logits max abs err {worst:.3e} (tol {FP32_ENGINE_ATOL})")
-    del eng, model, plain
+    ref = ({rid: c.tokens for rid, c in comps.items()}, eng.logit_log)
+    del eng, plain
+    torch.cuda.empty_cache()
+    quant_gate_phase(torch, model, prompts, n_new, ref)
+    del model
     torch.cuda.empty_cache()
 
 
-def slice_phase(torch):
-    import numpy as np
-
+def quant_gate_phase(torch, model, prompts, n_new, ref) -> None:
+    """The int8-kv engine (int8 weights, int8 cache, the int8 decode
+    kernel) against the fp32 engine's run ``ref`` (tokens and logit rows
+    by request) on the same fp32 weights: over each request's agreed
+    greedy prefix (and the first row after it) the logits stay within the
+    quant gate."""
     from move2kube_tpu_torch import (
         EngineConfig,
         Request,
         ServingEngine,
-        init_llama,
-        llama_8b,
+        logit_gate,
+        reset_launch_counts,
+    )
+    from move2kube_tpu_torch.ops.attention import PAGED_DECODE_INT8
+
+    reset_launch_counts()
+    eng = ServingEngine(model, EngineConfig(
+        max_batch=4, max_seq=1280, block_size=16, quant="int8-kv"),
+        device="cuda")
+    eng.capture_logits = True
+    got = {c.rid: c.tokens for c in eng.run(
+        [Request(f"p{i}", p, n_new) for i, p in enumerate(prompts)])}
+    got_log = eng.logit_log
+    del eng
+    if PAGED_DECODE_INT8.launches == 0:
+        raise RuntimeError("quant gate: the int8-kv engine never launched "
+                           "paged_decode_int8")
+    ref, ref_log = ref
+    worst, rows, agreed = 0.0, 0, []
+    for rid, a_t in ref.items():
+        b_t = got[rid]
+        agree = 0
+        while agree < min(len(a_t), len(b_t)) and a_t[agree] == b_t[agree]:
+            agree += 1
+        agreed.append(agree)
+        for i in range(min(agree + 1, len(ref_log[rid]),
+                           len(got_log[rid]))):
+            gate = logit_gate(ref_log[rid][i], got_log[rid][i])
+            worst = max(worst, gate["max_rel_err"])
+            rows += 1
+    if not (worst < QUANT_GATE_REL and rows >= len(prompts)):
+        raise RuntimeError(f"quant gate: int8-kv vs fp32 max rel err "
+                           f"{worst:.4f} over {rows} rows (tol "
+                           f"{QUANT_GATE_REL}); agreed tokens {agreed}")
+    log(f"quant gate: llama_8b widths, 2 layers, fp32 weights, int8-kv "
+        f"engine vs fp32 engine, prompts {[len(p) for p in prompts]} x "
+        f"{n_new} tokens: greedy tokens agreed {agreed} of {n_new}, max rel"
+        f" logit err {worst:.4f} over {rows} rows (tol {QUANT_GATE_REL}); "
+        f"paged_decode_int8 launched {PAGED_DECODE_INT8.launches} times")
+
+
+def _serve_slice(torch, model, econf, label: str, decode_kernel: str):
+    """The serving slices' run: a warm-up on its own engine (first-call
+    costs stay out of the numbers), then 16 requests submitted at once
+    (prompt lengths drawn from seed 2 in 64..1536, 64 new tokens each) on
+    a fresh engine with every launch count set to 0 just before. Checks
+    that every request completed with finite logits and that each layer
+    launched ``flash_fwd`` once a prefill and ``decode_kernel`` once a
+    decode step, and nothing else; prints the numbers, then profiles a
+    prefill and 4 decode steps. Returns the launch counts and one decode
+    step's profiled device busy time in ms."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        Request,
+        ServingEngine,
+        param_bytes,
         reset_launch_counts,
     )
     from move2kube_tpu_torch.ops.attention import KERNELS
 
-    torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(llama_8b(), attn_impl="flash")
-    t0 = time.perf_counter()
-    model = init_llama(cfg, seed=SEED, device="cuda").eval()
-    torch.cuda.synchronize()
-    log(f"slice: llama_8b, attn_impl='flash', bf16 weights drawn on the "
-        f"card in {time.perf_counter() - t0:.1f} s")
-    econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16)
-    # warm-up on its own engine: first-call costs stay out of the numbers
+    cfg = model.cfg
     ServingEngine(model, econf, device="cuda").run(
         [Request("warm", list(range(1, 65)), 4)])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(SEED + 2)
     lengths = rng.integers(64, 1537, size=16)
     reqs = [Request(f"r{i}", rng.integers(1, cfg.vocab_size,
@@ -483,35 +647,91 @@ def slice_phase(torch):
     launches = {k.name: k.launches for k in KERNELS}
     stats = eng.stats()
     if len(comps) != 16 or any(len(c.tokens) != 64 for c in comps):
-        raise RuntimeError("slice: not every request completed with 64 "
+        raise RuntimeError(f"{label}: not every request completed with 64 "
                            "tokens")
     for rid, rows in eng.logit_log.items():
         if not all(np.isfinite(r).all() for r in rows):
-            raise RuntimeError(f"slice: non-finite logits for {rid}")
-    want = {"flash_fwd": cfg.num_layers * stats["prefills"],
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode": cfg.num_layers * stats["decode_steps"]}
+            raise RuntimeError(f"{label}: non-finite logits for {rid}")
+    want = {k.name: 0 for k in KERNELS}
+    want["flash_fwd"] = cfg.num_layers * stats["prefills"]
+    want[decode_kernel] = cfg.num_layers * stats["decode_steps"]
     if launches != want or stats["prefills"] != 16:
-        raise RuntimeError(f"slice: launches {launches}, expected {want} "
+        raise RuntimeError(f"{label}: launches {launches}, expected {want} "
                            f"({stats['prefills']} prefills, "
                            f"{stats['decode_steps']} decode steps)")
     generated = sum(len(c.tokens) for c in comps)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"slice: 16 requests, prompts {sorted(lengths.tolist())}, 64 new "
-        f"tokens each, max_batch 8: wall {wall:.3f} s, "
-        f"{generated / wall:.1f} tokens/s overall, decode "
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for pools in eng._cache.values()
+                   if isinstance(pools, list) for t in pools)
+    log(f"{label}: 16 requests, prompts {sorted(lengths.tolist())}, 64 new "
+        f"tokens each, max_batch 8, quant {econf.quant}: wall {wall:.3f} s,"
+        f" {generated / wall:.1f} tokens/s overall, decode "
         f"{stats['decode_throughput_tokens_s']:.1f} tokens/s over "
         f"{stats['decode_steps']} steps "
         f"({stats['decode_time_s'] / stats['decode_steps'] * 1e3:.2f} "
         f"ms/step), {stats['prefills']} prefills in "
         f"{stats['prefill_time_s']:.3f} s, mean TTFT "
         f"{stats['ttft_mean_ms']:.1f} ms (max {stats['ttft_max_ms']:.1f} "
-        f"ms, all submitted at once), peak memory {peak:.2f} GiB")
-    log(f"slice: launches {launches} = {cfg.num_layers} layers x "
+        f"ms, all submitted at once); resident parameters "
+        f"{param_bytes(model) / 1e9:.3f} GB, KV pools {kv_bytes / 1e9:.3f} "
+        f"GB, peak memory {peak:.2f} GiB")
+    log(f"{label}: launches {launches} = {cfg.num_layers} layers x "
         f"({stats['prefills']} prefills, {stats['decode_steps']} decode "
         "steps)")
     del eng
-    profile_phase(torch, model, econf, rng)
+    return launches, profile_phase(torch, model, econf, rng)
+
+
+def slice_phase(torch):
+    from move2kube_tpu_torch import EngineConfig, init_llama, llama_8b
+
+    cfg = dataclasses.replace(llama_8b(), attn_impl="flash")
+    t0 = time.perf_counter()
+    model = init_llama(cfg, seed=SEED, device="cuda").eval()
+    torch.cuda.synchronize()
+    log(f"slice: llama_8b, attn_impl='flash', bf16 weights drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16)
+    return _serve_slice(torch, model, econf, "slice", "paged_decode")[0]
+
+
+def int8_slice_phase(torch):
+    """The int8-kv slice: the serving slice's model (seed 0, bf16) and
+    requests with ``quant="int8-kv"``. The bf16 weights are quantized and
+    freed before any engine runs; each engine the slice builds leaves the
+    already-quantized layers as they are."""
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        QuantLinear,
+        init_llama,
+        llama_8b,
+        quantize_model,
+    )
+
+    cfg = dataclasses.replace(llama_8b(), attn_impl="flash")
+    t0 = time.perf_counter()
+    model = quantize_model(init_llama(cfg, seed=SEED, device="cuda").eval())
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"int8 slice: llama_8b bf16 weights drawn and quantized to int8 on "
+        f"the card in {time.perf_counter() - t0:.1f} s; the bf16 weights "
+        "are freed")
+    econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16,
+                         quant="int8-kv")
+    launches, busy = _serve_slice(torch, model, econf, "int8 slice",
+                                  "paged_decode_int8")
+    # the dequantization a decode step runs, alone: every int8 weight to
+    # its compute type once
+    qlinears = [m for m in model.modules() if isinstance(m, QuantLinear)]
+    dq_ms = cuda_ms(torch, lambda: [m.dequantized() for m in qlinears],
+                    [()], 5)
+    if not busy > 0:
+        raise RuntimeError("int8 slice: the profiler saw no device time")
+    log(f"int8 slice: dequantizing all {len(qlinears)} int8 weights, as "
+        f"each step does, takes {dq_ms:.3f} ms on its own: "
+        f"{100 * dq_ms / busy:.1f}% of a profiled decode step's device busy"
+        f" time ({busy:.3f} ms)")
     return launches
 
 
@@ -626,7 +846,8 @@ def train_slice_phase(torch):
     losses = [float(x) for x in losses]
     norms = [float(x) for x in norms]
     want = {"flash_fwd": 2 * layers * timed, "flash_bwd_dq": layers * timed,
-            "flash_bwd_dkv": layers * timed, "paged_decode": 0}
+            "flash_bwd_dkv": layers * timed, "paged_decode": 0,
+            "paged_decode_int8": 0}
     if launches != want:
         raise RuntimeError(f"train slice: launches {launches}, expected "
                            f"{want} ({layers} layers x {timed} steps)")
@@ -644,12 +865,12 @@ def train_slice_phase(torch):
     return launches
 
 
-def _profiled(torch, label: str, fn) -> None:
+def _profiled(torch, label: str, fn) -> float:
     """Run ``fn`` under torch.profiler; print its wall time, the device's
     busy time (kernels on one stream do not overlap, so their times add
-    up to it) and the kernels that took most of it. Host-side operator
-    entries also carry their kernels' device time; only the kernels'
-    own entries are counted."""
+    up to it) and the kernels that took most of it, and return the busy
+    time in ms. Host-side operator entries also carry their kernels'
+    device time; only the kernels' own entries are counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -676,11 +897,13 @@ def _profiled(torch, label: str, fn) -> None:
         f"{sum(e.count for e in events)} kernels")
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return busy_us / 1e3
 
 
-def profile_phase(torch, model, econf, rng) -> None:
+def profile_phase(torch, model, econf, rng) -> float:
     """Where the slice's time goes: one prefill of a 1000-token prompt,
-    then 4 decode steps at a full batch of 8 (prompts of 512)."""
+    then 4 decode steps at a full batch of 8 (prompts of 512). Returns
+    the device busy time of one decode step."""
     from move2kube_tpu_torch import Request, ServingEngine
 
     vocab = model.cfg.vocab_size
@@ -688,14 +911,15 @@ def profile_phase(torch, model, econf, rng) -> None:
                         device="cuda")
     eng.submit(Request("long", rng.integers(1, vocab, size=1000).tolist(),
                        16))
-    _profiled(torch, "prefill (1000 tokens, bucket 1024) + 1 decode step "
-              "at 1 of 8 slots", eng.step)
+    _profiled(torch, f"prefill (1000 tokens, bucket 1024) + 1 decode step "
+              f"at 1 of 8 slots (quant {econf.quant})", eng.step)
     for i in range(7):
         eng.submit(Request(f"b{i}", rng.integers(1, vocab,
                                                  size=512).tolist(), 16))
     eng.step()  # admits the 7 (prefills) and decodes
-    _profiled(torch, "4 decode steps at 8 of 8 slots",
-              lambda: [eng.step() for _ in range(4)])
+    return _profiled(torch, f"4 decode steps at 8 of 8 slots (quant "
+                     f"{econf.quant})",
+                     lambda: [eng.step() for _ in range(4)]) / 4
 
 
 def main() -> int:
@@ -716,10 +940,12 @@ def main() -> int:
     build_phase()
     flash_rows = flash_phase(torch)
     paged = paged_phase(torch)
+    paged_int8 = paged_int8_phase(torch)
     lse_err = lse_phase(torch)
     bwd = bwd_phase(torch)
     parity_phase(torch)
     launches = slice_phase(torch)
+    int8_launches = int8_slice_phase(torch)
     train_parity_phase(torch)
     train_launches = train_slice_phase(torch)
     main_flash = flash_rows[-1]  # s=2048, the longest prefill bucket
@@ -741,6 +967,14 @@ def main() -> int:
          "max_abs_err": paged["err"], "ms": paged["ms"],
          "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
          "bound_by": paged["bound_by"], "library_ms": None},
+        {"name": "paged_decode_int8", "route": "cuda",
+         "source": "move2kube_tpu_torch/csrc/paged_decode_int8.cu",
+         "replaces": "move2kube_tpu/ops/attention.py:878",
+         "launches": int8_launches["paged_decode_int8"],
+         "max_abs_err": paged_int8["err"], "ms": paged_int8["ms"],
+         "plain_ms": paged_int8["plain_ms"],
+         "bound_ms": paged_int8["bound_ms"],
+         "bound_by": paged_int8["bound_by"], "library_ms": None},
     ]
     for name, line in (("flash_bwd_dq", 439), ("flash_bwd_dkv", 487)):
         row = bwd[name]

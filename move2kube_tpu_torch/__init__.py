@@ -1,15 +1,19 @@
 """PyTorch + CUDA port of move2kube_tpu's compute runtime.
 
-Two slices are ported. Serving: the synchronous paged-KV path of the
+Three slices are ported. Serving: the synchronous paged-KV path of the
 Llama engine, the model (:mod:`.models.llama`), its weights
 (:mod:`.models.convert`), the paged KV cache (:mod:`.serving.kvcache`) and
-the continuous-batching engine (:mod:`.serving.engine`). Training: the
+the continuous-batching engine (:mod:`.serving.engine`). int8 serving:
+the quant policies, int8 weights dequantized inside each step
+(:mod:`.serving.quant`) and the int8 paged KV cache with per-row scales.
+Training: the
 single-device Llama LM step (:mod:`.models.train`) with fp32 master
 weights, the precision policies (:mod:`.models.precision`) and the
 head-folded chunked cross-entropy (:mod:`.ops.crossentropy`). Attention
 runs in hand-written CUDA kernels (:mod:`.ops.attention`): the flash
-forward, its two backward kernels and paged decode. Entry points run on
-the card unless the caller passes ``device="cpu"``.
+forward, its two backward kernels, and paged decode over fp/bf16 and over
+int8 pages. Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 
 from move2kube_tpu_torch.models.convert import init_llama, params_from_jax
@@ -41,6 +45,7 @@ from move2kube_tpu_torch.ops.attention import (
     FlashAttention,
     flash_attention,
     paged_decode_attention,
+    quantize_kv_rows,
     reset_launch_counts,
 )
 from move2kube_tpu_torch.ops.crossentropy import (
@@ -54,6 +59,14 @@ from move2kube_tpu_torch.serving.engine import (
     Request,
     ServingEngine,
 )
+from move2kube_tpu_torch.serving.quant import (
+    QUANT_OPTIONS,
+    QuantLinear,
+    QuantPolicy,
+    logit_gate,
+    param_bytes,
+    quantize_model,
+)
 
 __all__ = [
     "Completion",
@@ -64,6 +77,9 @@ __all__ = [
     "LlamaConfig",
     "Optimizer",
     "PrecisionPolicy",
+    "QUANT_OPTIONS",
+    "QuantLinear",
+    "QuantPolicy",
     "Request",
     "ServingEngine",
     "TrainState",
@@ -79,12 +95,16 @@ __all__ = [
     "instrument_optimizer",
     "llama_8b",
     "llama_tiny",
+    "logit_gate",
     "make_lm_train_step",
     "notfinite_streak",
     "paged_decode_attention",
+    "param_bytes",
     "params_from_jax",
     "pick_chunk",
     "policy",
+    "quantize_kv_rows",
+    "quantize_model",
     "reset_launch_counts",
     "skipped_updates",
 ]

@@ -8,7 +8,11 @@ weights ``[out, in]``, the fused ``qkv``/``gate_up`` projections stay
 fused, ``embed/embedding`` becomes the embedding table and the norms'
 ``scale`` stays a vector. Matrices take ``cfg.dtype`` (what flax's
 ``dtype=`` computes in); the norm scales and the lm-head stay fp32, as
-flax keeps and computes them.
+flax keeps and computes them. The JAX package's int8 tree
+(``serving/quant.quantize_variables``: each kernel a ``{"q8", "scale"}``
+leaf) maps onto a quantized model's buffers (``serving/quant.
+quantize_model``): ``q8`` transposed to ``[out, in]``, ``scale`` to
+``[out, 1]``.
 
 :func:`init_llama` builds a model and initialises it where it lives, in
 its own types, from a ``torch.Generator`` on that device, with flax's
@@ -43,13 +47,22 @@ _TRUNC_STD = 0.87962566103423978
 
 def params_from_jax(params: dict, cfg: LlamaConfig) -> dict:
     """flax ``Llama`` params (numpy leaves; an outer ``{"params": ...}``
-    is accepted too) -> the torch ``Llama`` ``state_dict`` (CPU
-    tensors)."""
+    is accepted too), plain or int8 -> the torch ``Llama`` ``state_dict``
+    (CPU tensors); an int8 tree gives the ``state_dict`` of the quantized
+    model."""
     p = params.get("params", params)
 
     def mat(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(
             np.asarray(x, np.float32).T)).to(dtype)
+
+    def linear(prefix, kernel, dtype):
+        if isinstance(kernel, dict) and set(kernel) == {"q8", "scale"}:
+            for key, t in (("q8", np.int8), ("scale", np.float32)):
+                sd[f"{prefix}.{key}"] = torch.from_numpy(
+                    np.array(np.asarray(kernel[key], t).T, order="C"))
+        else:
+            sd[f"{prefix}.weight"] = mat(kernel, dtype)
 
     def vec(x):
         return torch.from_numpy(np.array(x, np.float32))
@@ -59,12 +72,11 @@ def params_from_jax(params: dict, cfg: LlamaConfig) -> dict:
     for i in range(cfg.num_layers):
         layer = p[f"layer_{i}"]
         for name in _LINEARS:
-            sd[f"layers.{i}.{name}.weight"] = mat(layer[name]["kernel"],
-                                                  cfg.dtype)
+            linear(f"layers.{i}.{name}", layer[name]["kernel"], cfg.dtype)
         for name in _NORMS:
             sd[f"layers.{i}.{name}.scale"] = vec(layer[name]["scale"])
     sd["final_norm.scale"] = vec(p["final_norm"]["scale"])
-    sd["lm_head.weight"] = mat(p["lm_head"]["kernel"], torch.float32)
+    linear("lm_head", p["lm_head"]["kernel"], torch.float32)
     return sd
 
 

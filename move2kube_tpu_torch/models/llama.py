@@ -19,7 +19,11 @@ Attention is selected by ``LlamaConfig.attn_impl``:
   (the CUDA kernel on the card)
 
 Decode against the paged cache always goes through
-:func:`move2kube_tpu_torch.ops.attention.paged_decode_attention`. MoE,
+:func:`move2kube_tpu_torch.ops.attention.paged_decode_attention`; an int8
+cache (one that carries ``k_scale``/``v_scale``) gets each new token's
+rows quantized, and its scales passed on. The projections may be the
+int8 layers of :func:`move2kube_tpu_torch.serving.quant.quantize_model`.
+MoE,
 ring and ulysses attention and the LoRA logit delta are not ported yet
 (ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
 """
@@ -37,7 +41,10 @@ from move2kube_tpu_torch._device import resolve_device
 from move2kube_tpu_torch.ops.attention import (
     flash_attention,
     paged_decode_attention,
+    quantize_kv_rows,
 )
+from move2kube_tpu_torch.serving.kvcache import PAGE_KEYS
+from move2kube_tpu_torch.serving.quant import QuantLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,16 +161,26 @@ class LlamaBlock(nn.Module):
             # token's K/V into its page (in place), then attend over the
             # pages named by the block table
             k_pages, v_pages = cache["k"], cache["v"]
+            k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
             block_size = k_pages.shape[1]
             pos = positions[:, 0].long()
             slot = torch.arange(b, device=x.device)
             blk = cache["block_tables"][slot, pos // block_size].long()
             off = pos % block_size
-            k_pages[blk, off] = k[:, 0].to(k_pages.dtype)
-            v_pages[blk, off] = v[:, 0].to(v_pages.dtype)
+            if k_scale is not None:
+                # int8 cache: this token's quantized rows and their
+                # per-(token, kv-head) scales
+                k_pages[blk, off], k_scale[blk, off] = quantize_kv_rows(
+                    k[:, 0])
+                v_pages[blk, off], v_scale[blk, off] = quantize_kv_rows(
+                    v[:, 0])
+            else:
+                k_pages[blk, off] = k[:, 0].to(k_pages.dtype)
+                v_pages[blk, off] = v[:, 0].to(v_pages.dtype)
             o = paged_decode_attention(
                 q[:, 0].contiguous(), k_pages, v_pages,
-                cache["block_tables"], cache["seq_lens"])
+                cache["block_tables"], cache["seq_lens"], k_scale=k_scale,
+                v_scale=v_scale)
             o = o.reshape(b, 1, self.q_size)
         elif cfg.attn_impl == "flash":
             o = flash_attention(q, k, v.contiguous(), causal=True)
@@ -217,8 +234,9 @@ class Llama(nn.Module):
           for the serving layer to scatter into its paged cache
         - decode (``cache=``): ``input_ids`` is ``[b]``, ONE new token per
           slot at ``positions [b]``; ``cache`` holds per-layer page lists
-          ``k``/``v``, ``block_tables`` and ``seq_lens`` (including the new
-          token). The pages are written in place. Returns ``(logits [b,
+          ``k``/``v`` (and ``k_scale``/``v_scale`` for an int8 cache),
+          ``block_tables`` and ``seq_lens`` (including the new token). The
+          pages are written in place. Returns ``(logits [b,
           vocab], cache)``.
 
         ``lora`` (the JAX model's multi-LoRA logit delta) is not ported.
@@ -231,11 +249,10 @@ class Llama(nn.Module):
             x = self.embed(input_ids[:, None])
             pos2d = positions[:, None]
             for i, layer in enumerate(self.layers):
-                layer_cache = {
-                    "k": cache["k"][i], "v": cache["v"][i],
-                    "block_tables": cache["block_tables"],
-                    "seq_lens": cache["seq_lens"],
-                }
+                layer_cache = {key: cache[key][i] for key in PAGE_KEYS
+                               if key in cache}
+                layer_cache["block_tables"] = cache["block_tables"]
+                layer_cache["seq_lens"] = cache["seq_lens"]
                 x, _ = layer(x, pos2d, None, cache=layer_cache)
             x = self.final_norm(x)
             return self._head(x)[:, 0], cache
@@ -270,8 +287,11 @@ class Llama(nn.Module):
     def _head(self, x):
         """fp32 lm-head on the fp32 hidden state; a bf16 weight (the cast
         view in training) is widened first, as flax's ``Dense(dtype=
-        float32)`` does."""
-        return F.linear(x.float(), self.lm_head.weight.float())
+        float32)`` does, and an int8 head is dequantized to fp32."""
+        head = self.lm_head
+        w = (head.dequantized() if isinstance(head, QuantLinear)
+             else head.weight)
+        return F.linear(x.float(), w.float())
 
 
 def _remat_block(layer, x, positions, mask):

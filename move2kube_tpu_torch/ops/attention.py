@@ -1,12 +1,14 @@
-"""Attention for the port: flash forward and backward, and paged decode.
+"""Attention for the port: flash forward and backward, and paged decode
+over fp/bf16 or int8 page pools.
 
 Each public function here has hand-written CUDA kernels
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``,
-``csrc/paged_decode.cu``) and a plain PyTorch version of the same function
-beside it. The choice is made by where the tensors lie, and by nothing
-else: CPU tensors take the plain version (the tests compare it with the JAX
-package), CUDA tensors launch the kernel or raise. There is no fallback
-from a CUDA tensor to the plain version.
+``csrc/paged_decode.cu``, ``csrc/paged_decode_int8.cu``) and a plain
+PyTorch version of the same function beside it. The choice is made by
+where the tensors lie, and by nothing else: CPU tensors take the plain
+version (the tests compare it with the JAX package), CUDA tensors launch
+the kernel or raise. There is no fallback from a CUDA tensor to the plain
+version.
 
 Layouts are the JAX package's (``move2kube_tpu/ops/attention.py``):
 ``[batch, seq, heads, head_dim]`` for flash, ``[batch, heads, head_dim]``
@@ -39,7 +41,12 @@ PAGED_DECODE = CudaKernel(
     "paged_decode", "m2kt_paged_decode",
     [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, FLOAT, INT,
      INT, PTR])
-KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, PAGED_DECODE)
+PAGED_DECODE_INT8 = CudaKernel(
+    "paged_decode_int8", "m2kt_paged_decode_int8",
+    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
+     FLOAT, INT, INT, PTR])
+KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, PAGED_DECODE,
+           PAGED_DECODE_INT8)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -312,6 +319,23 @@ def flash_attention(q, k, v, *, causal: bool = False,
 # --------------------------------------------------------------------------
 
 
+def quantize_kv_rows(x):
+    """Symmetric per-(token, kv-head) int8 quantization of K/V rows (the
+    JAX package's ``quantize_kv_rows``, the same operations in the same
+    order, so the two give the same bits).
+
+    ``x``: ``[..., kv_heads, head_dim]`` floating K or V. Returns ``(q,
+    scale)``: ``q`` int8 of the same shape, ``scale`` fp32 ``[...,
+    kv_heads]`` with ``q * scale[..., None]`` reconstructing ``x``. One
+    scale per written row keeps a decode append O(1): a new token never
+    re-quantizes the tokens already in its page."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def paged_decode_reference(q, k_pages, v_pages, block_tables, seq_lens,
                            scale: float):
     """Plain version of the paged-decode kernel (the fp branch of
@@ -334,6 +358,49 @@ def paged_decode_reference(q, k_pages, v_pages, block_tables, seq_lens,
     return torch.einsum("bhs,bshd->bhd", p.to(v.dtype), v)
 
 
+def paged_decode_int8_reference(q, k_pages, v_pages, k_scale, v_scale,
+                                block_tables, seq_lens, scale: float):
+    """Plain version of the int8 paged-decode kernel (the int8 branch of
+    ``_paged_decode_reference`` in the JAX package): gather the int8 pages
+    and their row scales, and fold the scales in after the contractions,
+    as a row scale is constant over head_dim:
+    ``s = ((q * scale) . k8) * k_scale`` per score, and
+    ``o = sum_s (p * v_scale) * v8``. No fp context is materialised;
+    GQA is a batched product over the KV-head axis. Returns ``q.dtype``."""
+    b, h, d = q.shape
+    _, block_size, kvh, _ = k_pages.shape
+    mb = block_tables.shape[1]
+    seq = mb * block_size
+    rep = h // kvh
+    bt = block_tables.long()
+    k8 = k_pages[bt].reshape(b, seq, kvh, d)
+    v8 = v_pages[bt].reshape(b, seq, kvh, d)
+    ks = k_scale[bt].reshape(b, seq, kvh)
+    vs = v_scale[bt].reshape(b, seq, kvh)
+    qh = (q.float() * scale).reshape(b, kvh, rep, d)
+    s = torch.einsum("bkrd,bskd->bkrs", qh, k8.float())
+    s = s * ks.transpose(1, 2)[:, :, None, :]
+    valid = (torch.arange(seq, device=q.device)[None, None, None, :]
+             < seq_lens.to(q.device)[:, None, None, None])
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    pv = torch.einsum("bkrs,bskd->bkrd",
+                      p * vs.transpose(1, 2)[:, :, None, :], v8.float())
+    return pv.reshape(b, h, d).to(q.dtype)
+
+
+def _paged_geometry_ok(name: str, h: int, kvh: int, block_size: int,
+                       block_tables, seq_lens) -> None:
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError(f"{name}: block_tables and seq_lens must be int32")
+    if block_size % 8:
+        raise ValueError(f"{name}: the CUDA kernel needs block_size % 8 == "
+                         f"0 (got {block_size})")
+    if h // kvh not in (1, 2, 4, 8):
+        raise ValueError(f"{name}: the CUDA kernel serves 1, 2, 4 or 8 query"
+                         f" heads per KV head (got {h // kvh})")
+
+
 def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
                        scale: float):
     b, h, d = q.shape
@@ -346,16 +413,8 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
         raise TypeError("paged_decode_attention: q and the page pools must "
                         f"share one dtype (q {q.dtype}, pages "
                         f"{k_pages.dtype})")
-    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
-        raise TypeError("paged_decode_attention: block_tables and seq_lens "
-                        "must be int32")
-    if block_size % 8:
-        raise ValueError("paged_decode_attention: the CUDA kernel needs "
-                         f"block_size % 8 == 0 (got {block_size})")
-    if h // kvh not in (1, 2, 4, 8):
-        raise ValueError("paged_decode_attention: the CUDA kernel serves "
-                         f"1, 2, 4 or 8 query heads per KV head (got "
-                         f"{h // kvh})")
+    _paged_geometry_ok("paged_decode_attention", h, kvh, block_size,
+                       block_tables, seq_lens)
     out = torch.empty_like(q)
     if b == 0:
         return out
@@ -368,8 +427,42 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
     return out
 
 
+def _paged_decode_int8_cuda(q, k_pages, v_pages, k_scale, v_scale,
+                            block_tables, seq_lens, scale: float):
+    name = "paged_decode_attention (int8)"
+    b, h, d = q.shape
+    _, block_size, kvh, _ = k_pages.shape
+    _kernel_args_ok(name, {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+                           "k_scale": k_scale, "v_scale": v_scale,
+                           "block_tables": block_tables,
+                           "seq_lens": seq_lens}, q.dtype, d)
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise TypeError(f"{name}: the page pools must be int8 (got "
+                        f"{k_pages.dtype}, {v_pages.dtype})")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: the scale pools must be fp32 (got "
+                        f"{k_scale.dtype}, {v_scale.dtype})")
+    _paged_geometry_ok(name, h, kvh, block_size, block_tables, seq_lens)
+    # a lane reads its d / 32 int8 values of a row in one load
+    for key, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    dev, stream = _stream_args(q)
+    PAGED_DECODE_INT8.launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), b, h, kvh, d, block_size,
+        block_tables.shape[1], float(scale), _DTYPE_CODES[q.dtype], dev,
+        stream)
+    return out
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
-                           scale: float | None = None):
+                           scale: float | None = None, k_scale=None,
+                           v_scale=None):
     """Decode-step attention against a paged KV cache. GQA-aware.
 
     - ``q``: ``[batch, heads, head_dim]``, one new query token per slot
@@ -379,20 +472,36 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
       (unused entries point at page 0, which is never read)
     - ``seq_lens``: ``[batch]`` int32 valid-token counts, INCLUDING the
       token being decoded (its K/V is already in the cache)
+    - ``k_scale``/``v_scale``: ``[num_pages, block_size, kv_heads]`` fp32
+      row scales of int8 page pools (both or neither); the result is in
+      ``q``'s type
 
-    CUDA tensors launch ``csrc/paged_decode.cu``; CPU tensors take
-    :func:`paged_decode_reference`."""
+    CUDA tensors launch ``csrc/paged_decode.cu`` (fp pools) or
+    ``csrc/paged_decode_int8.cu`` (int8 pools with their scales); CPU
+    tensors take :func:`paged_decode_reference` or
+    :func:`paged_decode_int8_reference`."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.ndim != 3 or k_pages.shape != v_pages.shape or (
             k_pages.shape[3] != q.shape[2]) or q.shape[1] % k_pages.shape[2]:
         raise ValueError(
             f"paged_decode_attention: bad shapes q {tuple(q.shape)} pages "
             f"{tuple(k_pages.shape)}")
-    if q.is_cuda:
-        return _paged_decode_cuda(q, k_pages, v_pages, block_tables,
-                                  seq_lens, scale)
-    if q.device.type == "cpu":
-        return paged_decode_reference(q, k_pages, v_pages, block_tables,
-                                      seq_lens, scale)
-    raise ValueError(
-        f"paged_decode_attention: no implementation on {q.device}")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("paged_decode_attention: pass both k_scale and "
+                         "v_scale, or neither")
+    if quantized and not (k_scale.shape == v_scale.shape
+                          == k_pages.shape[:3]):
+        raise ValueError(
+            f"paged_decode_attention: scale pools {tuple(k_scale.shape)} / "
+            f"{tuple(v_scale.shape)} do not match pages "
+            f"{tuple(k_pages.shape)}")
+    on = _on("paged_decode_attention", q)
+    if quantized:
+        args = (q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                seq_lens, scale)
+        return (_paged_decode_int8_cuda(*args) if on == "cuda"
+                else paged_decode_int8_reference(*args))
+    args = (q, k_pages, v_pages, block_tables, seq_lens, scale)
+    return (_paged_decode_cuda(*args) if on == "cuda"
+            else paged_decode_reference(*args))

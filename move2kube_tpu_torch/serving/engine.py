@@ -11,10 +11,16 @@ redirected at the null page (:func:`~.kvcache.sanitized_views`).
 The engine runs eagerly under ``torch.inference_mode()`` on the model's
 device: on the card, prefill attention is the flash kernel (with
 ``attn_impl="flash"``) and every decode step's attention is the
-paged-decode kernel. Not ported yet (ROADMAP.md, Queue 1): the async
-decode pipeline, speculative decoding, the prefix cache, quantization,
-LoRA, the scheduler plane, chunked prefill, CUDA graphs and the metrics
-registry / tracing hooks.
+paged-decode kernel (``csrc/paged_decode_int8.cu`` on an int8 cache).
+
+Low-precision serving (``quant``, :mod:`.quant`): the engine quantizes
+the model's weights once, at construction (per-output-channel int8,
+dequantized inside each step), and keeps only the quantized copy;
+``int8-kv`` also stores the paged KV cache as int8 rows with per-row
+scales. Not ported yet (ROADMAP.md, Queue 1): the async decode pipeline,
+speculative decoding, the prefix cache, the quant-drift audit, LoRA, the
+scheduler plane, chunked prefill, CUDA graphs and the metrics registry /
+tracing hooks.
 
 Env knobs (the JAX engine's names):
 
@@ -25,6 +31,8 @@ Env knobs (the JAX engine's names):
   of two from 32 up to max_seq)
 - ``M2KT_SERVE_ADMIT_BURST`` admissions per step; <= 0 = all free slots
   (default 1)
+- ``M2KT_SERVE_QUANT``      serving quant policy off|int8|int8-kv
+  (default off; an unknown name means off)
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from move2kube_tpu_torch._device import resolve_device
+from move2kube_tpu_torch.serving import quant as quantlib
 from move2kube_tpu_torch.serving.kvcache import (
     NULL_PAGE,
     PAGE_KEYS,
@@ -68,6 +77,7 @@ class EngineConfig:
     max_new_tokens: int = 32   # per-request default
     eos_id: int | None = None
     admit_burst: int = 1       # admissions per step; <= 0 = all free slots
+    quant: str = "off"         # off | int8 | int8-kv (serving/quant.py)
 
     def resolved_buckets(self) -> tuple[int, ...]:
         buckets = self.buckets or _default_buckets(self.max_seq)
@@ -97,6 +107,8 @@ class EngineConfig:
             block_size=_int("M2KT_KV_BLOCK_SIZE", cls.block_size),
             buckets=buckets,
             admit_burst=_int("M2KT_SERVE_ADMIT_BURST", cls.admit_burst),
+            quant=(lambda q: q if q in quantlib.QUANT_OPTIONS else "off")(
+                os.environ.get("M2KT_SERVE_QUANT", "") or cls.quant),
         )
         cfg.update(overrides)
         return cls(**cfg)
@@ -130,7 +142,9 @@ class ServingEngine:
     """Greedy-decoding continuous-batching engine for the port's ``Llama``
     (anything whose ``forward`` carries the prefill and paged-decode
     modes). The KV cache lives on ``device`` (the card by default), which
-    must be where the model's parameters are."""
+    must be where the model's parameters are. Under a quant policy that
+    quantizes weights, ``self.model`` is the engine's quantized copy
+    (:func:`~.quant.quantize_model`); the caller's model is not kept."""
 
     def __init__(self, model, config: EngineConfig | None = None, *,
                  device=None) -> None:
@@ -141,12 +155,16 @@ class ServingEngine:
                 and model_dev.index != self.device.index):
             raise ValueError(f"model parameters are on {model_dev}, the "
                              f"engine's device is {self.device}")
-        self.model = model
         self.config = config or EngineConfig.from_env()
+        self.quant = quantlib.policy(self.config.quant)
+        if self.quant.quantize_weights:
+            model = quantlib.quantize_model(model)
+        self.model = model
         self.buckets = self.config.resolved_buckets()
         self.cache_cfg = spec_for_model(
             model.cfg, block_size=self.config.block_size,
-            max_batch=self.config.max_batch, max_seq=self.config.max_seq)
+            max_batch=self.config.max_batch, max_seq=self.config.max_seq,
+            cache_dtype=self.quant.cache_dtype)
         self._cache = init_cache(self.cache_cfg, model_dev)
         self._allocator = PageAllocator(self.cache_cfg.num_pages)
         self._slots: list[_Slot | None] = [None] * self.config.max_batch
@@ -188,7 +206,7 @@ class ServingEngine:
         # sanitize freed/idle slots: their stale tables must not write
         # into pages the allocator may have handed to someone else
         bt, pos = sanitized_views(cache, active)
-        model_cache = {k: cache[k] for k in PAGE_KEYS}
+        model_cache = {k: cache[k] for k in PAGE_KEYS if k in cache}
         model_cache["block_tables"] = bt
         model_cache["seq_lens"] = pos + 1
         logits, _ = self.model(tokens, positions=pos, cache=model_cache)

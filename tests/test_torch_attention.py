@@ -136,8 +136,12 @@ def test_cpu_wrappers_take_plain_path_without_launching():
     tatt.paged_decode_attention(
         torch.from_numpy(qp), torch.from_numpy(kp), torch.from_numpy(vp),
         torch.from_numpy(tables), torch.from_numpy(seq_lens))
-    assert len(tatt.KERNELS) == 4
-    assert [k.launches for k in tatt.KERNELS] == [0, 0, 0, 0]
+    k8, ks = tatt.quantize_kv_rows(torch.from_numpy(kp))
+    tatt.paged_decode_attention(
+        torch.from_numpy(qp), k8, k8, torch.from_numpy(tables),
+        torch.from_numpy(seq_lens), k_scale=ks, v_scale=ks)
+    assert len(tatt.KERNELS) == 5
+    assert [k.launches for k in tatt.KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_wrappers_reject_bad_shapes():
@@ -220,5 +224,5 @@ def test_kernel_sources_are_packaged():
         assert kern.source.parent.name == "csrc"
     assert sorted(k.source.name for k in tatt.KERNELS) == [
         "flash_bwd_dkv.cu", "flash_bwd_dq.cu", "flash_fwd.cu",
-        "paged_decode.cu"]
+        "paged_decode.cu", "paged_decode_int8.cu"]
     assert (tatt.FLASH_FWD.source.parent / "common.cuh").is_file()

@@ -87,6 +87,8 @@ def test_entry_points_default_to_the_card():
     model = Llama(llama_tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, EngineConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(model, EngineConfig(quant="int8-kv"))
 
 
 def test_train_step_runs_where_the_model_lies():

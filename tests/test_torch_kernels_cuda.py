@@ -145,7 +145,7 @@ def test_flash_autograd_round_trip_matches_cpu(cuda):
     tatt.reset_launch_counts()
     on_card = grads([t.to(cuda) for t in cpu], g.to(cuda))
     torch.cuda.synchronize()
-    assert [k.launches for k in tatt.KERNELS] == [1, 1, 1, 0]
+    assert [k.launches for k in tatt.KERNELS] == [1, 1, 1, 0, 0]
     for x, y in zip(on_card, grads(cpu, g)):
         torch.testing.assert_close(x.cpu(), y, atol=2e-4, rtol=1e-5)
 
@@ -179,7 +179,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     tatt.reset_launch_counts()
     on_card = run(cuda)
     n = cfg.num_layers * len(ids)
-    assert [k.launches for k in tatt.KERNELS] == [2 * n, n, n, 0]
+    assert [k.launches for k in tatt.KERNELS] == [2 * n, n, n, 0, 0]
     np.testing.assert_allclose(on_card, run("cpu"), rtol=1e-5)
 
 
@@ -259,6 +259,162 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
             torch.ones(1, dtype=torch.int32))
 
 
+def _paged_int8(gen, b, h, kvh, d, bs, seq_lens, mb=None):
+    """int8 pools quantized from random rows by ``quantize_kv_rows``, with
+    disjoint page runs per sequence (page 0 is the null page); CPU."""
+    need = [-(-n // bs) for n in seq_lens]
+    mb = mb or max(need)
+    num_pages = 1 + sum(need) + 2
+    order = gen.permutation(np.arange(1, num_pages)).tolist()
+    tables = np.zeros((b, mb), np.int32)
+    for i, n in enumerate(need):
+        tables[i, :n] = [order.pop() for _ in range(n)]
+    k8, ks = tatt.quantize_kv_rows(_randn(gen, num_pages, bs, kvh, d))
+    v8, vs = tatt.quantize_kv_rows(_randn(gen, num_pages, bs, kvh, d))
+    return (_randn(gen, b, h, d), k8, v8, ks, vs, torch.from_numpy(tables),
+            torch.tensor(seq_lens, dtype=torch.int32))
+
+
+def _poison_null_page(k8, v8, ks, vs):
+    """What the kernel must never read: rows of +-127, NaN scales."""
+    sign = torch.where(torch.arange(k8.shape[-1]) % 2 == 0, 127, -127)
+    k8[0] = sign.to(k8.dtype)
+    v8[0] = (-sign).to(v8.dtype)
+    ks[0] = float("nan")
+    vs[0] = float("nan")
+
+
+def _int8_ref(q, k8, v8, ks, vs, bt, sl):
+    """The plain int8 version in fp32 on a copy whose null page is zeroed
+    (0 * NaN would be NaN in its fold)."""
+    k8, v8, ks, vs = (t.clone() for t in (k8, v8, ks, vs))
+    for t in (k8, v8, ks, vs):
+        t[0] = 0
+    return tatt.paged_decode_int8_reference(q.float(), k8, v8, ks, vs, bt,
+                                            sl, q.shape[-1] ** -0.5)
+
+
+def _int8_launch(q, k8, v8, ks, vs, bt, sl):
+    before = tatt.PAGED_DECODE_INT8.launches
+    out = tatt.paged_decode_attention(q, k8, v8, bt, sl, k_scale=ks,
+                                      v_scale=vs)
+    torch.cuda.synchronize()
+    assert tatt.PAGED_DECODE_INT8.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    return out
+
+
+# int8 kernel with an fp32 query vs the plain version in fp32: the same
+# fold, sums in another order (the bound the JAX tests hold the Pallas
+# int8 kernel to); a bf16 query is held as the other bf16 kernels (TOL)
+INT8_FP32_ATOL = 2e-5
+
+
+def _assert_int8_close(out, ref, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=INT8_FP32_ATOL, rtol=0)
+    else:
+        _assert_kernel_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_decode_int8_kernel_matches_plain(cuda, dtype, d, rep, bs):
+    """Lengths 1, block_size - 1, block_size + 1, a run of 2.5 pages and a
+    full table row (4 pages); the null page holds +-127 rows and NaN
+    scales, which the kernel must never read."""
+    gen = np.random.default_rng(d + 10 * rep + bs)
+    kvh = 2
+    seq_lens = [1, bs - 1, bs + 1, 5 * bs // 2, 4 * bs]
+    q, k8, v8, ks, vs, bt, sl = _paged_int8(gen, len(seq_lens), kvh * rep,
+                                            kvh, d, bs, seq_lens, mb=4)
+    q = q.to(dtype)
+    ref = _int8_ref(q, k8, v8, ks, vs, bt, sl)
+    _poison_null_page(k8, v8, ks, vs)
+    out = _int8_launch(*(t.to(cuda) for t in (q, k8, v8, ks, vs, bt, sl)))
+    _assert_int8_close(out, ref.to(cuda), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_int8_kernel_slice_shape(cuda, dtype):
+    """The slice's heads (32 over 8 KV heads, d 128, pages of 16) at long
+    and ragged lengths."""
+    gen = np.random.default_rng(11)
+    seq_lens = [17, 2048, 1, 300, 16, 33, 1000, 5]
+    args = _paged_int8(gen, 8, 32, 8, 128, 16, seq_lens)
+    q = args[0].to(dtype)
+    ref = _int8_ref(q, *args[1:])
+    _poison_null_page(*args[1:5])
+    out = _int8_launch(*(t.to(cuda) for t in (q, *args[1:])))
+    _assert_int8_close(out, ref.to(cuda), dtype)
+
+
+def test_paged_decode_int8_kernel_shared_and_cow_pages(cuda):
+    """Rows sharing prefix pages, and a row reading a COW copy
+    (``kvcache.copy_page``) of another's page, against the plain version;
+    identical context gives identical bits."""
+    from move2kube_tpu_torch.serving import kvcache as tkv
+
+    gen = np.random.default_rng(12)
+    cfg = tkv.KVCacheConfig(num_layers=1, num_kv_heads=2, head_dim=128,
+                            block_size=16, num_pages=8, max_batch=4,
+                            max_pages_per_seq=3, dtype=torch.int8)
+    cache = tkv.init_cache(cfg, cuda)
+    for key in ("k", "v"):
+        q8, sc = tatt.quantize_kv_rows(_randn(gen, 7, 16, 2, 128).to(cuda))
+        cache[key][0][1:] = q8
+        cache[key + "_scale"][0][1:] = sc
+    tkv.copy_page(cache, 2, 6)
+    pools = [cache[key][0] for key in tkv.PAGE_KEYS]
+    q = _randn(gen, 1, 8, 128).expand(4, 8, 128).contiguous().to(cuda)
+    bt = torch.tensor([[1, 2, 3], [1, 2, 4], [1, 6, 0], [1, 2, 0]],
+                      dtype=torch.int32, device=cuda)
+    sl = torch.tensor([40, 35, 32, 32], dtype=torch.int32, device=cuda)
+    ref = _int8_ref(q, *pools, bt, sl)
+    _poison_null_page(*pools)
+    out = _int8_launch(q, *pools, bt, sl)
+    _assert_int8_close(out, ref, torch.float32)
+    assert torch.equal(out[2], out[3])  # page 6 is a copy of page 2
+
+
+def test_paged_decode_int8_kernel_raises_on_what_it_does_not_take(cuda):
+    gen = np.random.default_rng(13)
+
+    def args(b=2, h=8, kvh=2, d=64, bs=8, seq_lens=(5, 9)):
+        return [t.to(cuda) for t in _paged_int8(gen, b, h, kvh, d, bs,
+                                                list(seq_lens))]
+
+    def call(q, k8, v8, ks, vs, bt, sl):
+        return tatt.paged_decode_attention(q, k8, v8, bt, sl, k_scale=ks,
+                                           v_scale=vs)
+
+    with pytest.raises(ValueError, match="head_dim"):
+        call(*args(d=32))
+    with pytest.raises(ValueError, match="block_size"):
+        call(*args(bs=12))
+    with pytest.raises(ValueError, match="query heads"):
+        call(*args(h=6))
+    a = args()
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        call(a[0].half(), *a[1:])
+    with pytest.raises(TypeError, match="scale pools must be fp32"):
+        call(*a[:3], a[3].half(), a[4].half(), *a[5:])
+    with pytest.raises(TypeError, match="int8"):
+        call(a[0], a[1].float(), a[2].float(), *a[3:])
+    with pytest.raises(TypeError, match="int32"):
+        call(*a[:5], a[5].long(), a[6])
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(*a[:5], a[5].cpu(), a[6])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(*a[:3], a[3].transpose(0, 1).contiguous().transpose(0, 1),
+             *a[4:])
+    with pytest.raises(TypeError, match="one dtype"):
+        tatt.paged_decode_attention(a[0], a[1], a[2], a[5], a[6])
+
+
 def test_engine_on_card_matches_engine_on_cpu(cuda):
     """A small model (head_dim 64) in fp32: the engine on the card, through
     both kernels, streams the same greedy tokens as on the CPU."""
@@ -289,3 +445,35 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     assert tatt.FLASH_FWD.launches == cfg.num_layers * 3
     assert tatt.PAGED_DECODE.launches > 0
     assert on_card == run(cpu_model, "cpu")
+
+
+def test_int8_kv_engine_on_card_matches_engine_on_cpu(cuda):
+    """The int8-kv engine on the card (int8 weights, the int8 cache, the
+    flash and int8 paged-decode kernels) streams the same greedy tokens as
+    on the CPU, from the same fp32 weights; no fp paged decode runs."""
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        init_llama,
+        llama_tiny,
+    )
+
+    cfg = dataclasses.replace(llama_tiny(), d_model=256, attn_impl="flash")
+    econf = EngineConfig(max_batch=2, max_seq=64, block_size=8,
+                         buckets=(16, 32), quant="int8-kv")
+    gen = np.random.default_rng(1)
+    prompts = [gen.integers(1, 500, size=n).tolist() for n in (5, 20, 9)]
+
+    def run(device):
+        model = init_llama(cfg, seed=0, device="cpu", dtype=torch.float32)
+        eng = ServingEngine(model.to(device).eval(), econf, device=device)
+        return {c.rid: c.tokens for c in eng.run(
+            [Request(f"r{i}", p, 6) for i, p in enumerate(prompts)])}
+
+    tatt.reset_launch_counts()
+    on_card = run(cuda)
+    assert tatt.FLASH_FWD.launches == cfg.num_layers * 3
+    assert tatt.PAGED_DECODE_INT8.launches > 0
+    assert tatt.PAGED_DECODE.launches == 0
+    assert on_card == run("cpu")
