@@ -10,14 +10,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name
 2. build: every CUDA kernel from ``move2kube_tpu_torch/csrc`` with nvcc
    for sm_90a, in parallel, with each one's registers, spills and shared
-   memory
+   memory, and the flash forward's SASS (tensor-core and TMA instructions)
 3. each kernel against its plain PyTorch version on the card, at the
    slices' shapes in bf16, with its time, its bound and the time of
    PyTorch's own ``scaled_dot_product_attention`` (forward; forward and
-   backward less forward) as a yardstick; the int8 paged decode also with
-   an fp32 query, over shared-prefix and COW-copied pages; the forward's
-   logsumexp output in fp32, and the forward with its logsumexp in bf16
-   at the training slice's shape
+   backward less forward) as a yardstick; the bf16 flash forward and
+   SDPA's forward both held to the flash rule (``FLASH_PV_RTOL``); the
+   int8 paged decode also with an fp32 query, over shared-prefix and
+   COW-copied pages; the forward's logsumexp output in fp32, and the
+   forward with its logsumexp in bf16 at the training slice's shape
 4. engine parity at Llama-8B width and 2 layers in fp32: the engine on
    the kernels against the same weights' plain dense path; and the
    int8-kv engine against the fp32 engine from the same weights, held by
@@ -31,7 +32,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the time the weights' dequantization takes a step
 7. training parity at Llama-8B width and 2 layers in fp32: 3 steps of the
    LM train step with the attention in the kernels against the plain
-   dense attention, from the same weights on the same batches
+   dense attention, from the same weights on the same batches; then the
+   same in the bf16 policy, held to source/validate.py's gates
 8. the training slice: Llama-8B widths cut to 8 layers, fp32 master
    weights, the bf16 policy, AdamW, remat, head-folded cross-entropy,
    batch 4 x 2048 tokens; 5 timed steps whose launch counts show every
@@ -60,6 +62,13 @@ import time
 # drops or mis-merges a chunk of keys fails there too.
 BF16_RTOL = 2.0 ** -7
 BF16_ATOL = 3e-5
+# The bf16 flash forward runs on the tensor cores with the TPU kernel's MXU
+# numerics (bf16 operands, fp32 sums): it also rounds each probability to
+# bf16 for P.V, which moves output i by at most 2**-8 (P.|V|)_i. Its rule:
+# |out - bf16(ref)| <= BF16_ATOL + BF16_RTOL |ref| + FLASH_PV_RTOL (P.|V|),
+# element by element; PyTorch's SDPA, which rounds P the same way, is held
+# to it on the same inputs
+FLASH_PV_RTOL = 2.0 ** -8
 # engine parity, fp32: logits of O(1) through 2 layers of width 4096 with
 # the attention in the kernels vs einsums (both fp32, TF32 off), summed
 # in other orders
@@ -67,6 +76,11 @@ FP32_ENGINE_ATOL = 2e-3
 # the forward's logsumexp rows (O(log s), fp32 in the kernel and the plain
 # version): sums in other orders, q scaled before or after the product
 LSE_ATOL = 1e-4
+# training parity in the bf16 policy, flash kernels vs dense attention on
+# the same weights and batches: source/validate.py's gates (per-step loss,
+# first-step global grad norm; relative)
+BF16_TRAIN_LOSS_REL = 0.10
+BF16_TRAIN_GRAD_NORM_REL = 0.15
 # training parity, fp32 (TF32 off), attention in the kernels vs einsums
 # and autograd: losses of ~10.9 over 3 AdamW steps at lr 1e-4 and the
 # first global grad norm agree to 6.3e-8 relative on an H100 (sums in
@@ -107,7 +121,7 @@ def card_phase(torch) -> None:
 
 def build_phase():
     from move2kube_tpu_torch.ops import _build
-    from move2kube_tpu_torch.ops.attention import KERNELS
+    from move2kube_tpu_torch.ops.attention import FLASH_FWD, KERNELS
 
     t0 = time.perf_counter()
     logs = _build.build_all(KERNELS)
@@ -115,8 +129,38 @@ def build_phase():
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            if ("Compiling entry" in line or "Used" in line
+                    or "spill" in line):
                 log(f"  {name}: {line.strip()}")
+    sass_phase(_build, FLASH_FWD)
+
+
+def sass_phase(_build, kernel) -> None:
+    """What the flash forward's library runs, from its SASS: per kernel
+    function, its tensor-core (HGMMA), TMA (UTMALDG/UTMASTG) and fp32 FMA
+    instructions. The bf16 instantiations must hold HGMMA and TMA loads;
+    the build fails the phase otherwise."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(kernel.library_path())],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG",
+                                        "FFMA"), 0)
+        elif fn is not None:
+            for op in counts[fn]:
+                if f" {op}" in line:
+                    counts[fn][op] += 1
+    for fn, c in counts.items():
+        log(f"  {kernel.name} SASS {fn}: {c}")
+    tc = [c for fn, c in counts.items() if "flash_fwd_tc" in fn]
+    if len(tc) != 2 or not all(c["HGMMA"] and c["UTMALDG"] for c in tc):
+        raise RuntimeError(f"{kernel.name}: the bf16 kernels (d=64, 128) "
+                           f"hold no HGMMA or no TMA load: {counts}")
 
 
 def bf16_check(torch, label: str, out, ref) -> float:
@@ -134,6 +178,33 @@ def bf16_check(torch, label: str, out, ref) -> float:
             f"plain result rounded to bf16 by more than {BF16_ATOL} + "
             f"{BF16_RTOL} |x| (worst by {excess.max().item():.3e})")
     return (out.float() - ref).abs().max().item()
+
+
+def flash_check(torch, label: str, out, ref, pv) -> tuple[float, float]:
+    """Hold a bf16 flash forward output against the plain version in fp32
+    by the flash rule (see ``FLASH_PV_RTOL``; ``pv`` is P.|V| from
+    ``reference_attention_abs_v``); returns the max abs error against the
+    unrounded plain result and the largest share of its allowance that
+    any value uses (at most 1)."""
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{label}: non-finite output")
+    diff = (out.float() - ref.to(torch.bfloat16).float()).abs()
+    allowed = BF16_ATOL + BF16_RTOL * ref.abs() + FLASH_PV_RTOL * pv
+    share = (diff / allowed).max().item()
+    if share > 1:
+        excess = diff - allowed
+        raise RuntimeError(
+            f"{label}: {int((excess > 0).sum())} values differ from the "
+            f"plain result rounded to bf16 by more than {BF16_ATOL} + "
+            f"{BF16_RTOL} |x| + {FLASH_PV_RTOL} (P.|V|) (worst by "
+            f"{excess.max().item():.3e}, {share:.3f} of its allowance)")
+    return (out.float() - ref).abs().max().item(), share
+
+
+def _sdpa_layout(t, h):
+    """[b, s, kvh, d] -> [b, h, s, d], K/V repeated up to the query heads:
+    the layout PyTorch's fused attention takes."""
+    return t.repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2)
 
 
 def cuda_ms(torch, fn, arg_sets, iters: int) -> float:
@@ -177,7 +248,15 @@ def flash_phase(torch):
         out = att.flash_attention(q, k, v, causal=True)
         ref = att.reference_attention(q.float(), k.float(), v.float(), True,
                                       scale)
-        err = bf16_check(torch, f"flash s={s}", out, ref)
+        pv = att.reference_attention_abs_v(q, k, v, True, scale)
+        err, share = flash_check(torch, f"flash s={s}", out, ref, pv)
+        sdpa = F.scaled_dot_product_attention(
+            *(_sdpa_layout(t, h) for t in (q, k, v)), is_causal=True)
+        sdpa = sdpa.transpose(1, 2)
+        _, sdpa_share = flash_check(torch, f"sdpa s={s} (the flash rule)",
+                                    sdpa, ref, pv)
+        vs_sdpa = (out.float() - sdpa.float()).abs()
+        del ref, pv, sdpa
         sets = _copies(torch, (q, k, v))
         iters = 50 if s <= 1000 else 20
         ms = cuda_ms(torch, lambda q_, k_, v_: att.flash_attention(
@@ -186,8 +265,7 @@ def flash_phase(torch):
             q_, k_, v_, True, scale), sets, max(5, iters // 4))
         # PyTorch's fused attention on head-major, GQA-repeated copies
         # (made outside the timing): a yardstick the port never calls
-        lib_sets = [tuple(t.repeat_interleave(h // t.shape[2], dim=2)
-                          .transpose(1, 2).contiguous() for t in ts)
+        lib_sets = [tuple(_sdpa_layout(t, h).contiguous() for t in ts)
                     for ts in sets]
         library_ms = cuda_ms(
             torch, lambda q_, k_, v_: F.scaled_dot_product_attention(
@@ -201,10 +279,14 @@ def flash_phase(torch):
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         rows.append(row)
         log(f"flash_fwd b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal: "
-            f"max_abs_err {err:.3e} (within {BF16_ATOL} + {BF16_RTOL} |x| "
-            f"of the plain result rounded to bf16) kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"max_abs_err {err:.3e}; largest share of the flash rule's "
+            f"allowance kernel {share:.3f}, sdpa {sdpa_share:.3f}; kernel "
+            f"and sdpa differ in {int((vs_sdpa > 0).sum())} of "
+            f"{vs_sdpa.numel()} values, by at most "
+            f"{vs_sdpa.max().item():.3e}; kernel "
+            f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s) plain "
+            f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         del sets, lib_sets
     return rows
 
@@ -389,7 +471,8 @@ def bwd_phase(torch):
     """The backward kernels in bf16 at the training slice's attention shape
     against the plain backward, each with its time, its bound, the plain
     backward's time and SDPA's backward as a yardstick; and the forward
-    with its lse at the same shape, checked and timed."""
+    with its lse at the same shape, checked by the flash rule (SDPA's
+    forward too) and timed beside SDPA's forward, with its bound."""
     import torch.nn.functional as F
 
     from move2kube_tpu_torch.ops import attention as att
@@ -402,10 +485,17 @@ def bwd_phase(torch):
                   .bfloat16() for n in (h, kvh, kvh, h))
     o32, lse = att.reference_attention_lse(q.float(), k.float(), v.float(),
                                            True, scale)
-    # the forward as the training slice launches it: bf16, b=4, with lse
+    # the forward as the training slice launches it: bf16, b=4, with lse;
+    # SDPA's forward held to the same rule on the same inputs
     o_k, lse_k = att.flash_attention_fwd(q, k, v, True, scale)
-    fwd_err = bf16_check(torch, "flash_fwd with lse (training shape)", o_k,
-                         o32)
+    pv = att.reference_attention_abs_v(q, k, v, True, scale)
+    fwd_err, fwd_share = flash_check(
+        torch, "flash_fwd with lse (training shape)", o_k, o32, pv)
+    sdpa = F.scaled_dot_product_attention(
+        *(_sdpa_layout(t, h) for t in (q, k, v)), is_causal=True)
+    _, sdpa_share = flash_check(torch, "sdpa (training shape, the flash "
+                                "rule)", sdpa.transpose(1, 2), o32, pv)
+    del pv, sdpa
     lse_err = (lse_k - lse).abs().max().item()
     if not lse_err <= LSE_ATOL:
         raise RuntimeError(f"flash_fwd lse (training shape, bf16): max abs "
@@ -452,8 +542,8 @@ def bwd_phase(torch):
         out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
         torch.autograd.grad(out, (q_, k_, v_), g_)
 
-    library_ms = (cuda_ms(torch, sdpa_fwd_bwd, lib_sets, 10)
-                  - cuda_ms(torch, sdpa_fwd, lib_sets, 10))
+    sdpa_fwd_ms = cuda_ms(torch, sdpa_fwd, lib_sets, 10)
+    library_ms = cuda_ms(torch, sdpa_fwd_bwd, lib_sets, 10) - sdpa_fwd_ms
     del lib_sets, sets
     # bounds: each input read once, each output written once; operations
     # under the causal mask, a product of the forward's size being
@@ -474,11 +564,23 @@ def bwd_phase(torch):
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             err=errs["q"] if name == "flash_bwd_dq" else max(errs["k"],
                                                              errs["v"]))
-    rows["flash_fwd"] = dict(ms=ms_fwd, err=max(fwd_err, lse_err))
+    # the forward with its lse: QK^T and PV under the mask; q, k, v read,
+    # o and lse written
+    t_ops = 2 * product / H100_BF16_FLOPS * 1e3
+    t_bytes = ((2 * q.numel() + k.numel() + v.numel()) * 2
+               + lse.numel() * 4) / H100_BYTES_S * 1e3
+    rows["flash_fwd"] = dict(
+        ms=ms_fwd, err=max(fwd_err, lse_err), library_ms=sdpa_fwd_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"flash_fwd with lse b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal:"
-        f" output max abs err {fwd_err:.3e} (within {BF16_ATOL} + "
-        f"{BF16_RTOL} |x| of the plain result rounded to bf16), lse max abs"
-        f" err {lse_err:.3e} (tol {LSE_ATOL})")
+        f" output max abs err {fwd_err:.3e}; largest share of the flash "
+        f"rule's allowance kernel {fwd_share:.3f}, sdpa {sdpa_share:.3f}; "
+        f"lse max abs err {lse_err:.3e} (tol {LSE_ATOL}); kernel "
+        f"{ms_fwd:.4f} ms "
+        f"({2 * product / ms_fwd / 1e9:.1f} TFLOP/s) sdpa forward "
+        f"{sdpa_fwd_ms:.4f} ms bound {rows['flash_fwd']['bound_ms']:.4f} ms"
+        f" ({rows['flash_fwd']['bound_by']})")
     log(f"flash backward b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal: "
         f"max abs err dq {errs['q']:.3e} dk {errs['k']:.3e} dv "
         f"{errs['v']:.3e} (within {BF16_ATOL} + {BF16_RTOL} |x| of the "
@@ -807,6 +909,36 @@ def train_parity_phase(torch) -> None:
         f"{FP32_TRAIN_RTOL}); first-step gradients of {len(leaf_err)} "
         f"parameters, worst |g - g_dense| / |g_dense| "
         f"{leaf_err[worst_leaf]:.3e} ({worst_leaf}, tol {FP32_GRAD_RTOL})")
+    bf16_train_parity(torch, cfg, batches)
+
+
+def bf16_train_parity(torch, cfg, batches) -> None:
+    """The same weights and batches in the bf16 policy: 3 steps with the
+    flash kernels (the tensor-core forward, and the backward kernels
+    reading its o and lse) against dense attention, held to
+    source/validate.py's loss and grad-norm gates."""
+    runs = {}
+    for impl in ("flash", "dense"):
+        state, _, losses, norms = _train_run(
+            torch, dataclasses.replace(cfg, attn_impl=impl), "bf16", batches)
+        runs[impl] = ([float(x) for x in losses], float(norms[0]))
+        del state
+        torch.cuda.empty_cache()
+    (fl, fn), (dl, dn) = runs["flash"], runs["dense"]
+    loss_rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(fl, dl))
+    norm_rel = abs(fn - dn) / abs(dn)
+    if not (loss_rel <= BF16_TRAIN_LOSS_REL
+            and norm_rel <= BF16_TRAIN_GRAD_NORM_REL):
+        raise RuntimeError(
+            f"bf16 train parity: flash losses {fl} grad norm {fn} vs dense "
+            f"{dl} / {dn}: loss rel err {loss_rel:.3e} (tol "
+            f"{BF16_TRAIN_LOSS_REL}), grad norm rel err {norm_rel:.3e} (tol "
+            f"{BF16_TRAIN_GRAD_NORM_REL})")
+    log(f"train parity: llama_8b widths, 2 layers, bf16 policy, batch 2 x "
+        f"1024, 3 AdamW steps: flash losses {fl} vs dense {dl}, max rel err "
+        f"{loss_rel:.3e} (tol {BF16_TRAIN_LOSS_REL}); first grad norm "
+        f"{fn:.6f} vs {dn:.6f}, rel err {norm_rel:.3e} (tol "
+        f"{BF16_TRAIN_GRAD_NORM_REL})")
 
 
 def train_slice_phase(torch):
@@ -868,11 +1000,14 @@ def train_slice_phase(torch):
 def _profiled(torch, label: str, fn) -> float:
     """Run ``fn`` under torch.profiler; print its wall time, the device's
     busy time (kernels on one stream do not overlap, so their times add
-    up to it) and the kernels that took most of it, and return the busy
-    time in ms. Host-side operator entries also carry their kernels'
-    device time; only the kernels' own entries are counted."""
+    up to it), the kernels that took most of it and the port's own
+    kernels, and return the busy time in ms. Host-side operator entries
+    also carry their kernels' device time; only the kernels' own entries
+    are counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from move2kube_tpu_torch.ops.attention import KERNELS
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -895,8 +1030,11 @@ def _profiled(torch, label: str, fn) -> float:
     log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"{sum(e.count for e in events)} kernels")
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        log(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    ranked = sorted(events, key=dev_us, reverse=True)
+    # the 8 largest, and the port's own kernels wherever they rank
+    for i, e in enumerate(ranked):
+        if i < 8 or any(k.name in e.key for k in KERNELS):
+            log(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     return busy_us / 1e3
 
 

@@ -128,6 +128,16 @@ def _weighted_values(s, v):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def reference_attention_abs_v(q, k, v, causal: bool, scale: float):
+    """``P . |V|`` in fp32, ``[b, s, h, d]``: the probabilities of
+    :func:`reference_attention` (the same ``_scores`` and GQA repeat)
+    against the magnitudes of V. Rounding each probability to bf16 before
+    the P.V product, as the tensor-core kernel and the TPU kernel on its
+    MXU do, moves output i by at most ``2**-8 * (P . |V|)_i``."""
+    return _weighted_values(_scores(q.float(), k.float(), causal, scale),
+                            v.float().abs())
+
+
 def reference_attention_lse(q, k, v, causal: bool, scale: float):
     """:func:`reference_attention` and its residual: ``(o, lse)`` with
     ``lse`` the fp32 logsumexp of each row's scaled scores, ``[b, h, s]``
@@ -168,6 +178,13 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, want_lse: bool):
     _kernel_args_ok("flash_attention", {"q": q, "k": k, "v": v}, q.dtype, d)
     _same_dtype("flash_attention", q.dtype, k=k, v=v)
     out = torch.empty_like(q)
+    # the bf16 kernel reads q/k/v and writes o through TMA, the fp32 one
+    # with 16-byte vector loads
+    for key, t in (("q", q), ("k", k), ("v", v), ("o", out)):
+        if t.data_ptr() % 16 or (t.stride(1) * t.element_size()) % 16:
+            raise ValueError(f"flash_attention: {key} must start on a "
+                             "16-byte aligned address with rows a multiple "
+                             "of 16 bytes apart")
     lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
            if want_lse else None)
     if s == 0 or b * h == 0:

@@ -32,12 +32,33 @@ TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-5, 2.0 ** -7)}
 BWD_TOL = {torch.float32: (2e-4, 1e-5), torch.bfloat16: TOL[torch.bfloat16]}
 # lse rows of O(log s), fp32 in both dtypes: sum order and q pre-scaling
 LSE_ATOL = 1e-4
+# the bf16 flash forward runs on the tensor cores with the TPU kernel's MXU
+# numerics: it also rounds each probability to bf16 for P.V, which moves
+# output i by at most 2**-8 (P.|V|)_i on top of TOL's terms
+FLASH_PV_RTOL = 2.0 ** -8
 
 
 def _assert_kernel_close(out, ref, dtype, tol=TOL):
     atol, rtol = tol[dtype]
     torch.testing.assert_close(out.float(), ref.to(dtype).float(),
                                atol=atol, rtol=rtol)
+
+
+def _assert_flash_close(out, q, k, v, causal, ref):
+    """The flash forward's output against the plain version in fp32 on the
+    same inputs: TOL for fp32; for bf16 |out - bf16(ref)| <= 3e-5 +
+    2**-7 |ref| + 2**-8 (P.|V|), element by element."""
+    if out.dtype == torch.float32:
+        _assert_kernel_close(out, ref, out.dtype)
+        return
+    atol, rtol = TOL[torch.bfloat16]
+    pv = tatt.reference_attention_abs_v(q, k, v, causal, q.shape[-1] ** -0.5)
+    excess = ((out.float() - ref.to(torch.bfloat16).float()).abs()
+              - (atol + rtol * ref.abs() + FLASH_PV_RTOL * pv))
+    assert torch.isfinite(out).all()
+    assert excess.max().item() <= 0, (
+        f"{int((excess > 0).sum())} values outside the bf16 flash rule, "
+        f"worst by {excess.max().item():.3e}")
 
 
 @pytest.fixture
@@ -57,6 +78,17 @@ def _randn(gen, *shape):
     (64, 200, 4, 4, 128, False),    # more keys than queries, full
     (257, 257, 32, 8, 128, True),   # the slice's heads, ragged
     (1, 1, 2, 1, 64, True),
+    # the bf16 kernel's edges: 128-row query and key tiles, 64 rows a
+    # warpgroup; lengths off the tiles, sk > s and s > sk, rep 1/4/8
+    (63, 63, 8, 8, 128, True),      # one warpgroup's rows only, rep 1
+    (65, 65, 8, 2, 64, True),       # the second warpgroup's first row
+    (129, 129, 16, 2, 128, True),   # one row past a tile, rep 8
+    (1000, 1000, 8, 1, 128, True),  # eight tiles, ragged, rep 8
+    (1, 129, 8, 8, 64, False),      # one query over a ragged key tail
+    (63, 129, 4, 1, 64, False),     # sk > s, full, rep 4
+    (129, 65, 8, 1, 128, False),    # s > sk, full, rep 8
+    (65, 1000, 4, 4, 128, True),    # sk > s, causal (absolute positions)
+    (1000, 63, 4, 1, 64, True),     # s > sk, causal, rep 4
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, s, sk, h, kvh, d, causal):
     gen = np.random.default_rng(s + sk + d)
@@ -70,7 +102,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, s, sk, h, kvh, d, causal):
     torch.cuda.synchronize()
     assert tatt.FLASH_FWD.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    _assert_kernel_close(out, ref, dtype)
+    _assert_flash_close(out, q, k, v, causal, ref)
 
 
 FLASH_SHAPES = [
@@ -94,7 +126,7 @@ def test_flash_lse_matches_plain(cuda, dtype, s, sk, h, kvh, d, causal):
                                                 v.float(), causal, d ** -0.5)
     torch.cuda.synchronize()
     assert lse.dtype == torch.float32 and lse.shape == (2, h, s)
-    _assert_kernel_close(out, ref, dtype)
+    _assert_flash_close(out, q, k, v, causal, ref)
     torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
 
 
@@ -241,6 +273,16 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 4, 64, device=cuda)
     with pytest.raises(TypeError, match="one type"):
         tatt.flash_attention(q, q.bfloat16(), q.bfloat16())
+    # contiguous, but 2 bytes past an aligned address: TMA cannot read it
+    buf = torch.zeros(1 + 8 * 4 * 64, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 8, 4, 64)
+    assert q.is_contiguous()
+    before = tatt.FLASH_FWD.launches
+    with pytest.raises(ValueError, match="aligned"):
+        tatt.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="aligned"):
+        tatt.flash_attention(buf[:-1].view(1, 8, 4, 64), q, q)
+    assert tatt.FLASH_FWD.launches == before
     with pytest.raises(ValueError, match="lse"):
         tatt.flash_attention_bwd(q, q, q, q, torch.zeros(1, 4, 8,
                                                          device=cuda,
