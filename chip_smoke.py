@@ -10,14 +10,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name
 2. build: every CUDA kernel from ``move2kube_tpu_torch/csrc`` with nvcc
    for sm_90a, in parallel, with each one's registers, spills and shared
-   memory, and the flash forward's SASS (tensor-core and TMA instructions)
+   memory, and the three flash kernels' SASS (tensor-core and TMA
+   instructions in their bf16 instantiations, which must not spill)
 3. each kernel against its plain PyTorch version on the card, at the
    slices' shapes in bf16, with its time, its bound and the time of
    PyTorch's own ``scaled_dot_product_attention`` (forward; forward and
    backward less forward) as a yardstick; the bf16 flash forward and
    SDPA's forward both held to the flash rule (``FLASH_PV_RTOL``); the
-   int8 paged decode also with an fp32 query, over shared-prefix and
-   COW-copied pages; the forward's logsumexp output in fp32, and the
+   bf16 backward kernels held to the backward rule (``BWD_T_RTOL``) and
+   launched twice for the same bits, SDPA's backward measured against
+   the same rule; the int8 paged decode also with an fp32 query, over
+   shared-prefix and COW-copied pages; the forward's logsumexp output in fp32, and the
    forward with its logsumexp in bf16 at the training slice's shape
 4. engine parity at Llama-8B width and 2 layers in fp32: the engine on
    the kernels against the same weights' plain dense path; and the
@@ -69,6 +72,14 @@ BF16_ATOL = 3e-5
 # element by element; PyTorch's SDPA, which rounds P the same way, is held
 # to it on the same inputs
 FLASH_PV_RTOL = 2.0 ** -8
+# The bf16 backward kernels run on the tensor cores with the TPU kernels'
+# MXU numerics too: p and ds are rounded to bf16 before the products that
+# make dv, dk and dq, which moves each gradient by at most 2**-8 T, T from
+# ``flash_attention_bwd_abs_terms`` (|p|^T.|dO| for dv, scale |ds|^T.|q|
+# for dk, both summed over each GQA group; scale |ds|.|k| for dq). Their
+# rule: |x - bf16(ref)| <= BF16_ATOL + BF16_RTOL |ref| + BWD_T_RTOL T;
+# SDPA's backward is measured against it on the same inputs
+BWD_T_RTOL = 2.0 ** -8
 # engine parity, fp32: logits of O(1) through 2 layers of width 4096 with
 # the attention in the kernels vs einsums (both fp32, TF32 off), summed
 # in other orders
@@ -121,7 +132,12 @@ def card_phase(torch) -> None:
 
 def build_phase():
     from move2kube_tpu_torch.ops import _build
-    from move2kube_tpu_torch.ops.attention import FLASH_FWD, KERNELS
+    from move2kube_tpu_torch.ops.attention import (
+        FLASH_BWD_DKV,
+        FLASH_BWD_DQ,
+        FLASH_FWD,
+        KERNELS,
+    )
 
     t0 = time.perf_counter()
     logs = _build.build_all(KERNELS)
@@ -132,14 +148,34 @@ def build_phase():
             if ("Compiling entry" in line or "Used" in line
                     or "spill" in line):
                 log(f"  {name}: {line.strip()}")
-    sass_phase(_build, FLASH_FWD)
+    for kernel in (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV):
+        sass_phase(_build, kernel, ptxas_usage(logs[kernel.name]))
 
 
-def sass_phase(_build, kernel) -> None:
-    """What the flash forward's library runs, from its SASS: per kernel
+def ptxas_usage(text: str) -> dict:
+    """Each kernel function's registers and spill stores, from the
+    ``-Xptxas -v`` log."""
+    usage, fn = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            usage[fn] = {"registers": None, "spill_bytes": None}
+        elif fn is not None and "spill stores" in line:
+            usage[fn]["spill_bytes"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+        elif fn is not None and "Used" in line and "registers" in line:
+            usage[fn]["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
+    return usage
+
+
+def sass_phase(_build, kernel, usage) -> None:
+    """What a flash kernel's library runs, from its SASS: per kernel
     function, its tensor-core (HGMMA), TMA (UTMALDG/UTMASTG) and fp32 FMA
-    instructions. The bf16 instantiations must hold HGMMA and TMA loads;
-    the build fails the phase otherwise."""
+    instructions, beside ptxas's registers and spills. The bf16
+    instantiations (d=64 and 128, the ``_tc`` functions) must hold HGMMA
+    and TMA loads and spill nothing; the build fails the phase
+    otherwise."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
                              "cuobjdump")
     sass = subprocess.run(
@@ -156,11 +192,14 @@ def sass_phase(_build, kernel) -> None:
                 if f" {op}" in line:
                     counts[fn][op] += 1
     for fn, c in counts.items():
-        log(f"  {kernel.name} SASS {fn}: {c}")
-    tc = [c for fn, c in counts.items() if "flash_fwd_tc" in fn]
-    if len(tc) != 2 or not all(c["HGMMA"] and c["UTMALDG"] for c in tc):
+        log(f"  {kernel.name} SASS {fn}: {c}, ptxas {usage.get(fn)}")
+    tc = {fn: c for fn, c in counts.items() if f"{kernel.name}_tc" in fn}
+    if len(tc) != 2 or not all(
+            c["HGMMA"] and c["UTMALDG"] and usage[fn]["spill_bytes"] == 0
+            for fn, c in tc.items()):
         raise RuntimeError(f"{kernel.name}: the bf16 kernels (d=64, 128) "
-                           f"hold no HGMMA or no TMA load: {counts}")
+                           f"hold no HGMMA or no TMA load, or spill: "
+                           f"{counts} {usage}")
 
 
 def bf16_check(torch, label: str, out, ref) -> float:
@@ -199,6 +238,19 @@ def flash_check(torch, label: str, out, ref, pv) -> tuple[float, float]:
             f"{BF16_RTOL} |x| + {FLASH_PV_RTOL} (P.|V|) (worst by "
             f"{excess.max().item():.3e}, {share:.3f} of its allowance)")
     return (out.float() - ref).abs().max().item(), share
+
+
+def bwd_shares(torch, out, ref, term):
+    """Each value's distance from the plain result rounded to bf16 over
+    what the backward rule allows (see ``BWD_T_RTOL``); returns the
+    largest share and the count of values past their allowance (share >
+    1), and the max abs error against the unrounded plain result."""
+    if not torch.isfinite(out).all():
+        return float("inf"), out.numel(), float("inf")
+    diff = (out.float() - ref.to(torch.bfloat16).float()).abs()
+    share = diff / (BF16_ATOL + BF16_RTOL * ref.abs() + BWD_T_RTOL * term)
+    return (share.max().item(), int((share > 1).sum()),
+            (out.float() - ref).abs().max().item())
 
 
 def _sdpa_layout(t, h):
@@ -469,8 +521,10 @@ def lse_phase(torch) -> float:
 
 def bwd_phase(torch):
     """The backward kernels in bf16 at the training slice's attention shape
-    against the plain backward, each with its time, its bound, the plain
-    backward's time and SDPA's backward as a yardstick; and the forward
+    against the plain backward by the backward rule (SDPA's backward's
+    share of the same allowance beside theirs), bit-identical over two
+    launches, each with its time, its bound, the plain backward's time and
+    SDPA's backward as a yardstick; and the forward
     with its lse at the same shape, checked by the flash rule (SDPA's
     forward too) and timed beside SDPA's forward, with its bound."""
     import torch.nn.functional as F
@@ -503,14 +557,40 @@ def bwd_phase(torch):
     o = o32.bfloat16()
     del o32, o_k, lse_k
     delta = att.flash_bwd_delta(o, g)
-    dq = att.flash_bwd_dq(q, k, v, g, lse, delta, True, scale)
-    dk, dv = att.flash_bwd_dkv(q, k, v, g, lse, delta, True, scale)
+    got = [att.flash_bwd_dq(q, k, v, g, lse, delta, True, scale),
+           *att.flash_bwd_dkv(q, k, v, g, lse, delta, True, scale)]
+    # a second launch on the same inputs gives the same bits: no atomics
+    again = [att.flash_bwd_dq(q, k, v, g, lse, delta, True, scale),
+             *att.flash_bwd_dkv(q, k, v, g, lse, delta, True, scale)]
+    same = [torch.equal(a, b_) for a, b_ in zip(got, again)]
+    del again
+    # SDPA's backward on the same inputs, K/V repeated inside the graph
+    # (so autograd sums dk/dv over each group): a yardstick measured
+    # against the same rule, never called by the port
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(
+        *(_sdpa_layout(t, h) for t in leaves), is_causal=True)
+    sdpa = torch.autograd.grad(out.transpose(1, 2), leaves, g)
+    del out, leaves
     want = att.flash_attention_bwd_reference(
         q.float(), k.float(), v.float(), o.float(), lse, g.float(), True,
         scale)
-    errs = {name: bf16_check(torch, f"flash_bwd d{name}", got, ref)
-            for name, got, ref in zip("q k v".split(), (dq, dk, dv), want)}
-    del want, dq, dk, dv
+    terms = att.flash_attention_bwd_abs_terms(q, k, v, o, lse, g, True,
+                                              scale)
+    errs, shares, sdpa_shares = {}, {}, {}
+    for name, x, y, t, z in zip("q k v".split(), got, want, terms, sdpa):
+        shares[name], n_out, errs[name] = bwd_shares(torch, x, y, t)
+        sdpa_shares[name] = bwd_shares(torch, z, y, t)[:2]
+        if n_out:
+            raise RuntimeError(
+                f"flash_bwd d{name}: {n_out} values differ from the plain "
+                f"result rounded to bf16 by more than {BF16_ATOL} + "
+                f"{BF16_RTOL} |x| + {BWD_T_RTOL} T ({shares[name]:.3f} of "
+                "the allowance at worst)")
+    if not all(same):
+        raise RuntimeError(f"flash backward: dq, dk, dv bit-identical over "
+                           f"two launches: {same}")
+    del want, terms, got, sdpa
     sets = _copies(torch, (q, k, v, g, lse, delta))
     ms_dq = cuda_ms(torch, lambda *a: att.flash_bwd_dq(*a, True, scale),
                     sets, 10)
@@ -583,10 +663,18 @@ def bwd_phase(torch):
         f" ({rows['flash_fwd']['bound_by']})")
     log(f"flash backward b={b} s={s} h={h} kvh={kvh} d={d} bf16 causal: "
         f"max abs err dq {errs['q']:.3e} dk {errs['k']:.3e} dv "
-        f"{errs['v']:.3e} (within {BF16_ATOL} + {BF16_RTOL} |x| of the "
-        f"plain fp32 result rounded to bf16); dq {ms_dq:.4f} ms (bound "
+        f"{errs['v']:.3e}; largest share of the backward rule's allowance "
+        f"(within {BF16_ATOL} + {BF16_RTOL} |x| + {BWD_T_RTOL} T of the "
+        f"plain fp32 result rounded to bf16) kernels "
+        + ", ".join(f"d{n} {shares[n]:.3f}" for n in "qkv")
+        + "; sdpa " + ", ".join(
+            f"d{n} {sdpa_shares[n][0]:.3f} ({sdpa_shares[n][1]} values past "
+            "it)" for n in "qkv")
+        + f"; dq, dk, dv bit-identical over two launches; dq {ms_dq:.4f} ms"
+        f" ({3 * product / ms_dq / 1e9:.1f} TFLOP/s, bound "
         f"{rows['flash_bwd_dq']['bound_ms']:.4f}), dkv {ms_dkv:.4f} ms "
-        f"(bound {rows['flash_bwd_dkv']['bound_ms']:.4f}); plain backward "
+        f"({4 * product / ms_dkv / 1e9:.1f} TFLOP/s, bound "
+        f"{rows['flash_bwd_dkv']['bound_ms']:.4f}); plain backward "
         f"{plain_ms:.4f} ms; sdpa backward {library_ms:.4f} ms; flash_fwd "
         f"with lse at this shape {ms_fwd:.4f} ms")
     return rows

@@ -146,6 +146,27 @@ def reference_attention_lse(q, k, v, causal: bool, scale: float):
     return _weighted_values(s, v), torch.logsumexp(s, dim=-1)
 
 
+def _bwd_probs(q, k, v, o, lse, g, causal: bool, scale: float):
+    """The backward's fp32 intermediates: ``p = exp(q.k^T * scale - lse)``
+    and ``ds = p * (dO.v^T - delta)`` (``[b, h, s, sk]``), with q, dO and
+    K repeated up to q's heads in fp32."""
+    rep = q.shape[2] // k.shape[2]
+    qf, gf = q.float(), g.float()
+    kf = _repeat_kv(k.float(), rep)
+    vf = _repeat_kv(v.float(), rep)
+    p = torch.exp(_scores(qf, k.float(), causal, scale) - lse[..., None])
+    delta = (gf * o.float()).sum(-1).transpose(1, 2)  # [b, h, s]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vf) - delta[..., None])
+    return p, ds, qf, kf, gf
+
+
+def _group_sum(t, kvh: int):
+    """``[b, sk, h, d]`` summed over each GQA group to ``[b, sk, kvh, d]``
+    (the VJP of repeating K/V)."""
+    b, sk, h, d = t.shape
+    return t.reshape(b, sk, kvh, h // kvh, d).sum(3)
+
+
 def flash_attention_bwd_reference(q, k, v, o, lse, g, causal: bool,
                                   scale: float):
     """Plain version of the backward kernels (``_flash_bwd_dq_kernel`` and
@@ -155,21 +176,42 @@ def flash_attention_bwd_reference(q, k, v, o, lse, g, causal: bool,
     ``dv = p^T.dO``, all in fp32. ``dk``/``dv`` come back at K/V's own head
     count, summed over each GQA group (the VJP of repeating K/V). Returns
     ``(dq, dk, dv)`` in the inputs' types."""
-    b, s, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    rep = h // kvh
-    qf, gf = q.float(), g.float()
-    kf = _repeat_kv(k.float(), rep)
-    vf = _repeat_kv(v.float(), rep)
-    p = torch.exp(_scores(qf, k.float(), causal, scale) - lse[..., None])
-    delta = (gf * o.float()).sum(-1).transpose(1, 2)  # [b, h, s]
-    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vf) - delta[..., None])
+    kvh = k.shape[2]
+    p, ds, qf, kf, gf = _bwd_probs(q, k, v, o, lse, g, causal, scale)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
-    dk = dk.reshape(b, sk, kvh, rep, d).sum(3)
-    dv = dv.reshape(b, sk, kvh, rep, d).sum(3)
+    dk = _group_sum(torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale, kvh)
+    dv = _group_sum(torch.einsum("bhqk,bqhd->bkhd", p, gf), kvh)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_abs_terms(q, k, v, o, lse, g, causal: bool,
+                                  scale: float):
+    """The magnitudes behind each gradient of
+    :func:`flash_attention_bwd_reference`, in fp32: ``(scale * |ds|.|k|,
+    scale * |ds|^T.|q|, |p|^T.|dO|)`` at dq's, dk's and dv's shapes (the
+    last two summed over each GQA group). Rounding ``ds`` and ``p`` to bf16
+    before the products that make dq, dk and dv, as the tensor-core
+    kernels and the TPU kernels on their MXU do, moves each gradient by at
+    most ``2**-8`` times its term."""
+    kvh = k.shape[2]
+    p, ds, qf, kf, gf = _bwd_probs(q, k, v, o, lse, g, causal, scale)
+    ds = ds.abs()
+    t_dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf.abs()) * scale
+    t_dk = _group_sum(torch.einsum("bhqk,bqhd->bkhd", ds, qf.abs()) * scale,
+                      kvh)
+    t_dv = _group_sum(torch.einsum("bhqk,bqhd->bkhd", p.abs(), gf.abs()),
+                      kvh)
+    return t_dq, t_dk, t_dv
+
+
+def _rows_aligned(name: str, **tensors) -> None:
+    """Raise unless each tensor starts on a 16-byte aligned address with its
+    rows a multiple of 16 bytes apart: what a TMA tensor map (the bf16
+    kernels) and 16-byte vector loads (the fp32 ones) need."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16 or (t.stride(1) * t.element_size()) % 16:
+            raise ValueError(f"{name}: {key} must start on a 16-byte aligned "
+                             "address with rows a multiple of 16 bytes apart")
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, want_lse: bool):
@@ -178,13 +220,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, want_lse: bool):
     _kernel_args_ok("flash_attention", {"q": q, "k": k, "v": v}, q.dtype, d)
     _same_dtype("flash_attention", q.dtype, k=k, v=v)
     out = torch.empty_like(q)
-    # the bf16 kernel reads q/k/v and writes o through TMA, the fp32 one
-    # with 16-byte vector loads
-    for key, t in (("q", q), ("k", k), ("v", v), ("o", out)):
-        if t.data_ptr() % 16 or (t.stride(1) * t.element_size()) % 16:
-            raise ValueError(f"flash_attention: {key} must start on a "
-                             "16-byte aligned address with rows a multiple "
-                             "of 16 bytes apart")
+    _rows_aligned("flash_attention", q=q, k=k, v=v, o=out)
     lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
            if want_lse else None)
     if s == 0 or b * h == 0:
@@ -228,6 +264,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool, scale: float):
     :func:`flash_bwd_delta`)."""
     _bwd_args_ok(q, k, v, g, lse, delta)
     dq = torch.empty_like(q)
+    _rows_aligned("flash_attention backward", q=q, k=k, v=v, dO=g, dq=dq)
     if q.numel():
         FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -240,6 +277,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal: bool, scale: float):
     (CUDA tensors only)."""
     _bwd_args_ok(q, k, v, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _rows_aligned("flash_attention backward", q=q, k=k, v=v, dO=g, dk=dk,
+                  dv=dv)
     if not q.numel():
         return dk.zero_(), dv.zero_()
     if k.numel():

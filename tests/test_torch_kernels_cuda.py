@@ -28,8 +28,13 @@ TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-5, 2.0 ** -7)}
 
 # gradients (values up to ~10 at d=128) in fp32: sums of a few thousand
 # terms in another order; the bound tests/test_models.py holds the Pallas
-# backward to. bf16: as TOL.
+# backward to. bf16: as TOL, plus BWD_T_RTOL's term.
 BWD_TOL = {torch.float32: (2e-4, 1e-5), torch.bfloat16: TOL[torch.bfloat16]}
+# the bf16 backward kernels run on the tensor cores with the TPU kernels'
+# MXU numerics: p and ds are rounded to bf16 before the products that make
+# dv, dk and dq, which moves each gradient by at most 2**-8 T, T from
+# flash_attention_bwd_abs_terms (tests/test_torch_flash_bwd_gate.py)
+BWD_T_RTOL = 2.0 ** -8
 # lse rows of O(log s), fp32 in both dtypes: sum order and q pre-scaling
 LSE_ATOL = 1e-4
 # the bf16 flash forward runs on the tensor cores with the TPU kernel's MXU
@@ -59,6 +64,23 @@ def _assert_flash_close(out, q, k, v, causal, ref):
     assert excess.max().item() <= 0, (
         f"{int((excess > 0).sum())} values outside the bf16 flash rule, "
         f"worst by {excess.max().item():.3e}")
+
+
+def _assert_bwd_close(got, want, terms, dtype):
+    """dq, dk, dv against the plain backward in fp32: BWD_TOL for fp32; for
+    bf16 |x - bf16(ref)| <= 3e-5 + 2**-7 |ref| + 2**-8 T, element by
+    element."""
+    for name, x, y, t in zip("q k v".split(), got, want, terms):
+        assert torch.isfinite(x).all(), name
+        if dtype == torch.float32:
+            _assert_kernel_close(x, y, dtype, BWD_TOL)
+            continue
+        atol, rtol = BWD_TOL[dtype]
+        excess = ((x.float() - y.to(dtype).float()).abs()
+                  - (atol + rtol * y.abs() + BWD_T_RTOL * t))
+        assert excess.max().item() <= 0, (
+            f"d{name}: {int((excess > 0).sum())} values outside the bf16 "
+            f"backward rule, worst by {excess.max().item():.3e}")
 
 
 @pytest.fixture
@@ -130,34 +152,91 @@ def test_flash_lse_matches_plain(cuda, dtype, s, sk, h, kvh, d, causal):
     torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,sk,h,kvh,d,causal", FLASH_SHAPES)
-def test_flash_backward_kernels_match_plain(cuda, dtype, s, sk, h, kvh, d,
-                                            causal):
-    """dq, dk, dv from the two backward kernels against the plain backward
-    in fp32 on the same inputs and residuals (o rounded to the kernels'
-    type, so both take delta from the same o); dk/dv at kvh heads."""
-    gen = np.random.default_rng(3 * s + sk + d)
+# the backward's shapes: the forward's, and the bf16 kernels' edges (64-
+# and 128-row tiles; dkv's blocks of 128 keys, dq's of 128 query rows),
+# lengths off the tiles, sk > s and s > sk, GQA rep 1/4/8
+BWD_SHAPES = FLASH_SHAPES + [
+    (63, 63, 4, 4, 64, True),       # rep 1
+    (129, 129, 8, 2, 64, True),     # rep 4, one row past a tile
+    (257, 257, 16, 2, 128, True),   # rep 8
+    (200, 200, 8, 1, 128, False),   # rep 8, full
+    (65, 300, 4, 1, 64, True),      # sk > s, causal (absolute positions)
+    (300, 65, 8, 1, 64, False),     # s > sk, full
+    (1, 129, 4, 4, 128, False),     # one query over a ragged key tail
+    (1000, 1000, 8, 2, 128, True),  # many tiles, ragged
+]
+
+
+def _bwd_inputs(cuda, dtype, seed, s, sk, h, kvh, d, causal):
+    """q, k, v, o, lse, dO on the card (o rounded to ``dtype``, so the
+    kernels and the plain backward take delta from the same o)."""
+    gen = np.random.default_rng(seed)
     q = _randn(gen, 2, s, h, d).to(cuda, dtype)
     k = _randn(gen, 2, sk, kvh, d).to(cuda, dtype)
     v = _randn(gen, 2, sk, kvh, d).to(cuda, dtype)
     g = _randn(gen, 2, s, h, d).to(cuda, dtype)
-    scale = d ** -0.5
     o, lse = tatt.reference_attention_lse(q.float(), k.float(), v.float(),
-                                          causal, scale)
-    o = o.to(dtype)
+                                          causal, d ** -0.5)
+    return q, k, v, o.to(dtype), lse, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,sk,h,kvh,d,causal", BWD_SHAPES)
+def test_flash_backward_kernels_match_plain(cuda, dtype, s, sk, h, kvh, d,
+                                            causal):
+    """dq, dk, dv from the two backward kernels against the plain backward
+    in fp32 on the same inputs and residuals; dk/dv at kvh heads. fp32 is
+    held to BWD_TOL, bf16 to the backward rule."""
+    scale = d ** -0.5
+    q, k, v, o, lse, g = _bwd_inputs(cuda, dtype, 3 * s + sk + d, s, sk, h,
+                                     kvh, d, causal)
     before = (tatt.FLASH_BWD_DQ.launches, tatt.FLASH_BWD_DKV.launches)
     got = tatt.flash_attention_bwd(q, k, v, o, lse, g, causal, scale)
     want = tatt.flash_attention_bwd_reference(
         q.float(), k.float(), v.float(), o.float(), lse, g.float(), causal,
         scale)
+    terms = tatt.flash_attention_bwd_abs_terms(q, k, v, o, lse, g, causal,
+                                               scale)
     torch.cuda.synchronize()
     assert (tatt.FLASH_BWD_DQ.launches, tatt.FLASH_BWD_DKV.launches) == (
         before[0] + 1, before[1] + 1)
-    for name, x, y, t in zip("q k v".split(), got, want, (q, k, v)):
+    for name, x, t in zip("q k v".split(), got, (q, k, v)):
         assert x.dtype == dtype and x.shape == t.shape, name
-        assert torch.isfinite(x).all(), name
-        _assert_kernel_close(x, y, dtype, BWD_TOL)
+    _assert_bwd_close(got, want, terms, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype):
+    """dq, dk and dv are bit-identical over two launches on the same
+    inputs: no atomics, each output row written once by its own block."""
+    s, h, kvh, d = 515, 16, 2, 128
+    q, k, v, o, lse, g = _bwd_inputs(cuda, dtype, 21, s, s, h, kvh, d, True)
+    first = tatt.flash_attention_bwd(q, k, v, o, lse, g, True, d ** -0.5)
+    second = tatt.flash_attention_bwd(q, k, v, o, lse, g, True, d ** -0.5)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_flash_backward_raises_on_misaligned_views(cuda):
+    """The bf16 backward kernels read q, k, v and dO and write dq, dk, dv
+    through TMA: a view 2 bytes past an aligned address raises before any
+    launch."""
+    buf = torch.zeros(1 + 2 * 8 * 4 * 64, device=cuda, dtype=torch.bfloat16)
+    bad = buf[1:1 + 8 * 4 * 64].view(1, 8, 4, 64)
+    good = torch.zeros(1, 8, 4, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 8, device=cuda)
+    assert bad.is_contiguous()
+    before = (tatt.FLASH_BWD_DQ.launches, tatt.FLASH_BWD_DKV.launches)
+    for i in range(4):
+        args = [good] * 4
+        args[i] = bad
+        q, k, v, g = args
+        with pytest.raises(ValueError, match="aligned"):
+            tatt.flash_bwd_dq(q, k, v, g, lse, lse, True, 0.125)
+        with pytest.raises(ValueError, match="aligned"):
+            tatt.flash_bwd_dkv(q, k, v, g, lse, lse, True, 0.125)
+    assert (tatt.FLASH_BWD_DQ.launches, tatt.FLASH_BWD_DKV.launches) == before
 
 
 def test_flash_autograd_round_trip_matches_cpu(cuda):
