@@ -19,9 +19,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    SDPA's forward both held to the flash rule (``FLASH_PV_RTOL``); the
    bf16 backward kernels held to the backward rule (``BWD_T_RTOL``) and
    launched twice for the same bits, SDPA's backward measured against
-   the same rule; the int8 paged decode also with an fp32 query, over
-   shared-prefix and COW-copied pages; the forward's logsumexp output in fp32, and the
-   forward with its logsumexp in bf16 at the training slice's shape
+   the same rule; the two paged-decode kernels with NaN (int8: poisoned
+   rows) in the null page, launched twice for the same bits, the int8 one
+   also with an fp32 query, over shared-prefix and COW-copied pages; their
+   time is the device time of a CUDA graph of 200 calls (at about 17 us a
+   call the host's launch time would set an event-timed loop), with the
+   two passes' profiled time, the wrapper's host time, the split lengths
+   of ``PAGED_SWEEP`` and b=1 on the 2048-token sequence beside it; the
+   forward's logsumexp output in fp32, and the forward with its logsumexp
+   in bf16 at the training slice's shape
 4. engine parity at Llama-8B width and 2 layers in fp32: the engine on
    the kernels against the same weights' plain dense path; and the
    int8-kv engine against the fp32 engine from the same weights, held by
@@ -276,6 +282,65 @@ def cuda_ms(torch, fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, arg_sets, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured once in a
+    CUDA graph (cycling through ``arg_sets``, as ``cuda_ms``) and replayed
+    between two events: the kernels' own time and the gaps between them,
+    without the host's time to launch them, which for a kernel of ~10 us
+    is longer than the kernel."""
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, arg_sets, iters: int) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``iters`` calls on
+    the host clock, the device left to catch up afterwards (the launches
+    queue)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def pass_us(torch, fn, arg_sets, iters: int = 20) -> dict:
+    """The device time per call of each kernel ``fn`` runs (by kernel
+    name), from torch.profiler, in microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    return {e.key: _dev_us(e) / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0}
+
+
 def _copies(torch, tensors, min_bytes=200 << 20):
     per = sum(t.numel() * t.element_size() for t in tensors)
     n = max(2, -(-min_bytes // max(per, 1)))
@@ -362,10 +427,88 @@ def _paged_geometry(b, bs, max_seq):
     return seq_lens, tables, num_pages, order
 
 
+# split lengths in tokens timed beside the planned one at the paged phases'
+# shape (``paged_split_plan``'s split_tokens)
+PAGED_SWEEP = (64, 128, 256)
+
+
+def _live_blocks(seq_lens, kvh: int, split_tok: int) -> int:
+    """Blocks of the split pass that find work: every live split of every
+    (sequence, KV head); the rest of the grid returns at once."""
+    return sum(kvh * max(1, -(-int(n) // split_tok)) for n in seq_lens)
+
+
+def _paged_speed(torch, label, call, sets, seq_lens, kvh, bs, nbytes,
+                 nbytes_b1, b1_sets):
+    """A paged kernel's speed at the phase's batch: its device time per call
+    by CUDA graph through the public entry point at the planned split (and
+    the two passes' own device time from the profiler beside it), the
+    wrapper's host time per call, the achieved GB/s, the same device time
+    at each split length of ``PAGED_SWEEP``, and at b=1 on the 2048-token
+    sequence alone (the old design's worst case: 8 blocks). ``call(*args,
+    split_tokens=None)``: None is the public entry point. Returns the
+    planned split's ms and the b=1 ms."""
+    from move2kube_tpu_torch.ops import attention as att
+
+    b, mb = len(seq_lens), sets[0][-2].shape[1]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    pps, n_split = att.paged_split_plan(b, kvh, mb, bs, sm)
+    ms = graph_ms(torch, call, sets, 200)
+    us = host_us(torch, call, sets, 200)
+    passes = pass_us(torch, call, sets)
+    sweep = []
+    for st in PAGED_SWEEP:
+        p, n = att.paged_split_plan(b, kvh, mb, bs, sm, st)
+        t = graph_ms(torch, lambda *a: call(*a, split_tokens=st), sets, 200)
+        sweep.append(f"{p * bs} tokens: {n} splits, "
+                     f"{_live_blocks(seq_lens, kvh, p * bs)} of "
+                     f"{n * kvh * b} blocks live, {t:.4f} ms")
+    p1, n1 = att.paged_split_plan(1, kvh, mb, bs, sm)
+    ms_b1 = graph_ms(torch, call, b1_sets, 200)
+    passes = ", ".join(f"{_kernel_name(k)} {v:.2f}"
+                       for k, v in passes.items())
+    log(f"{label}: split of {pps * bs} tokens ({pps} pages), {n_split} "
+        f"splits, {_live_blocks(seq_lens, kvh, pps * bs)} of "
+        f"{n_split * kvh * b} blocks live on {sm} SMs; device "
+        f"{ms:.4f} ms a call (CUDA graph of 200 calls), "
+        f"{nbytes / ms / 1e6:.1f} GB/s; passes by the profiler (us a call;"
+        f" the merge's span includes its blocks' wait for the split pass): "
+        f"{passes}; wrapper host {us:.1f} us a call")
+    log(f"{label}: sweep: {'; '.join(sweep)}")
+    log(f"{label}: b=1 on the 2048-token sequence: split of {p1 * bs} "
+        f"tokens, {n1} splits, {n1 * kvh} blocks live; {ms_b1:.4f} ms, "
+        f"{nbytes_b1 / ms_b1 / 1e6:.1f} GB/s, bound "
+        f"{nbytes_b1 / H100_BYTES_S * 1e3:.4f} ms (bytes)")
+    return ms, ms_b1
+
+
+def _kernel_name(key: str) -> str:
+    """``void ns::kernel<args>(params)`` as the profiler names it ->
+    ``kernel<args>``."""
+    return key.split(">(")[0].split("::")[-1] + ">"
+
+
+def _same_bits(torch, label, fn, args):
+    """Two launches on the same inputs give the same bits (the merge runs
+    in a fixed order, with no atomics)."""
+    a, b = fn(*args), fn(*args)
+    if not torch.equal(a, b):
+        raise RuntimeError(f"{label}: two launches differ in "
+                           f"{int((a != b).sum())} values")
+
+
+def _paged_bytes(seq_lens, kvh, row_bytes, q_numel, tables):
+    """What a paged call must move: each live token's K and V rows (and
+    scales), q in and o out in bf16, the tables and lengths."""
+    return (int(sum(seq_lens)) * kvh * row_bytes * 2 + 2 * q_numel * 2
+            + tables.nbytes + 4 * len(seq_lens))
+
+
 def paged_phase(torch):
     from move2kube_tpu_torch.ops import attention as att
 
     b, h, kvh, d, bs, max_seq = 8, 32, 8, 128, 16, 2048
+    scale = d ** -0.5
     seq_lens, tables, num_pages, _ = _paged_geometry(b, bs, max_seq)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -379,35 +522,47 @@ def paged_phase(torch):
     kp[0] = 0
     vp[0] = 0
     ref = att.paged_decode_reference(q.float(), kp.float(), vp.float(), bt,
-                                     sl, d ** -0.5)
+                                     sl, scale)
     # the null page holds NaN for the kernel: it must never be read
     kp[0] = float("nan")
     vp[0] = float("nan")
     out = att.paged_decode_attention(q, kp, vp, bt, sl)
     err = bf16_check(torch, "paged_decode (NaN in the null page)", out, ref)
+    _same_bits(torch, "paged_decode", att.paged_decode_attention,
+               (q, kp, vp, bt, sl))
+
+    def call(*a, split_tokens=None):
+        if split_tokens is None:
+            return att.paged_decode_attention(*a)
+        return att._paged_decode_cuda(*a, scale, split_tokens)
+
     sets = _copies(torch, (q, kp, vp, bt, sl))
-    ms = cuda_ms(torch, att.paged_decode_attention, sets, 200)
-    kp0 = [(a, k.clone(), v.clone(), t, n) for a, k, v, t, n in sets[:2]]
-    for _, k, v, _, _ in kp0:
-        k[0] = 0
-        v[0] = 0
+    long_row = int(seq_lens.argmax())
+    b1_sets = [(q_[long_row:long_row + 1], k_, v_,
+                t_[long_row:long_row + 1].contiguous(),
+                n_[long_row:long_row + 1].contiguous())
+               for q_, k_, v_, t_, n_ in sets]
+    nbytes = _paged_bytes(seq_lens, kvh, d * 2, q.numel(), tables)
+    ms, ms_b1 = _paged_speed(
+        torch, "paged_decode", call, sets, seq_lens, kvh, bs, nbytes,
+        _paged_bytes(seq_lens[long_row:long_row + 1], kvh, d * 2, h * d,
+                     tables[long_row:long_row + 1]), b1_sets)
+    del sets, b1_sets
     plain_ms = cuda_ms(torch, lambda *a: att.paged_decode_reference(
-        *a, d ** -0.5), kp0, 20)
-    tokens = int(seq_lens.sum())
-    nbytes = (tokens * kvh * d * 2 * 2 + 2 * q.numel() * 2
-              + tables.nbytes + seq_lens.nbytes)
-    ops = 4 * tokens * h * d
+        *a, scale), [(q, kp.nan_to_num(0.0), vp.nan_to_num(0.0), bt, sl)] * 2,
+        20)
+    ops = 4 * int(seq_lens.sum()) * h * d
     t_ops = ops / H100_BF16_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_S * 1e3
-    row = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-               bound_ms=max(t_ops, t_bytes),
+    row = dict(err=err, ms=ms, ms_b1=ms_b1, plain_ms=plain_ms,
+               library_ms=None, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"paged_decode b={b} h={h} kvh={kvh} d={d} bs={bs} seq_lens "
         f"{seq_lens.tolist()} bf16: max_abs_err {err:.3e} (within "
         f"{BF16_ATOL} + {BF16_RTOL} |x| of the plain result rounded to "
-        f"bf16) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-        f"{nbytes / ms / 1e6:.1f} GB/s achieved)")
+        f"bf16), the same bits over two launches; kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}, {100 * row['bound_ms'] / ms:.1f}% of it)")
     return row
 
 
@@ -417,7 +572,7 @@ def paged_int8_phase(torch):
     scales and +-127 rows in the null page (the kernel must never read
     it; the plain version runs on a copy whose null page is zeroed, as
     0 * NaN is NaN in its fold), then a shared-prefix pair and a COW-copied
-    page; time, plain time and the bytes bound."""
+    page; the same bits over two launches; speed as paged_phase's."""
     from move2kube_tpu_torch.ops import attention as att
     from move2kube_tpu_torch.serving.kvcache import copy_page
 
@@ -451,6 +606,7 @@ def paged_int8_phase(torch):
     err = bf16_check(torch, "paged_decode_int8 (bf16 q, poisoned null "
                      "page)", kernel(q, *pools, bt, sl), ref)
     err32 = (kernel(q.float(), *pools, bt, sl) - ref).abs().max().item()
+    _same_bits(torch, "paged_decode_int8", kernel, (q, *pools, bt, sl))
     # a shared prefix and a COW copy: rows 0 and 1 read sequence 1's first
     # 1000 tokens, row 1 through a copy of its 11th page; row 2 its first
     # 500 with another query
@@ -472,28 +628,41 @@ def paged_int8_phase(torch):
             f"paged_decode_int8 fp32 q: max abs err {err32:.3e}, shared/COW"
             f" rows {err3:.3e} (tol {INT8_FP32_ATOL}); COW row equal to its"
             f" original: {torch.equal(out3[0], out3[1])}")
+
+    def call(*a, split_tokens=None):
+        if split_tokens is None:
+            return kernel(*a)
+        return att._paged_decode_int8_cuda(*a, scale, split_tokens)
+
     sets = _copies(torch, (q, *pools, bt, sl))
-    ms = cuda_ms(torch, kernel, sets, 200)
+    long_row = int(seq_lens.argmax())
+    b1_sets = [(s_[0][long_row:long_row + 1], *s_[1:5],
+                s_[5][long_row:long_row + 1].contiguous(),
+                s_[6][long_row:long_row + 1].contiguous()) for s_ in sets]
+    # int8 K and V rows and their fp32 scales, q in, o out, tables
+    nbytes = _paged_bytes(seq_lens, kvh, d + 4, q.numel(), tables)
+    ms, ms_b1 = _paged_speed(
+        torch, "paged_decode_int8", call, sets, seq_lens, kvh, bs, nbytes,
+        _paged_bytes(seq_lens[long_row:long_row + 1], kvh, d + 4, h * d,
+                     tables[long_row:long_row + 1]), b1_sets)
+    del sets, b1_sets
     plain_ms = cuda_ms(torch, lambda *a: att.paged_decode_int8_reference(
         *a, scale), [(q, *clean, bt, sl)] * 2, 20)
-    del sets
-    tokens = int(seq_lens.sum())
-    # int8 K and V rows and their fp32 scales, q in, o out, tables
-    nbytes = (tokens * kvh * (d + 4) * 2 + 2 * q.numel() * 2
-              + tables.nbytes + seq_lens.nbytes)
-    ops = 4 * tokens * h * d
+    ops = 4 * int(seq_lens.sum()) * h * d
     t_ops = ops / H100_BF16_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_S * 1e3
-    row = dict(err=max(err, err32, err3), ms=ms, plain_ms=plain_ms,
-               library_ms=None, bound_ms=max(t_ops, t_bytes),
+    row = dict(err=max(err, err32, err3), ms=ms, ms_b1=ms_b1,
+               plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"paged_decode_int8 b={b} h={h} kvh={kvh} d={d} bs={bs} seq_lens "
         f"{seq_lens.tolist()} int8 pools: bf16 q max_abs_err {err:.3e} "
         f"(within {BF16_ATOL} + {BF16_RTOL} |x| of the plain result rounded"
         f" to bf16), fp32 q {err32:.3e}, shared-prefix / COW rows "
-        f"{err3:.3e} (tol {INT8_FP32_ATOL}), COW row bit-equal; kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {row['bound_ms']:.4f} "
-        f"ms ({row['bound_by']}, {nbytes / ms / 1e6:.1f} GB/s achieved)")
+        f"{err3:.3e} (tol {INT8_FP32_ATOL}), COW row bit-equal, the same "
+        f"bits over two launches; kernel {ms:.4f} ms plain {plain_ms:.4f} "
+        f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+        f"{100 * row['bound_ms'] / ms:.1f}% of it)")
     return row
 
 
@@ -1105,24 +1274,20 @@ def _profiled(torch, label: str, fn) -> float:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # a user annotation (``Optimizer.step#AdamW.step``) also has a range
     # on the device that spans its kernels: count the kernels only
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
               and not getattr(e, "is_user_annotation", False)]
-    busy_us = sum(dev_us(e) for e in events)
+    busy_us = sum(_dev_us(e) for e in events)
     log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"{sum(e.count for e in events)} kernels")
-    ranked = sorted(events, key=dev_us, reverse=True)
+    ranked = sorted(events, key=_dev_us, reverse=True)
     # the 8 largest, and the port's own kernels wherever they rank
     for i, e in enumerate(ranked):
         if i < 8 or any(k.name in e.key for k in KERNELS):
-            log(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+            log(f"  {_dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     return busy_us / 1e3
 
 

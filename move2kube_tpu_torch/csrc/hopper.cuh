@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): mbarriers, TMA loads
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu; the paged-decode
+// kernels' paged_split.cuh uses the mbarriers): mbarriers, TMA loads
 // and stores of 4-d tensor maps, shared-memory matrix descriptors for
 // 128-byte swizzled operands, bf16 `wgmma` products with fp32 accumulators,
 // and the host-side encoding of the tensor maps through the CUDA runtime

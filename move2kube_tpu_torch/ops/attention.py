@@ -19,6 +19,8 @@ TPU kernels broadcast it over 128 lanes; that is a TPU tiling artefact).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from move2kube_tpu_torch.ops._build import FLOAT, INT, PTR, CudaKernel
@@ -39,12 +41,12 @@ FLASH_BWD_DKV = CudaKernel(
      INT, FLOAT, INT, INT, PTR])
 PAGED_DECODE = CudaKernel(
     "paged_decode", "m2kt_paged_decode",
-    [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, FLOAT, INT,
-     INT, PTR])
+    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
+     INT, FLOAT, INT, INT, PTR])
 PAGED_DECODE_INT8 = CudaKernel(
     "paged_decode_int8", "m2kt_paged_decode_int8",
-    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
-     FLOAT, INT, INT, PTR])
+    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
+     INT, INT, INT, FLOAT, INT, INT, PTR])
 KERNELS = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, PAGED_DECODE,
            PAGED_DECODE_INT8)
 
@@ -445,8 +447,46 @@ def paged_decode_int8_reference(q, k_pages, v_pages, k_scale, v_scale,
     return pv.reshape(b, h, d).to(q.dtype)
 
 
+# The paged-decode kernels cut each sequence's context into splits of whole
+# pages over the grid (split, KV head, sequence), sized from max_blocks
+# (csrc/paged_split.cuh). Splits of up to PAGED_SPLIT_TOKENS tokens (of 64,
+# 128 and 256, the fastest at chip_smoke.py's paged batch on an H100),
+# halved (down to _SPLIT_MIN_TOKENS) while the grid holds fewer than
+# _SPLIT_BLOCKS_PER_SM blocks an SM.
+PAGED_SPLIT_TOKENS = 128
+_SPLIT_MIN_TOKENS = 32
+_SPLIT_BLOCKS_PER_SM = 3
+
+
+def paged_split_plan(b: int, kvh: int, max_blocks: int, block_size: int,
+                     sm_count: int,
+                     split_tokens: int = PAGED_SPLIT_TOKENS
+                     ) -> tuple[int, int]:
+    """``(pages_per_split, n_split)`` for the paged-decode kernels' grid of
+    ``n_split x kvh x b`` blocks: whole pages a split (so a multiple of 8
+    tokens), ``n_split * pages_per_split >= max_blocks``. A function of
+    host integers only: it reads no ``seq_lens``, so a decode step gains no
+    device-to-host sync; blocks whose split starts past their sequence's
+    length return at once."""
+    pps = max(1, split_tokens // block_size)
+    target = _SPLIT_BLOCKS_PER_SM * sm_count
+    while (pps > 1 and (pps // 2) * block_size >= _SPLIT_MIN_TOKENS
+           and b * kvh * -(-max_blocks // pps) < target):
+        pps //= 2
+    pps = min(pps, max(max_blocks, 1))
+    return pps, max(1, -(-max_blocks // pps))
+
+
+_cached_plan = functools.lru_cache(maxsize=256)(paged_split_plan)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _paged_geometry_ok(name: str, h: int, kvh: int, block_size: int,
-                       block_tables, seq_lens) -> None:
+                       block_tables, seq_lens, **pools) -> None:
     if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError(f"{name}: block_tables and seq_lens must be int32")
     if block_size % 8:
@@ -455,11 +495,39 @@ def _paged_geometry_ok(name: str, h: int, kvh: int, block_size: int,
     if h // kvh not in (1, 2, 4, 8):
         raise ValueError(f"{name}: the CUDA kernel serves 1, 2, 4 or 8 query"
                          f" heads per KV head (got {h // kvh})")
+    # the kernel copies 16 bytes of a row at a time
+    for key, t in pools.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+
+
+def _paged_launch(kernel, q, pools, block_tables, seq_lens, block_size: int,
+                  kvh: int, scale: float, split_tokens: int):
+    """Plan the split, allocate the output and the split workspace (one
+    ``torch.empty``, none when there is one split) and launch ``kernel``'s
+    C entry point once: its split pass, then its merge pass."""
+    b, h, d = q.shape
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    dev, stream = _stream_args(q)
+    mb = block_tables.shape[1]
+    pps, n_split = _cached_plan(b, kvh, mb, block_size, _sm_count(dev),
+                                split_tokens)
+    ws = (torch.empty(b * n_split * h * (d + 2), dtype=torch.float32,
+                      device=q.device)
+          if n_split > 1 else None)
+    kernel.launch(q.data_ptr(), *(t.data_ptr() for t in pools),
+                  block_tables.data_ptr(), seq_lens.data_ptr(),
+                  out.data_ptr(), None if ws is None else ws.data_ptr(), b, h,
+                  kvh, d, block_size, mb, pps, n_split, float(scale),
+                  _DTYPE_CODES[q.dtype], dev, stream)
+    return out
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
-                       scale: float):
-    b, h, d = q.shape
+                       scale: float, split_tokens: int = PAGED_SPLIT_TOKENS):
+    h, d = q.shape[1:]
     _, block_size, kvh, _ = k_pages.shape
     _kernel_args_ok("paged_decode_attention",
                     {"q": q, "k_pages": k_pages, "v_pages": v_pages,
@@ -470,23 +538,17 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
                         f"share one dtype (q {q.dtype}, pages "
                         f"{k_pages.dtype})")
     _paged_geometry_ok("paged_decode_attention", h, kvh, block_size,
-                       block_tables, seq_lens)
-    out = torch.empty_like(q)
-    if b == 0:
-        return out
-    dev, stream = _stream_args(q)
-    PAGED_DECODE.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                        block_tables.data_ptr(), seq_lens.data_ptr(),
-                        out.data_ptr(), b, h, kvh, d, block_size,
-                        block_tables.shape[1], float(scale),
-                        _DTYPE_CODES[q.dtype], dev, stream)
-    return out
+                       block_tables, seq_lens, k_pages=k_pages,
+                       v_pages=v_pages)
+    return _paged_launch(PAGED_DECODE, q, (k_pages, v_pages), block_tables,
+                         seq_lens, block_size, kvh, scale, split_tokens)
 
 
 def _paged_decode_int8_cuda(q, k_pages, v_pages, k_scale, v_scale,
-                            block_tables, seq_lens, scale: float):
+                            block_tables, seq_lens, scale: float,
+                            split_tokens: int = PAGED_SPLIT_TOKENS):
     name = "paged_decode_attention (int8)"
-    b, h, d = q.shape
+    h, d = q.shape[1:]
     _, block_size, kvh, _ = k_pages.shape
     _kernel_args_ok(name, {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                            "k_scale": k_scale, "v_scale": v_scale,
@@ -498,22 +560,11 @@ def _paged_decode_int8_cuda(q, k_pages, v_pages, k_scale, v_scale,
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError(f"{name}: the scale pools must be fp32 (got "
                         f"{k_scale.dtype}, {v_scale.dtype})")
-    _paged_geometry_ok(name, h, kvh, block_size, block_tables, seq_lens)
-    # a lane reads its d / 32 int8 values of a row in one load
-    for key, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must be 16-byte aligned")
-    out = torch.empty_like(q)
-    if b == 0:
-        return out
-    dev, stream = _stream_args(q)
-    PAGED_DECODE_INT8.launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), b, h, kvh, d, block_size,
-        block_tables.shape[1], float(scale), _DTYPE_CODES[q.dtype], dev,
-        stream)
-    return out
+    _paged_geometry_ok(name, h, kvh, block_size, block_tables, seq_lens,
+                       k_pages=k_pages, v_pages=v_pages)
+    return _paged_launch(PAGED_DECODE_INT8, q,
+                         (k_pages, v_pages, k_scale, v_scale), block_tables,
+                         seq_lens, block_size, kvh, scale, split_tokens)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
@@ -533,9 +584,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
       ``q``'s type
 
     CUDA tensors launch ``csrc/paged_decode.cu`` (fp pools) or
-    ``csrc/paged_decode_int8.cu`` (int8 pools with their scales); CPU
-    tensors take :func:`paged_decode_reference` or
-    :func:`paged_decode_int8_reference`."""
+    ``csrc/paged_decode_int8.cu`` (int8 pools with their scales), split
+    over the sequence by :func:`paged_split_plan` and merged in a fixed
+    order, so two calls give the same bits; CPU tensors take
+    :func:`paged_decode_reference` or :func:`paged_decode_int8_reference`."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.ndim != 3 or k_pages.shape != v_pages.shape or (
             k_pages.shape[3] != q.shape[2]) or q.shape[1] % k_pages.shape[2]:

@@ -501,6 +501,165 @@ def test_paged_decode_int8_kernel_shared_and_cow_pages(cuda):
     assert torch.equal(out[2], out[3])  # page 6 is a copy of page 2
 
 
+def _split_tokens(b, kvh, mb, bs):
+    """The tokens of one split the wrappers plan on this card."""
+    pps, _ = tatt.paged_split_plan(
+        b, kvh, mb, bs, tatt._sm_count(torch.cuda.current_device()))
+    return pps * bs
+
+
+def _poisoned_paged(gen, quant, b, h, kvh, d, bs, seq_lens, mb):
+    """Pools (fp32, or int8 from ``quantize_kv_rows``) with disjoint page
+    runs; every table entry past a sequence's end points at the null page
+    or at a page no sequence owns, and those pages hold NaN (int8: +-127
+    rows, NaN scales), as do the rows past each sequence's length in its
+    last page. Returns (q, pools, tables, seq_lens) poisoned on the CPU and
+    the pools as they were before, for the plain version."""
+    need = [-(-n // bs) for n in seq_lens]
+    num_pages = 1 + sum(need) + 4
+    order = gen.permutation(np.arange(1, num_pages)).tolist()
+    tables = np.zeros((b, mb), np.int32)
+    for i, n in enumerate(need):
+        tables[i, :n] = [order.pop() for _ in range(n)]
+    unowned = [0, *order]
+    for i, n in enumerate(need):
+        tables[i, n:] = gen.choice(unowned, size=mb - n)
+    if quant:
+        pools = [*tatt.quantize_kv_rows(_randn(gen, num_pages, bs, kvh, d)),
+                 *tatt.quantize_kv_rows(_randn(gen, num_pages, bs, kvh, d))]
+        pools = [pools[0], pools[2], pools[1], pools[3]]  # k8, v8, ks, vs
+    else:
+        pools = [_randn(gen, num_pages, bs, kvh, d) for _ in range(2)]
+    clean = [t.clone() for t in pools]
+    for t in clean:
+        t[unowned] = 0
+    sign = torch.where(torch.arange(d) % 2 == 0, 127, -127).to(torch.int8)
+    tails = [(int(tables[i, n // bs]), n % bs)
+             for i, n in enumerate(seq_lens) if n % bs]
+
+    def poison(idx):
+        if quant:
+            pools[0][idx] = sign
+            pools[1][idx] = -sign
+            pools[2][idx] = float("nan")
+            pools[3][idx] = float("nan")
+        else:
+            for t in pools:
+                t[idx] = float("nan")
+
+    poison(unowned)
+    for page, row in tails:
+        poison((page, slice(row, None)))
+    q = _randn(gen, b, h, d)
+    return (q, pools, torch.from_numpy(tables),
+            torch.tensor(seq_lens, dtype=torch.int32), clean)
+
+
+def _split_launch(cuda, quant, dtype, q, pools, bt, sl, clean):
+    """The kernel twice on the poisoned pools (the same bits both times),
+    held against the plain version on the clean ones."""
+    q = q.to(cuda, dtype)
+    bt, sl = bt.to(cuda), sl.to(cuda)
+    if quant:
+        pools = [t.to(cuda) for t in pools]
+        ref = tatt.paged_decode_int8_reference(
+            q.float(), *(t.to(cuda) for t in clean), bt, sl,
+            q.shape[-1] ** -0.5)
+        outs = [_int8_launch(q, *pools, bt, sl) for _ in range(2)]
+        _assert_int8_close(outs[0], ref, dtype)
+    else:
+        pools = [t.to(cuda, dtype) for t in pools]
+        ref = tatt.paged_decode_reference(
+            q.float(), *(t.to(cuda, dtype).float() for t in clean), bt, sl,
+            q.shape[-1] ** -0.5)
+        before = tatt.PAGED_DECODE.launches
+        outs = [tatt.paged_decode_attention(q, *pools, bt, sl)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert tatt.PAGED_DECODE.launches == before + 2
+        assert torch.isfinite(outs[0]).all()
+        _assert_kernel_close(outs[0], ref, dtype)
+    assert torch.equal(outs[0], outs[1]), "not bit-identical over launches"
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs,mb", [
+    (32, 8, 128, 16, 37),  # the slice's heads
+    (16, 2, 64, 8, 45),    # 8 heads per KV head, pages of 8
+])
+def test_paged_split_edges(cuda, quant, dtype, h, kvh, d, bs, mb):
+    """Lengths one short of a split, at a split, one past it, 1, two splits
+    and one past, and the whole table, whose page count is not a multiple
+    of the pages a split; NaN past every sequence's end."""
+    b = 7
+    sp = _split_tokens(b, kvh, mb, bs)
+    assert mb % (sp // bs) and mb * bs > 2 * sp + 1
+    seq_lens = [sp - 1, sp, sp + 1, 1, 2 * sp, 2 * sp + 1, mb * bs]
+    gen = np.random.default_rng(mb + d + quant)
+    _split_launch(cuda, quant, dtype, *_poisoned_paged(
+        gen, quant, b, h, kvh, d, bs, seq_lens, mb))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq_lens", [
+    [2048],                                    # the old design's worst case
+    [17, 17, 17, 2048, 17, 17, 17, 17],        # one long among short ones
+], ids=["b1", "one-long"])
+def test_paged_split_long_sequences(cuda, quant, dtype, seq_lens):
+    gen = np.random.default_rng(len(seq_lens) + 20 * quant)
+    _split_launch(cuda, quant, dtype, *_poisoned_paged(
+        gen, quant, len(seq_lens), 32, 8, 128, 16, seq_lens, 2048 // 16))
+
+
+def test_paged_split_int8_shared_and_cow_pages(cuda):
+    """Rows sharing a 1000-token prefix across many splits, one through a
+    COW copy (``kvcache.copy_page``) of its 11th page: the same bits as
+    the original, and the plain version's values."""
+    from move2kube_tpu_torch.serving import kvcache as tkv
+
+    gen = np.random.default_rng(21)
+    mb, bs, kvh = 128, 16, 8
+    cfg = tkv.KVCacheConfig(num_layers=1, num_kv_heads=kvh, head_dim=128,
+                            block_size=bs, num_pages=70, max_batch=3,
+                            max_pages_per_seq=mb, dtype=torch.int8)
+    cache = tkv.init_cache(cfg, cuda)
+    for key in ("k", "v"):
+        q8, sc = tatt.quantize_kv_rows(_randn(gen, 69, bs, kvh, 128).to(cuda))
+        cache[key][0][1:] = q8
+        cache[key + "_scale"][0][1:] = sc
+    tkv.copy_page(cache, 11, 69)
+    pools = [cache[key][0] for key in tkv.PAGE_KEYS]
+    q = _randn(gen, 1, 32, 128).expand(3, 32, 128).contiguous().to(cuda)
+    bt = torch.zeros(3, mb, dtype=torch.int32)
+    bt[:, :63] = torch.arange(1, 64)
+    bt[1, 10] = 69
+    bt = bt.to(cuda)
+    sl = torch.tensor([1000, 1000, 500], dtype=torch.int32, device=cuda)
+    assert 1000 > 2 * _split_tokens(3, kvh, mb, bs)
+    ref = _int8_ref(q, *pools, bt, sl)
+    _poison_null_page(*pools)
+    out = _int8_launch(q, *pools, bt, sl)
+    _assert_int8_close(out, ref, torch.float32)
+    assert torch.equal(out[0], out[1])
+
+
+def test_paged_decode_raises_on_misaligned_pools(cuda):
+    """The split pass copies 16 bytes of a row at a time: an fp pool that
+    starts off a 16-byte boundary raises, and nothing is launched."""
+    buf = torch.zeros(1 + 3 * 8 * 2 * 64, device=cuda)
+    pages = buf[1:].view(3, 8, 2, 64)
+    assert pages.is_contiguous()
+    before = tatt.PAGED_DECODE.launches
+    with pytest.raises(ValueError, match="aligned"):
+        tatt.paged_decode_attention(
+            torch.zeros(1, 4, 64, device=cuda), pages, pages,
+            torch.zeros(1, 2, dtype=torch.int32, device=cuda),
+            torch.ones(1, dtype=torch.int32, device=cuda))
+    assert tatt.PAGED_DECODE.launches == before
+
+
 def test_paged_decode_int8_kernel_raises_on_what_it_does_not_take(cuda):
     gen = np.random.default_rng(13)
 
