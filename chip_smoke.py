@@ -39,16 +39,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights and an int8 paged KV cache, every decode step's attention in
    the int8 kernel; its memory, and a profile of 4 decode steps beside
    the time the weights' dequantization takes a step
-7. training parity at Llama-8B width and 2 layers in fp32: 3 steps of the
+7. fleet parity at Llama-8B width and 2 layers in fp32: the prefix cache
+   (hits and COW against a cache-off engine), spec decode (streams equal
+   to plain greedy, alone and beside prefix hits whose suffixes outrun
+   the verify window), chunked prefill (the chunked prompt's every logit
+   row against the whole prefill's, every stream equal) and int8-kv with
+   the prefix cache (the quant gate)
+8. the fleet slice: full-depth Llama-8B in bf16 on the fleet replica's
+   engine paths: prefix traffic on a shared 1000-token system prompt
+   (TTFT of hits and of the cold prompt), spec decode with a 16-layer
+   draft (streams equal to plain bf16) and a 256-token chunked prefill
+   beside 7 running streams (their streams equal, the chunked prompt's
+   logits within the route gate of its whole prefill's); every run's
+   launch counts checked exactly against the engine's own pass counters
+9. training parity at Llama-8B width and 2 layers in fp32: 3 steps of the
    LM train step with the attention in the kernels against the plain
    dense attention, from the same weights on the same batches; then the
    same in the bf16 policy, held to source/validate.py's gates
-8. the training slice: Llama-8B widths cut to 8 layers, fp32 master
+10. the training slice: Llama-8B widths cut to 8 layers, fp32 master
    weights, the bf16 policy, AdamW, remat, head-folded cross-entropy,
    batch 4 x 2048 tokens; 5 timed steps whose launch counts show every
    layer's forward, recompute and backward went through the kernels, and
    one step under the profiler
-9. one JSON line with every kernel's numbers, then the result line
+11. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -117,6 +130,14 @@ INT8_FP32_ATOL = 2e-5
 # JAX package's quant gate (tests/test_quant.py), max |d logit| over the
 # reference row's range
 QUANT_GATE_REL = 0.05
+# bf16 serving, one engine's two routes to the same logits (a chunked
+# prefill's single-token passes through paged_decode against the whole
+# prompt's flash prefill): GEMMs of other shapes round differently through
+# every layer. The JAX package holds two serving routes of one engine to
+# the same bound (tests/test_fleet.py, tests/test_kernels.py): max |d
+# logit| over the reference row's range, on every row up to the first
+# token where the streams part
+ROUTE_GATE_REL = 0.05
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (NVIDIA data sheet)
 H100_BYTES_S = 3.35e12     # HBM3 (NVIDIA data sheet)
 SEED = 0
@@ -530,6 +551,16 @@ def paged_phase(torch):
     err = bf16_check(torch, "paged_decode (NaN in the null page)", out, ref)
     _same_bits(torch, "paged_decode", att.paged_decode_attention,
                (q, kp, vp, bt, sl))
+    long_row = int(seq_lens.argmax())
+    # b=1, as a chunk pass calls it: the planner splits one sequence
+    # more finely than the batch of 8
+    for r in (0, long_row):
+        err = max(err, bf16_check(
+            torch, f"paged_decode b=1 ({seq_lens[r]} tokens)",
+            att.paged_decode_attention(q[r:r + 1], kp, vp,
+                                       bt[r:r + 1].contiguous(),
+                                       sl[r:r + 1].contiguous()),
+            ref[r:r + 1]))
 
     def call(*a, split_tokens=None):
         if split_tokens is None:
@@ -537,7 +568,6 @@ def paged_phase(torch):
         return att._paged_decode_cuda(*a, scale, split_tokens)
 
     sets = _copies(torch, (q, kp, vp, bt, sl))
-    long_row = int(seq_lens.argmax())
     b1_sets = [(q_[long_row:long_row + 1], k_, v_,
                 t_[long_row:long_row + 1].contiguous(),
                 n_[long_row:long_row + 1].contiguous())
@@ -558,7 +588,8 @@ def paged_phase(torch):
                library_ms=None, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"paged_decode b={b} h={h} kvh={kvh} d={d} bs={bs} seq_lens "
-        f"{seq_lens.tolist()} bf16: max_abs_err {err:.3e} (within "
+        f"{seq_lens.tolist()} bf16, and b=1 on rows of {seq_lens[0]} and "
+        f"{seq_lens[long_row]} tokens: max_abs_err {err:.3e} (within "
         f"{BF16_ATOL} + {BF16_RTOL} |x| of the plain result rounded to "
         f"bf16), the same bits over two launches; kernel {ms:.4f} ms plain "
         f"{plain_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
@@ -607,6 +638,12 @@ def paged_int8_phase(torch):
                      "page)", kernel(q, *pools, bt, sl), ref)
     err32 = (kernel(q.float(), *pools, bt, sl) - ref).abs().max().item()
     _same_bits(torch, "paged_decode_int8", kernel, (q, *pools, bt, sl))
+    long_row = int(seq_lens.argmax())
+    for r in (0, long_row):  # b=1, as a chunk pass calls it
+        err = max(err, bf16_check(
+            torch, f"paged_decode_int8 b=1 ({seq_lens[r]} tokens)",
+            kernel(q[r:r + 1], *pools, bt[r:r + 1].contiguous(),
+                   sl[r:r + 1].contiguous()), ref[r:r + 1]))
     # a shared prefix and a COW copy: rows 0 and 1 read sequence 1's first
     # 1000 tokens, row 1 through a copy of its 11th page; row 2 its first
     # 500 with another query
@@ -635,7 +672,6 @@ def paged_int8_phase(torch):
         return att._paged_decode_int8_cuda(*a, scale, split_tokens)
 
     sets = _copies(torch, (q, *pools, bt, sl))
-    long_row = int(seq_lens.argmax())
     b1_sets = [(s_[0][long_row:long_row + 1], *s_[1:5],
                 s_[5][long_row:long_row + 1].contiguous(),
                 s_[6][long_row:long_row + 1].contiguous()) for s_ in sets]
@@ -656,7 +692,9 @@ def paged_int8_phase(torch):
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"paged_decode_int8 b={b} h={h} kvh={kvh} d={d} bs={bs} seq_lens "
-        f"{seq_lens.tolist()} int8 pools: bf16 q max_abs_err {err:.3e} "
+        f"{seq_lens.tolist()} int8 pools: bf16 q (and b=1 on rows of "
+        f"{seq_lens[0]} and {seq_lens[long_row]} tokens) max_abs_err "
+        f"{err:.3e} "
         f"(within {BF16_ATOL} + {BF16_RTOL} |x| of the plain result rounded"
         f" to bf16), fp32 q {err32:.3e}, shared-prefix / COW rows "
         f"{err3:.3e} (tol {INT8_FP32_ATOL}), COW row bit-equal, the same "
@@ -945,10 +983,7 @@ def quant_gate_phase(torch, model, prompts, n_new, ref) -> None:
     ref, ref_log = ref
     worst, rows, agreed = 0.0, 0, []
     for rid, a_t in ref.items():
-        b_t = got[rid]
-        agree = 0
-        while agree < min(len(a_t), len(b_t)) and a_t[agree] == b_t[agree]:
-            agree += 1
+        agree = _greedy_prefix(a_t, got[rid])
         agreed.append(agree)
         for i in range(min(agree + 1, len(ref_log[rid]),
                            len(got_log[rid]))):
@@ -1043,6 +1078,8 @@ def _serve_slice(torch, model, econf, label: str, decode_kernel: str):
 
 
 def slice_phase(torch):
+    """The serving slice; returns its launch counts and the model, which
+    the fleet slice serves again."""
     from move2kube_tpu_torch import EngineConfig, init_llama, llama_8b
 
     cfg = dataclasses.replace(llama_8b(), attn_impl="flash")
@@ -1052,7 +1089,8 @@ def slice_phase(torch):
     log(f"slice: llama_8b, attn_impl='flash', bf16 weights drawn on the "
         f"card in {time.perf_counter() - t0:.1f} s")
     econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16)
-    return _serve_slice(torch, model, econf, "slice", "paged_decode")[0]
+    return _serve_slice(torch, model, econf, "slice",
+                        "paged_decode")[0], model
 
 
 def int8_slice_phase(torch):
@@ -1092,6 +1130,503 @@ def int8_slice_phase(torch):
         f"{100 * dq_ms / busy:.1f}% of a profiled decode step's device busy"
         f" time ({busy:.3f} ms)")
     return launches
+
+
+def _expected_launches(stats, layers: int, draft_layers: int) -> dict:
+    """What the attention kernels' launch counts must come to after an
+    engine run, from the engine's own pass counters: one kernel a layer
+    a pass; flash for the prefills, the paged kernel for every
+    single-token pass (decode steps, prefix-hit suffix feeding, verify,
+    chunk, draft)."""
+    p = stats["passes"]
+    return {"flash_fwd": layers * p["prefill"]
+            + draft_layers * p["draft_prefill"],
+            "paged": layers * (p["decode"] + p["verify"] + p["chunk"])
+            + draft_layers * p["draft_decode"]}
+
+
+def _engine_run(torch, model, econf, reqs, label, tracer=None):
+    """One run on a fresh engine with every launch count set to 0 just
+    before and read just after; checks the counts exactly against the
+    engine's pass counters (the paged kernel of the engine's cache type,
+    no other kernel). Returns the engine, its completions by rid, and
+    the counts."""
+    from move2kube_tpu_torch import ServingEngine, reset_launch_counts
+    from move2kube_tpu_torch.ops.attention import KERNELS
+    from move2kube_tpu_torch.serving.quant import draft_config
+
+    eng = ServingEngine(model, econf, device="cuda", tracer=tracer)
+    eng.capture_logits = True
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    comps = {c.rid: c for c in eng.run(reqs)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    stats = eng.stats()
+    layers = model.cfg.num_layers
+    draft_layers = (draft_config(model.cfg, econf.spec_draft_factor)
+                    .num_layers if econf.spec_k else 0)
+    exp = _expected_launches(stats, layers, draft_layers)
+    paged = "paged_decode_int8" if econf.quant == "int8-kv" else (
+        "paged_decode")
+    want = {k.name: 0 for k in KERNELS}
+    want["flash_fwd"] = exp["flash_fwd"]
+    want[paged] = exp["paged"]
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, expected {want} "
+                           f"from passes {stats['passes']}")
+    if len(comps) != len(reqs):
+        raise RuntimeError(f"{label}: {len(comps)} of {len(reqs)} requests "
+                           "completed")
+    return eng, comps, launches, wall
+
+
+def _greedy_prefix(a, b) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def fleet_parity_phase(torch) -> None:
+    """The fleet replica's engine paths at Llama-8B width, 2 layers, fp32,
+    the attention in the kernels, against the plain engine from the same
+    weights: (a) the prefix cache (a cold prompt of 300 tokens, its rerun,
+    a fork of its first 296 tokens plus 6 new), streams identical to a
+    cache-off engine's and every logit row within FP32_ENGINE_ATOL, with
+    COW copies and two hits; (b) spec decode (k=3, a 1-layer draft) on 4
+    requests admitted together, streams identical, and again with the
+    prefix cache on hits whose suffixes (12 and 7 tokens) outrun the
+    verify window, streams identical to the plain engine's; (c) chunked
+    prefill of a 300-token prompt in chunks of 64 while 3 short prompts
+    decode, every logit row of the chunked prompt within FP32_ENGINE_ATOL
+    of the unchunked run's and all 4 streams identical; (d) int8-kv with the prefix cache against
+    the int8-kv cache-off engine, within QUANT_GATE_REL. Every run's
+    launch counts are checked exactly against the engine's passes."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        init_llama,
+        llama_8b,
+        logit_gate,
+    )
+
+    cfg = dataclasses.replace(llama_8b(), num_layers=2, dtype=torch.float32,
+                              attn_impl="flash")
+    model = init_llama(cfg, seed=SEED, device="cuda").eval()
+    rng = np.random.default_rng(SEED + 9)
+    base = dict(max_batch=4, max_seq=640, block_size=16)
+
+    def copies(reqs):
+        return [Request(r.rid, list(r.prompt), r.max_new_tokens)
+                for r in reqs]
+
+    # (a) prefix cache
+    shared = rng.integers(1, cfg.vocab_size, size=300).tolist()
+    fork = shared[:296] + rng.integers(1, cfg.vocab_size, size=6).tolist()
+    pre = [Request("cold", list(shared), 8), Request("rerun", list(shared), 8),
+           Request("fork", fork, 8)]
+    hit_eng, got, _, _ = _engine_run(
+        torch, model, EngineConfig(**base, prefix_cache=True), copies(pre),
+        "fleet parity prefix")
+    off_eng, want, _, _ = _engine_run(torch, model, EngineConfig(**base),
+                                      copies(pre), "fleet parity prefix off")
+    stats = hit_eng.stats()
+    worst = 0.0
+    for r in pre:
+        if got[r.rid].tokens != want[r.rid].tokens:
+            raise RuntimeError(f"fleet parity prefix: {r.rid} stream "
+                               f"{got[r.rid].tokens} != cache-off "
+                               f"{want[r.rid].tokens}")
+        for a, b in zip(hit_eng.logit_log[r.rid], off_eng.logit_log[r.rid]):
+            worst = max(worst, float(np.abs(a - b).max()))
+    if not (worst <= FP32_ENGINE_ATOL and stats["prefix_hits"] == 2
+            and stats["cow_copies"] >= 1):
+        raise RuntimeError(f"fleet parity prefix: logits max abs err {worst}"
+                           f" (tol {FP32_ENGINE_ATOL}), prefix_hits "
+                           f"{stats['prefix_hits']} (want 2), cow_copies "
+                           f"{stats['cow_copies']}")
+    log(f"fleet parity (a) prefix cache: llama_8b widths, 2 layers, fp32; "
+        f"cold 300 tokens, rerun, fork 296+6, 8 new tokens each: streams "
+        f"identical to the cache-off engine, logits max abs err {worst:.3e} "
+        f"(tol {FP32_ENGINE_ATOL}); prefix_hits {stats['prefix_hits']}, "
+        f"hit tokens {stats['prefix_hit_tokens']}, cow_copies "
+        f"{stats['cow_copies']}")
+    del hit_eng, off_eng
+
+    # (b) spec decode
+    spec_reqs = [Request(f"s{i}", rng.integers(
+        1, cfg.vocab_size, size=int(n)).tolist(), 16)
+        for i, n in enumerate((37, 150, 300, 97))]
+    spec_conf = EngineConfig(**base, admit_burst=0, spec_k=3,
+                             spec_draft_factor=2)
+    spec_eng, got, _, _ = _engine_run(torch, model, spec_conf,
+                                      copies(spec_reqs), "fleet parity spec")
+    _, want, _, _ = _engine_run(torch, model, EngineConfig(
+        **base, admit_burst=0), copies(spec_reqs), "fleet parity spec off")
+    for r in spec_reqs:
+        if got[r.rid].tokens != want[r.rid].tokens:
+            raise RuntimeError(f"fleet parity spec: {r.rid} stream "
+                               f"{got[r.rid].tokens} != plain "
+                               f"{want[r.rid].tokens}")
+    stats = spec_eng.stats()
+    del spec_eng
+    # spec with the prefix cache: hits whose suffixes (12 tokens past 18
+    # full pages; 7 past the whole prompt, its boundary page COW-copied)
+    # outrun the verify window of k + 1, so each is fed over fully forced
+    # windows, against the plain (cache-off, spec-off) engine
+    tail = rng.integers(1, cfg.vocab_size, size=12).tolist()
+    sp_reqs = [Request("cold", list(shared), 8),
+               Request("fork", shared[:288] + tail, 8),
+               Request("fork2", shared + tail[:7], 8)]
+    sp_eng, got, _, _ = _engine_run(
+        torch, model, dataclasses.replace(spec_conf, prefix_cache=True),
+        copies(sp_reqs), "fleet parity spec + prefix")
+    _, want, _, _ = _engine_run(torch, model, EngineConfig(**base),
+                                copies(sp_reqs), "fleet parity spec + "
+                                "prefix off")
+    sp = sp_eng.stats()
+    if (any(got[r.rid].tokens != want[r.rid].tokens for r in sp_reqs)
+            or sp["prefix_hits"] != 2):
+        raise RuntimeError(
+            f"fleet parity spec + prefix: streams "
+            f"{[got[r.rid].tokens for r in sp_reqs]} vs plain "
+            f"{[want[r.rid].tokens for r in sp_reqs]}, prefix_hits "
+            f"{sp['prefix_hits']} (want 2)")
+    log(f"fleet parity (b) spec decode k=3, 1-layer draft, 4 requests "
+        f"admitted together, 16 new tokens each: streams identical to the "
+        f"plain engine; acceptance {stats['spec_acceptance_rate']:.3f}, "
+        f"{stats['spec_tokens_per_step']:.2f} tokens a step, passes "
+        f"{stats['passes']}; with the prefix cache, hits with suffixes of "
+        f"12 and 7 tokens (covered {sp['prefix_hit_tokens']} tokens): "
+        f"streams identical to the plain engine")
+    del sp_eng
+
+    # (c) chunked prefill: the long prompt's stream and every logit row
+    # of it are held too
+    long_p = rng.integers(1, cfg.vocab_size, size=300).tolist()
+    chunk_reqs = [Request(f"c{i}", rng.integers(
+        1, cfg.vocab_size, size=int(n)).tolist(), 16)
+        for i, n in enumerate((23, 64, 41))] + [Request("long", long_p, 4)]
+    ch_eng, got, _, _ = _engine_run(
+        torch, model, EngineConfig(**base, admit_burst=0, chunk_prefill=64),
+        copies(chunk_reqs), "fleet parity chunked")
+    whole_eng, want, _, _ = _engine_run(
+        torch, model, EngineConfig(**base, admit_burst=0),
+        copies(chunk_reqs), "fleet parity chunked off")
+    # the final chunk's row, then every decode step after the chunk (the
+    # seq_lens handed over, the chunk's pages past its first row)
+    first = float(np.abs(ch_eng.logit_log["long"][0]
+                         - whole_eng.logit_log["long"][0]).max())
+    err = max(float(np.abs(a - b).max()) for a, b in zip(
+        ch_eng.logit_log["long"], whole_eng.logit_log["long"]))
+    rows = len(ch_eng.logit_log["long"])
+    stats = ch_eng.stats()
+    if any(got[r.rid].tokens != want[r.rid].tokens for r in chunk_reqs) \
+            or err > FP32_ENGINE_ATOL or stats["chunked_prefills"] != 1 \
+            or rows != len(whole_eng.logit_log["long"]) or rows != 4:
+        raise RuntimeError(
+            f"fleet parity chunked: the chunked prompt's {rows} logit rows "
+            f"max abs err {err} (tol {FP32_ENGINE_ATOL}), chunked_prefills "
+            f"{stats['chunked_prefills']}, streams "
+            f"{[got[r.rid].tokens for r in chunk_reqs]} vs "
+            f"{[want[r.rid].tokens for r in chunk_reqs]}")
+    log(f"fleet parity (c) chunked prefill of 300 tokens in chunks of 64 "
+        f"beside 3 running prompts (23, 64, 41 tokens): final-chunk logits "
+        f"max abs err {first:.3e} against the whole prefill, all {rows} of "
+        f"the chunked prompt's rows {err:.3e} (tol {FP32_ENGINE_ATOL}); "
+        f"all 4 streams identical; {stats['passes']['chunk']} chunk passes")
+    del ch_eng, whole_eng
+
+    # (d) int8-kv with the prefix cache
+    q_hit, got, q_launch, _ = _engine_run(
+        torch, model, EngineConfig(**base, prefix_cache=True,
+                                   quant="int8-kv"),
+        copies(pre), "fleet parity int8-kv prefix")
+    q_off, want, _, _ = _engine_run(
+        torch, model, EngineConfig(**base, quant="int8-kv"), copies(pre),
+        "fleet parity int8-kv prefix off")
+    worst, rows = 0.0, 0
+    for rid in ("rerun", "fork"):
+        agree = _greedy_prefix(got[rid].tokens, want[rid].tokens)
+        for i in range(min(agree + 1, len(q_hit.logit_log[rid]))):
+            worst = max(worst, logit_gate(q_off.logit_log[rid][i],
+                                          q_hit.logit_log[rid][i])
+                        ["max_rel_err"])
+            rows += 1
+    if not (worst < QUANT_GATE_REL and rows >= 2
+            and q_launch["paged_decode_int8"] > 0
+            and q_hit.stats()["prefix_hits"] == 2):
+        raise RuntimeError(f"fleet parity int8-kv prefix: max rel err "
+                           f"{worst:.4f} over {rows} rows (tol "
+                           f"{QUANT_GATE_REL}), launches {q_launch}, hits "
+                           f"{q_hit.stats()['prefix_hits']}")
+    log(f"fleet parity (d) int8-kv with the prefix cache: rerun and fork "
+        f"against the int8-kv cache-off engine, max rel logit err "
+        f"{worst:.4f} over {rows} rows (tol {QUANT_GATE_REL}); "
+        f"paged_decode_int8 launched {q_launch['paged_decode_int8']} times")
+    del q_hit, q_off, model
+    torch.cuda.empty_cache()
+
+
+def _pctl(values, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, float), q)) * 1e3
+
+
+def _ttfts(tracer):
+    """Per-request TTFT and queue wait (seconds) from the engine's spans:
+    the root's ``ttft_s`` and its ``serve.queue_wait`` child."""
+    spans = tracer.snapshot()
+    roots = {s["span_id"]: s for s in spans if s["name"] == "serve.request"}
+    out = {r["attrs"]["rid"]: {"ttft": r["attrs"].get("ttft_s")}
+           for r in roots.values()}
+    for s in spans:
+        if s["name"] == "serve.queue_wait" and s["parent_id"] in roots:
+            out[roots[s["parent_id"]]["attrs"]["rid"]]["queue"] = s["dur_s"]
+    return out
+
+
+def fleet_slice_phase(torch, model) -> dict:
+    """The fleet replica's engine at full width: Llama-8B (32 layers),
+    bf16, flash, ``EngineConfig(max_batch=8, max_seq=2048, block_size=16)``,
+    seed-0 weights (``model``). Three runs, each on a fresh engine after a
+    warm-up, each with its launch counts checked exactly against the
+    engine's passes: prefix traffic (16 requests on a shared 1000-token
+    system prompt, 15 hits), spec decode (k=4, a 16-layer draft sharing
+    the target's tensors, streams identical to the plain engine's) and
+    chunked prefill (a 256-token prompt in 4 chunks beside 7 running
+    streams, identical to the run without chunking; the chunked prompt's
+    logits within ROUTE_GATE_REL of its whole prefill's). Returns the
+    paged kernel's launch count over the three runs."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        logit_gate,
+        reset_launch_counts,
+    )
+    from move2kube_tpu_torch.obs.tracing import SpanRecorder
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    base = EngineConfig(max_batch=8, max_seq=2048, block_size=16)
+    paged_total = 0
+
+    def warm(econf, prompts):
+        ServingEngine(model, econf, device="cuda").run(
+            [Request(f"w{i}", list(p), 4) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+
+    # 1. prefix traffic
+    rng = np.random.default_rng(3)
+    system = rng.integers(1, vocab, size=1000).tolist()
+    tails = [rng.integers(1, vocab, size=int(n)).tolist()
+             for n in rng.integers(1, 25, size=14)]
+    first = system + tails[0]
+    prompts = [first, list(first), list(first)] + [system + t
+                                                    for t in tails[1:]]
+    order = [0, 3, 1, 4, 5, 6, 7, 2] + list(range(8, 16))
+    reqs = [Request(f"p{i}", prompts[i], 64) for i in order]
+    pconf = dataclasses.replace(base, prefix_cache=True)
+    warm(pconf, [system[:40] + [1], system[:40] + [2]])
+    torch.cuda.reset_peak_memory_stats()
+    tracer = SpanRecorder()
+    eng, comps, launches, wall = _engine_run(torch, model, pconf, reqs,
+                                             "fleet slice prefix", tracer)
+    stats = eng.stats()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for rid, rows in eng.logit_log.items():
+        if not all(np.isfinite(r).all() for r in rows):
+            raise RuntimeError(f"fleet slice prefix: non-finite logits "
+                               f"for {rid}")
+    if (stats["prefix_hits"] != 15 or stats["cow_copies"] < 1
+            or any(len(c.tokens) != 64 for c in comps.values())):
+        raise RuntimeError(f"fleet slice prefix: hits {stats['prefix_hits']}"
+                           f" (want 15), cow_copies {stats['cow_copies']}, "
+                           f"tokens {[len(c.tokens) for c in comps.values()]}")
+    times = _ttfts(tracer)
+    cold = [times["p0"]]
+    hits = [t for rid, t in times.items() if rid != "p0"]
+
+    def summary(ts):
+        ttft = [t["ttft"] for t in ts]
+        served = [t["ttft"] - t.get("queue", 0.0) for t in ts]
+        return (f"TTFT p50 {_pctl(ttft, 50):.1f} p95 {_pctl(ttft, 95):.1f} "
+                f"ms, less queue wait p50 {_pctl(served, 50):.1f} p95 "
+                f"{_pctl(served, 95):.1f} ms")
+
+    t_render = time.perf_counter()
+    text = eng.registry.render()
+    render_ms = (time.perf_counter() - t_render) * 1e3
+    log(f"fleet slice prefix: llama_8b bf16, 16 requests on a 1000-token "
+        f"system prompt with tails of {sorted(len(t) for t in tails)} tokens"
+        f" (2 repeat the first), 64 new tokens each, max_batch 8: wall "
+        f"{wall:.3f} s; cold (1): {summary(cold)}; hits "
+        f"({stats['prefix_hits']}): {summary(hits)}; hit rate "
+        f"{stats['prefix_hit_rate']:.4f}, hit tokens "
+        f"{stats['prefix_hit_tokens']}, prefix pages "
+        f"{stats['prefix_cache_pages']}, cow_copies {stats['cow_copies']}; "
+        f"decode {stats['decode_time_s'] / stats['decode_steps'] * 1e3:.2f} "
+        f"ms/step over {stats['decode_steps']} steps; peak memory "
+        f"{peak:.2f} GiB; launches {launches}; one /metrics render "
+        f"{len(text)} bytes, {len(text.splitlines())} lines, "
+        f"{render_ms:.3f} ms of host time")
+    paged_total += launches["paged_decode"]
+    del eng, tracer
+
+    # 2. spec decode
+    rng = np.random.default_rng(4)
+    reqs = [Request(f"s{i}", rng.integers(1, vocab, size=int(n)).tolist(),
+                    32) for i, n in enumerate(rng.integers(64, 513, size=8))]
+    plain_conf = dataclasses.replace(base, admit_burst=0)
+    sconf = dataclasses.replace(plain_conf, spec_k=4, spec_draft_factor=2)
+    warm(sconf, [list(range(1, 65)), list(range(2, 70))])
+    warm(plain_conf, [list(range(1, 65))])
+
+    def copies():
+        return [Request(r.rid, list(r.prompt), r.max_new_tokens)
+                for r in reqs]
+
+    s_eng, got, s_launch, s_wall = _engine_run(torch, model, sconf, copies(),
+                                               "fleet slice spec")
+    p_eng, want, p_launch, p_wall = _engine_run(torch, model, plain_conf,
+                                                copies(), "fleet slice plain")
+    diff = [r.rid for r in reqs if got[r.rid].tokens != want[r.rid].tokens]
+    if diff:
+        r = diff[0]
+        raise RuntimeError(
+            f"fleet slice spec: streams of {diff} differ from plain bf16; "
+            f"{r}: first difference at token "
+            f"{_greedy_prefix(got[r].tokens, want[r].tokens)}")
+    st, pt = s_eng.stats(), p_eng.stats()
+    k = sconf.spec_k
+    if st["passes"]["verify"] != (k + 1) * st["decode_steps"] or (
+            st["passes"]["draft_decode"] != (k + 1) * st["decode_steps"]):
+        raise RuntimeError(f"fleet slice spec: passes {st['passes']} for "
+                           f"{st['decode_steps']} spec steps")
+    log(f"fleet slice spec: k={k}, a {cfg.num_layers // 2}-layer draft "
+        f"sharing the target's tensors, 8 requests of "
+        f"{sorted(len(r.prompt) for r in reqs)} tokens admitted together, "
+        f"32 new tokens each: streams identical to the plain bf16 engine; "
+        f"acceptance {st['spec_acceptance_rate']:.4f} "
+        f"({st['spec_accepted']} of {st['spec_proposed']}), "
+        f"{st['spec_tokens_per_step']:.3f} tokens a step over "
+        f"{st['decode_steps']} spec steps, "
+        f"{st['decode_time_s'] / st['decode_steps'] * 1e3:.2f} ms a spec "
+        f"step, wall {s_wall:.3f} s; plain engine "
+        f"{pt['decode_time_s'] / pt['decode_steps'] * 1e3:.2f} ms/step over "
+        f"{pt['decode_steps']} steps ({pt['decode_tokens'] / pt['decode_steps']:.3f}"
+        f" tokens a step), wall {p_wall:.3f} s; launches spec {s_launch}, "
+        f"plain {p_launch}")
+    paged_total += s_launch["paged_decode"] + p_launch["paged_decode"]
+    del s_eng, p_eng
+    # where a spec step's time goes: the second step of a fresh engine
+    # (the first admits the 8 prompts), 8 of 8 slots
+    eng = ServingEngine(model, sconf, device="cuda")
+    for r in copies():
+        eng.submit(r)
+    eng.step()
+    passes = (k + 1) * (cfg.num_layers + cfg.num_layers // 2)
+    _profiled(torch, f"one spec step (k={k}: {k + 1} draft passes of "
+              f"{cfg.num_layers // 2} layers, {k + 1} verify passes of "
+              f"{cfg.num_layers}; {passes} layer passes) at 8 of 8 slots",
+              eng.step)
+    del eng
+    torch.cuda.empty_cache()
+
+    # 3. chunked prefill
+    rng = np.random.default_rng(5)
+    short = [rng.integers(1, vocab, size=int(n)).tolist()
+             for n in rng.integers(32, 65, size=7)]
+    long_p = rng.integers(1, vocab, size=256).tolist()
+    reqs = ([Request(f"c{i}", p, 64) for i, p in enumerate(short)]
+            + [Request("long", long_p, 64)])
+    cconf = dataclasses.replace(base, admit_burst=0, chunk_prefill=64)
+    warm(cconf, [list(range(1, 33)), list(range(1, 130))])
+    eng = ServingEngine(model, cconf, device="cuda")
+    eng.capture_logits = True
+    for r in reqs:
+        eng.submit(Request(r.rid, list(r.prompt), r.max_new_tokens))
+    reset_launch_counts()
+    during, outside, got = [], [], {}
+    t_all = time.perf_counter()
+    while eng.has_work():
+        chunks = eng.stats()["passes"]["chunk"]
+        t0 = time.perf_counter()
+        for c in eng.step():
+            got[c.rid] = c.tokens
+        dt = time.perf_counter() - t0
+        (during if eng.stats()["passes"]["chunk"] > chunks
+         else outside).append(dt)
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t_all
+    c_launch = {k_.name: k_.launches for k_ in KERNELS}
+    cs = eng.stats()
+    exp = _expected_launches(cs, cfg.num_layers, 0)
+    if c_launch != {"flash_fwd": exp["flash_fwd"], "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0, "paged_decode": exp["paged"],
+                    "paged_decode_int8": 0} or cs["passes"]["chunk"] != 256:
+        raise RuntimeError(f"fleet slice chunked: launches {c_launch}, "
+                           f"passes {cs['passes']}")
+    off_eng, want, w_launch, _ = _engine_run(
+        torch, model, dataclasses.replace(base, admit_burst=0),
+        [Request(r.rid, list(r.prompt), r.max_new_tokens) for r in reqs],
+        "fleet slice chunked off")
+    diff = [r.rid for r in reqs[:7] if got[r.rid] != want[r.rid].tokens]
+    if diff or len(got) != 8:
+        raise RuntimeError(f"fleet slice chunked: the running streams of "
+                           f"{diff} differ from the run without chunking")
+    # the chunked prompt against the run without chunking (its whole
+    # prefill): every logit row up to the first token where the streams
+    # part, within ROUTE_GATE_REL
+    rows_c, rows_w = eng.logit_log["long"], off_eng.logit_log["long"]
+    agree = _greedy_prefix(got["long"], want["long"].tokens)
+    gated = min(agree + 1, len(rows_c), len(rows_w))
+    gate = [logit_gate(rows_w[i], rows_c[i]) for i in range(gated)]
+    err = gate[0]["max_abs_err"]
+    rel = max(g["max_rel_err"] for g in gate)
+    if not rel < ROUTE_GATE_REL:
+        raise RuntimeError(
+            f"fleet slice chunked: the chunked prompt's logits against the "
+            f"whole prefill's: max rel err {rel:.4f} over {gated} rows (tol "
+            f"{ROUTE_GATE_REL}), first row max abs err {err:.4e}")
+    log(f"fleet slice chunked: 7 requests of {sorted(len(p) for p in short)}"
+        f" tokens decoding 64 tokens while a 256-token prompt is chunked in "
+        f"{len(during)} chunks of 64: running streams identical to the run "
+        f"without chunking; chunk job {sum(during):.3f} s of wall time in "
+        f"total ({cs['passes']['chunk']} single-token passes, "
+        f"{sum(during) / cs['passes']['chunk'] * 1e3:.2f} ms a pass); steps "
+        f"with a chunk {np.mean(during) * 1e3:.1f} ms, without "
+        f"{np.mean(outside) * 1e3:.1f} ms ({len(outside)} steps); "
+        f"the chunked prompt against its whole prefill: final-chunk logits "
+        f"max abs err {err:.4e}, max rel err {rel:.4f} over {gated} rows "
+        f"(its stream agrees for {agree} of 64 tokens; bf16, tol "
+        f"{ROUTE_GATE_REL}); wall {c_wall:.3f} s; launches {c_launch}, "
+        f"without chunking {w_launch}")
+    paged_total += c_launch["paged_decode"]
+    del eng, off_eng
+    # where a chunk step's time goes: the second step of a fresh engine
+    # whose long prompt is cut to 68 tokens, so that step is a decode step
+    # of the 7 running rows and the final chunk's 4 passes (a whole chunk
+    # of 64 is some 150,000 kernels, too many to profile in the budget)
+    eng = ServingEngine(model, cconf, device="cuda")
+    for r in reqs:
+        eng.submit(Request(r.rid, list(r.prompt[:68]), r.max_new_tokens))
+    eng.step()
+    _profiled(torch, "one chunk step (a decode step of 7 rows + the final "
+              "chunk's 4 single-token passes of a 68-token prompt)",
+              eng.step)
+    del eng
+    torch.cuda.empty_cache()
+    return paged_total
 
 
 def _train_run(torch, cfg, policy_name, batches, remat=True,
@@ -1335,8 +1870,15 @@ def main() -> int:
     lse_err = lse_phase(torch)
     bwd = bwd_phase(torch)
     parity_phase(torch)
-    launches = slice_phase(torch)
+    launches, model = slice_phase(torch)
     int8_launches = int8_slice_phase(torch)
+    t_fleet = time.perf_counter()
+    fleet_parity_phase(torch)
+    fleet_paged = fleet_slice_phase(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    log(f"fleet phases: {time.perf_counter() - t_fleet:.1f} s; the fleet "
+        f"slice's three runs launched paged_decode {fleet_paged} times")
     train_parity_phase(torch)
     train_launches = train_slice_phase(torch)
     main_flash = flash_rows[-1]  # s=2048, the longest prefill bucket

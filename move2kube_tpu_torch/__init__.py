@@ -1,12 +1,14 @@
 """PyTorch + CUDA port of move2kube_tpu's compute runtime.
 
-Three slices are ported. Serving: the synchronous paged-KV path of the
-Llama engine, the model (:mod:`.models.llama`), its weights
-(:mod:`.models.convert`), the paged KV cache (:mod:`.serving.kvcache`) and
-the continuous-batching engine (:mod:`.serving.engine`). int8 serving:
-the quant policies, int8 weights dequantized inside each step
-(:mod:`.serving.quant`) and the int8 paged KV cache with per-row scales.
-Training: the
+Serving: the synchronous paged-KV engine one fleet replica runs, the
+model (:mod:`.models.llama`), its weights (:mod:`.models.convert`), the
+paged KV cache (:mod:`.serving.kvcache`) and the continuous-batching
+engine (:mod:`.serving.engine`) with its prefix cache
+(:mod:`.serving.prefixcache`), speculative decoding, chunked prefill,
+drain and deadlines, its metrics registry, request tracing and SLO ledger
+(:mod:`.obs`). int8 serving: the quant policies, int8 weights dequantized
+inside each step (:mod:`.serving.quant`) and the int8 paged KV cache with
+per-row scales. Training: the
 single-device Llama LM step (:mod:`.models.train`) with fp32 master
 weights, the precision policies (:mod:`.models.precision`) and the
 head-folded chunked cross-entropy (:mod:`.ops.crossentropy`). Attention
@@ -40,6 +42,9 @@ from move2kube_tpu_torch.models.train import (
     instrument_optimizer,
     make_lm_train_step,
 )
+from move2kube_tpu_torch.obs.metrics import Registry, default_registry
+from move2kube_tpu_torch.obs.slo import SLOSpec, SLOTracker
+from move2kube_tpu_torch.obs.tracing import SpanRecorder, parse_traceparent
 from move2kube_tpu_torch.ops.attention import (
     KERNELS,
     FlashAttention,
@@ -55,14 +60,19 @@ from move2kube_tpu_torch.ops.crossentropy import (
 )
 from move2kube_tpu_torch.serving.engine import (
     Completion,
+    DeadlineExceeded,
     EngineConfig,
+    EngineDraining,
     Request,
     ServingEngine,
 )
+from move2kube_tpu_torch.serving.prefixcache import PrefixCache, PrefixHit
 from move2kube_tpu_torch.serving.quant import (
     QUANT_OPTIONS,
     QuantLinear,
     QuantPolicy,
+    draft_config,
+    draft_model_from,
     logit_gate,
     param_bytes,
     quantize_model,
@@ -70,22 +80,33 @@ from move2kube_tpu_torch.serving.quant import (
 
 __all__ = [
     "Completion",
+    "DeadlineExceeded",
     "EngineConfig",
+    "EngineDraining",
     "FlashAttention",
     "KERNELS",
     "Llama",
     "LlamaConfig",
     "Optimizer",
     "PrecisionPolicy",
+    "PrefixCache",
+    "PrefixHit",
     "QUANT_OPTIONS",
     "QuantLinear",
     "QuantPolicy",
+    "Registry",
     "Request",
+    "SLOSpec",
+    "SLOTracker",
     "ServingEngine",
+    "SpanRecorder",
     "TrainState",
     "adam",
     "adamw",
     "default_optimizer",
+    "default_registry",
+    "draft_config",
+    "draft_model_from",
     "flash_attention",
     "from_env",
     "fused_cross_entropy",
@@ -101,6 +122,7 @@ __all__ = [
     "paged_decode_attention",
     "param_bytes",
     "params_from_jax",
+    "parse_traceparent",
     "pick_chunk",
     "policy",
     "quantize_kv_rows",

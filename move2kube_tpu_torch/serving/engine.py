@@ -1,8 +1,9 @@
 """Continuous-batching greedy decode engine over the paged KV cache: the
-synchronous, cold-prefill core of ``move2kube_tpu/serving/engine.py``.
+synchronous engine of ``move2kube_tpu/serving/engine.py`` that one fleet
+replica runs.
 
 Sequences are admitted into free decode slots mid-flight (up to
-``admit_burst`` prefills per step, so running sequences never stall
+``admit_burst`` admissions per step, so running sequences never stall
 behind an admission burst) and release their slot and pages the step
 they finish. A prompt prefills padded to the smallest configured bucket
 that fits; every decode step runs all ``max_batch`` rows, with idle rows
@@ -10,17 +11,54 @@ redirected at the null page (:func:`~.kvcache.sanitized_views`).
 
 The engine runs eagerly under ``torch.inference_mode()`` on the model's
 device: on the card, prefill attention is the flash kernel (with
-``attn_impl="flash"``) and every decode step's attention is the
+``attn_impl="flash"``) and every single-token pass's attention is the
 paged-decode kernel (``csrc/paged_decode_int8.cu`` on an int8 cache).
+The paths below add no kernel; each is a sequence of those passes:
+
+- **Prefix cache** (``prefix_cache``, :mod:`.prefixcache`): a hit skips
+  the prefill. The shared prefix's pages go into the slot's block table
+  (with one copy-on-write page copy where the slot's first write lands in
+  a shared page), and the prompt's uncached suffix is fed one token per
+  decode step; argmax outputs are discarded while forced tokens remain,
+  so the first generated token comes from the logits the uncached path
+  computes. Hits are taken only when the suffix is short (default ``2 *
+  block_size`` tokens); longer misses prefill cold and donate their
+  prompt pages to the cache.
+- **Speculative decoding** (``spec_k`` > 0): a draft made of the
+  target's own first ``num_layers // spec_draft_factor`` blocks,
+  embedding, norm and head (:func:`~.quant.draft_model_from`), with its
+  own page pools of identical geometry, proposes ``spec_k`` tokens with
+  ``spec_k + 1`` single-token passes; the target verifies the window
+  with ``spec_k + 1`` passes that write K/V in place and leave
+  ``seq_lens`` alone. Acceptance is greedy-exact, so spec-on and
+  spec-off decode the same token stream; both caches' ``seq_lens`` are
+  set on the host to the accepted length.
+- **Chunked prefill** (``chunk_prefill`` > 0): a prompt longer than the
+  chunk is seated up front and fed ``chunk_prefill`` tokens per engine
+  step as single-token passes of its own row, after the decode batch.
+  The slot sits out the decode batch until its final chunk lands.
+- **Drain and deadlines**: a draining engine refuses new work
+  (:class:`EngineDraining`) and finishes what it holds; a request whose
+  propagated deadline is expired or provably unmeetable from the
+  engine's own decode-latency history is refused
+  (:class:`DeadlineExceeded`), and one that expires while queued
+  completes ``"shed"``.
+- **Metrics and tracing** (:mod:`move2kube_tpu_torch.obs`): the
+  reference's ``m2kt_serve_*`` families on the engine's registry (a
+  private one unless the caller passes one), a ``serve.request`` root
+  span per request (adopting the caller's ``traceparent``) with
+  ``serve.*`` children timed by the step's own clock readings, and the
+  per-tenant SLO ledger.
 
 Low-precision serving (``quant``, :mod:`.quant`): the engine quantizes
 the model's weights once, at construction (per-output-channel int8,
 dequantized inside each step), and keeps only the quantized copy;
 ``int8-kv`` also stores the paged KV cache as int8 rows with per-row
-scales. Not ported yet (ROADMAP.md, Queue 1): the async decode pipeline,
-speculative decoding, the prefix cache, the quant-drift audit, LoRA, the
-scheduler plane, chunked prefill, CUDA graphs and the metrics registry /
-tracing hooks.
+scales, which every page copy moves with the rows. Not ported yet
+(ROADMAP.md, Queue 1): the scheduler plane and priority preemption,
+multi-LoRA, the async decode pipeline, ``install_weights``, the
+quant-drift audit and ``install_prefilled``; their metric families are
+registered and stay at zero.
 
 Env knobs (the JAX engine's names):
 
@@ -31,8 +69,15 @@ Env knobs (the JAX engine's names):
   of two from 32 up to max_seq)
 - ``M2KT_SERVE_ADMIT_BURST`` admissions per step; <= 0 = all free slots
   (default 1)
+- ``M2KT_SERVE_PREFIX_CACHE`` cross-request prefix sharing (default off)
+- ``M2KT_PREFIX_MAX_SUFFIX`` longest uncached suffix a hit may feed
+  before falling back to a cold prefill (default 2 pages)
 - ``M2KT_SERVE_QUANT``      serving quant policy off|int8|int8-kv
   (default off; an unknown name means off)
+- ``M2KT_SPEC_K``           speculative proposal length; 0 disables
+  (default 0)
+- ``M2KT_SCHED_CHUNK_PREFILL`` chunk size of chunked prefill; 0 disables
+  (default 0)
 """
 
 from __future__ import annotations
@@ -40,23 +85,46 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import weakref
 from collections import deque
 
 import numpy as np
 import torch
 
 from move2kube_tpu_torch._device import resolve_device
+from move2kube_tpu_torch.obs import slo as slolib
+from move2kube_tpu_torch.obs import tracing
+from move2kube_tpu_torch.obs.metrics import Registry
 from move2kube_tpu_torch.serving import quant as quantlib
 from move2kube_tpu_torch.serving.kvcache import (
     NULL_PAGE,
     PAGE_KEYS,
     PageAllocator,
+    copy_page,
     init_cache,
+    install_block_table,
     pages_for,
     sanitized_views,
     scatter_prefill,
     spec_for_model,
 )
+from move2kube_tpu_torch.serving.prefixcache import PrefixCache, PrefixHit
+
+# decode steps run from sub-ms to tens of ms; span both so percentile
+# interpolation has resolution at either end
+LATENCY_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                   0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
+
+# request-shape buckets (tokens): power-of-two edges matching the
+# prefill bucket ladder
+LENGTH_BUCKETS = (16.0, 32.0, 64.0, 128.0, 256.0, 512.0, 1024.0,
+                  2048.0, 4096.0)
+
+# the model passes the engine runs, by kind: each launches one attention
+# kernel per layer of the model it runs (flash for the prefills, paged
+# decode for every single-token pass)
+PASS_KINDS = ("prefill", "decode", "verify", "chunk", "draft_prefill",
+              "draft_decode")
 
 
 def _default_buckets(max_seq: int) -> tuple[int, ...]:
@@ -77,7 +145,23 @@ class EngineConfig:
     max_new_tokens: int = 32   # per-request default
     eos_id: int | None = None
     admit_burst: int = 1       # admissions per step; <= 0 = all free slots
+    prefix_cache: bool = False
+    prefix_max_suffix: int = 0  # 0 -> 2 * block_size
     quant: str = "off"         # off | int8 | int8-kv (serving/quant.py)
+    spec_k: int = 0            # draft proposals per step; 0 = no spec decode
+    # draft depth divisor: num_layers // factor layers (1 = full-depth
+    # draft, acceptance 1.0)
+    spec_draft_factor: int = 2
+    # chunked prefill: prompts longer than this many tokens prefill as
+    # interleaved single-token chunks of this size (0 = off). Each chunk
+    # token is one eager single-token pass, so chunking stalls the running
+    # streams far longer than a cold prefill would: at Llama-8B width on
+    # an H100 80GB (700 W) a step carrying a 64-token chunk took 2.8-3.4 s
+    # against 46-63 ms without one, and a 256-token prompt 11-13 s, where
+    # a cold prefill of 1000 tokens takes about 0.1 s (chip_smoke.py,
+    # fleet_slice_phase and the serving profile). Leave it off on the card
+    # until the single-token pass runs as a CUDA graph.
+    chunk_prefill: int = 0
 
     def resolved_buckets(self) -> tuple[int, ...]:
         buckets = self.buckets or _default_buckets(self.max_seq)
@@ -107,11 +191,31 @@ class EngineConfig:
             block_size=_int("M2KT_KV_BLOCK_SIZE", cls.block_size),
             buckets=buckets,
             admit_burst=_int("M2KT_SERVE_ADMIT_BURST", cls.admit_burst),
+            prefix_cache=os.environ.get(
+                "M2KT_SERVE_PREFIX_CACHE", "").lower() in ("1", "true", "on"),
+            prefix_max_suffix=_int("M2KT_PREFIX_MAX_SUFFIX",
+                                   cls.prefix_max_suffix),
             quant=(lambda q: q if q in quantlib.QUANT_OPTIONS else "off")(
                 os.environ.get("M2KT_SERVE_QUANT", "") or cls.quant),
+            spec_k=max(0, _int("M2KT_SPEC_K", cls.spec_k)),
+            chunk_prefill=max(0, _int("M2KT_SCHED_CHUNK_PREFILL",
+                                      cls.chunk_prefill)),
         )
         cfg.update(overrides)
         return cls(**cfg)
+
+
+class DeadlineExceeded(ValueError):
+    """The request's propagated deadline cannot be met: already expired,
+    or provably unmeetable from the engine's own decode-latency history.
+    A ValueError, so every reject path treats it as the caller's
+    problem, not the replica's."""
+
+
+class EngineDraining(RuntimeError):
+    """submit() refused because the engine is draining: it finishes its
+    in-flight work but admits nothing new. The caller (router) should
+    re-route, not retry here."""
 
 
 @dataclasses.dataclass
@@ -119,6 +223,15 @@ class Request:
     rid: str
     prompt: list[int]
     max_new_tokens: int | None = None
+    # multi-tenant attribution ("" = the default tenant)
+    tenant: str = ""
+    # W3C traceparent of the caller's span: the engine's serve.request
+    # root adopts its trace id so cross-process traces stitch
+    traceparent: str = ""
+    # remaining deadline budget (seconds) at submission; None = none.
+    # Admission refuses requests that cannot finish inside it, and queued
+    # requests that expire before a slot frees complete "shed"
+    deadline_s: float | None = None
 
 
 @dataclasses.dataclass
@@ -126,7 +239,7 @@ class Completion:
     rid: str
     prompt_len: int
     tokens: list[int]
-    finish_reason: str  # "eos" | "length"
+    finish_reason: str  # "eos" | "length" | "shed"
 
 
 @dataclasses.dataclass
@@ -136,6 +249,21 @@ class _Slot:
     tokens: list[int]
     last_token: int
     max_new: int
+    # prompt suffix a prefix-cache hit still owes the cache: fed one
+    # token per decode step; argmax output is discarded until empty
+    pending: list[int] = dataclasses.field(default_factory=list)
+    prefix_hit: bool = False
+    # a chunking slot is excluded from decode until its whole prompt
+    # has landed
+    chunking: bool = False
+
+
+@dataclasses.dataclass
+class _ChunkJob:
+    """The (single) in-flight chunked prefill: one chunk of the slot's
+    prompt runs per engine step, after the decode batch."""
+    slot_idx: int
+    done: int = 0  # prompt tokens already written into the slot's pages
 
 
 class ServingEngine:
@@ -144,10 +272,17 @@ class ServingEngine:
     modes). The KV cache lives on ``device`` (the card by default), which
     must be where the model's parameters are. Under a quant policy that
     quantizes weights, ``self.model`` is the engine's quantized copy
-    (:func:`~.quant.quantize_model`); the caller's model is not kept."""
+    (:func:`~.quant.quantize_model`); the caller's model is not kept.
+
+    ``registry`` receives the engine's metric families (a private
+    :class:`~move2kube_tpu_torch.obs.metrics.Registry` by default, so
+    engines built in one process do not mix); ``tracer`` records the
+    request spans (the process-wide recorder by default, none when
+    ``M2KT_TRACE`` is off)."""
 
     def __init__(self, model, config: EngineConfig | None = None, *,
-                 device=None) -> None:
+                 device=None, registry: Registry | None = None,
+                 tracer: tracing.SpanRecorder | None = None) -> None:
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev.type != self.device.type or (
@@ -169,50 +304,351 @@ class ServingEngine:
         self._allocator = PageAllocator(self.cache_cfg.num_pages)
         self._slots: list[_Slot | None] = [None] * self.config.max_batch
         self._pending: deque[Request] = deque()
+        self.spec_k = max(0, self.config.spec_k)
+        # chunked prefill: spec decode keeps its own window discipline
+        # and opts out
+        self.chunk_prefill = max(0, self.config.chunk_prefill)
+        if self.chunk_prefill and self.spec_k:
+            print("[m2kt] WARNING: M2KT_SCHED_CHUNK_PREFILL is "
+                  "incompatible with spec decode (M2KT_SPEC_K); "
+                  "disabling chunked prefill", flush=True)
+            self.chunk_prefill = 0
+        self._chunk_job: _ChunkJob | None = None
+        self._chunk_count = 0
+        # a spec verify window writes K/V up to spec_k positions past the
+        # point a stream finishes; those writes are stale by construction
+        # but must land inside the slot's own block table, so every
+        # capacity check reserves them
+        self._overrun_slack = self.spec_k
+        # speculative decoding: the draft shares the target's modules and
+        # has its own pools with IDENTICAL page geometry, so page indices
+        # map 1:1 and every allocator/prefix-cache decision covers both
+        self._draft_cache = None
+        self._draft_model = None
+        if self.spec_k:
+            draft_cfg = quantlib.draft_config(
+                model.cfg, self.config.spec_draft_factor)
+            self._draft_model = quantlib.draft_model_from(model, draft_cfg)
+            self._draft_cache = init_cache(dataclasses.replace(
+                self.cache_cfg, num_layers=draft_cfg.num_layers), model_dev)
+        self._prefix: PrefixCache | None = None
+        if self.config.prefix_cache:
+            self._prefix = PrefixCache(self.cache_cfg.block_size,
+                                       self._allocator)
         # opt-in logit capture for the equivalence checks: per-rid rows of
         # the logits each *generated* token was argmaxed from
         self.capture_logits = False
         self.logit_log: dict[str, list[np.ndarray]] = {}
         # token-emission hook: called ``on_token(rid, token)`` the moment
-        # a generated token lands in its slot (prefill's first token and
-        # every decode step)
+        # a generated token lands in its slot, at every emission site
         self.on_token = None
         self._decode_time = 0.0
         self._decode_tokens = 0
         self._decode_steps = 0
         self._prefill_count = 0
         self._prefill_time = 0.0
-        self._ttft_sum = 0.0
         self._ttft_max = 0.0
-        self._ttft_count = 0
+        # model passes by kind (PASS_KINDS): what the attention kernels'
+        # launch counts must come to
+        self._passes = dict.fromkeys(PASS_KINDS, 0)
         self._submit_ts: dict[str, float] = {}
+        self._req_tenant: dict[str, str] = {}
+        # absolute (perf_counter) deadlines of queued requests
+        self._deadline_abs: dict[str, float] = {}
+        self._draining = False
+        self._last_consume_done: float | None = None
+        self._gap_total = 0.0
+        self._busy_total = 0.0
+        self.tracer = tracer if tracer is not None else (
+            tracing.get() if tracing.enabled() else None)
+        self._req_spans: dict[str, tracing.Span] = {}
+        self.registry = registry if registry is not None else Registry()
+        self._init_metrics()
+        self.slo = slolib.SLOTracker(registry=self.registry)
+
+    def _init_metrics(self) -> None:
+        """The reference's families (``move2kube_tpu/serving/engine.py``
+        ``_init_metrics``), same names, help, labels and buckets. The
+        ones whose writers are not ported (preemption, the quant audit,
+        the weights version, async windows) stay at zero."""
+        reg = self.registry
+        self._lat_hist = reg.histogram(
+            "m2kt_serve_token_latency_seconds",
+            "Per-token decode step latency", buckets=LATENCY_BUCKETS)
+        self._ttft_hist = reg.histogram(
+            "m2kt_serve_ttft_seconds",
+            "Time from submit to first token (queue wait + prefill)",
+            buckets=LATENCY_BUCKETS)
+        self._queue_depth = reg.gauge(
+            "m2kt_serve_queue_depth", "Requests waiting for a decode slot")
+        self._active_slots = reg.gauge(
+            "m2kt_serve_active_slots", "Decode slots currently occupied")
+        self._slot_occupancy = reg.gauge(
+            "m2kt_serve_slot_occupancy",
+            "Fraction of decode slots occupied")
+        self._page_util = reg.gauge(
+            "m2kt_serve_page_pool_utilization",
+            "Fraction of KV-cache pages allocated")
+        self._admitted = reg.counter(
+            "m2kt_serve_admitted_total", "Requests admitted into a slot")
+        self._rejected = reg.counter(
+            "m2kt_serve_rejected_total",
+            "Requests rejected at submit (too long / empty)")
+        self._deadline_shed = reg.counter(
+            "m2kt_serve_deadline_shed_total",
+            "Requests shed because their propagated deadline is "
+            "expired, unmeetable, or passed while queued",
+            labels=("reason",))
+        self._completed = reg.counter(
+            "m2kt_serve_completed_total", "Completed sequences by reason",
+            labels=("reason",))
+        self._decode_steps_total = reg.counter(
+            "m2kt_serve_decode_steps_total", "Decode steps executed")
+        self._tokens_total = reg.counter(
+            "m2kt_serve_decode_tokens_total", "Tokens generated")
+        self._prefix_hits = reg.counter(
+            "m2kt_serve_prefix_hits_total",
+            "Admissions served from the prefix cache (no prefill)")
+        self._prefix_misses = reg.counter(
+            "m2kt_serve_prefix_misses_total",
+            "Admissions that ran a cold prefill")
+        self._prefix_hit_tokens = reg.counter(
+            "m2kt_serve_prefix_hit_tokens_total",
+            "Prompt tokens whose K/V came from shared pages")
+        self._cow_copies = reg.counter(
+            "m2kt_serve_cow_copies_total",
+            "Shared pages copy-on-written before a slot's first write")
+        self._prefix_pages = reg.gauge(
+            "m2kt_serve_prefix_cache_pages",
+            "KV pages currently pinned by the prefix cache")
+        reg.counter(
+            "m2kt_sched_preempted_total",
+            "Slots evicted by the scheduler as paused work (the router "
+            "journal resumes them token-exactly)", labels=("reason",))
+        self._sched_chunked = reg.counter(
+            "m2kt_sched_chunked_total",
+            "Long prompts prefilled as interleaved decode-mode chunks",
+            labels=("reason",))
+        self._spec_proposed = reg.counter(
+            "m2kt_serve_spec_proposed_total",
+            "Draft tokens proposed to the verify step")
+        self._spec_accepted = reg.counter(
+            "m2kt_serve_spec_accepted_total",
+            "Draft tokens accepted by the verify step")
+        self._spec_acceptance = reg.gauge(
+            "m2kt_serve_spec_acceptance_rate",
+            "Accepted / proposed draft tokens (cumulative)")
+        # per-tenant attribution lives in its own families, cardinality
+        # capped: tenant K+1 and beyond collapse into the "other" series
+        cap = slolib.max_tenants()
+        self._tenant_ttft = reg.histogram(
+            "m2kt_serve_tenant_ttft_seconds",
+            "Time to first token by tenant", buckets=LATENCY_BUCKETS,
+            labels=("tenant",), max_series=cap + 1)
+        self._tenant_lat = reg.histogram(
+            "m2kt_serve_tenant_token_latency_seconds",
+            "Per-token decode latency by tenant", buckets=LATENCY_BUCKETS,
+            labels=("tenant",), max_series=cap + 1)
+        self._tenant_admitted = reg.counter(
+            "m2kt_serve_tenant_admitted_total",
+            "Requests admitted into a slot by tenant",
+            labels=("tenant",), max_series=cap + 1)
+        self._tenant_rejected = reg.counter(
+            "m2kt_serve_tenant_rejected_total",
+            "Requests rejected at submit by tenant",
+            labels=("tenant",), max_series=cap + 1)
+        self._tenant_prompt_tokens = reg.histogram(
+            "m2kt_serve_tenant_prompt_tokens",
+            "Prompt length (tokens) of completed requests by tenant",
+            buckets=LENGTH_BUCKETS, labels=("tenant",), max_series=cap + 1)
+        self._tenant_decode_tokens = reg.histogram(
+            "m2kt_serve_tenant_decode_tokens",
+            "Generated length (tokens) of completed requests by tenant",
+            buckets=LENGTH_BUCKETS, labels=("tenant",), max_series=cap + 1)
+        self._quant_mode = reg.gauge(
+            "m2kt_serve_quant_mode",
+            "Serving quant policy (0=off, 1=int8, 2=int8-kv)")
+        self._quant_mode.set(quantlib.QUANT_OPTIONS.index(self.quant.name))
+        reg.gauge(
+            "m2kt_serve_quant_drift",
+            "Max-rel logit error of the last audited prefill vs the fp "
+            "reference weights (0 until a request is audited)")
+        reg.counter(
+            "m2kt_serve_quant_audit_total",
+            "Cold admissions replayed through the fp reference path")
+        reg.gauge(
+            "m2kt_weights_version",
+            "Weight generation currently installed in the engine")
+        self._dispatch_gap = reg.histogram(
+            "m2kt_serve_dispatch_gap_seconds",
+            "Host time between consuming decode step k and dispatching "
+            "k+1 (0 when the async pipeline kept the device fed)",
+            buckets=LATENCY_BUCKETS)
+        self._host_overhead = reg.gauge(
+            "m2kt_serve_host_overhead_ratio",
+            "Fraction of serving wall time the device spent starved on "
+            "the host: dispatch gaps / (gaps + device-busy time)")
+        reg.gauge(
+            "m2kt_serve_inflight_windows",
+            "Async decode windows dispatched but not yet consumed")
+        self._total_pages = max(1, self.cache_cfg.num_pages - 1)
+        # /metrics re-renders gauges from the host-side snapshot taken at
+        # the last step-sync point: a scrape never reads a device tensor
+        self._gauge_snapshot: dict = {}
+        self._update_occupancy()
+        # the hook holds the engine weakly: a bound method would make a
+        # cycle (engine -> registry -> hook -> engine) that keeps a dead
+        # engine's KV pools and model on the card until the cyclic GC runs
+        refresh = weakref.WeakMethod(self._refresh_gauges)
+
+        def hook() -> None:
+            fn = refresh()
+            if fn is not None:
+                fn()
+
+        reg.add_collect_hook(hook)
+
+    def _close_ttft(self, rid: str, ttft: float,
+                    root: tracing.Span | None = None) -> None:
+        """Close a request's TTFT: the fleet histogram, the tenant
+        histogram, the SLO ledger and the root span all see one
+        reading."""
+        self._ttft_hist.observe(ttft)
+        self._ttft_max = max(self._ttft_max, ttft)
+        tenant = self._req_tenant.get(rid, "default")
+        self._tenant_ttft.labels(tenant).observe(ttft)
+        self.slo.record(tenant, ok=True, ttft_s=ttft)
+        if root is not None:
+            root.attrs["ttft_s"] = ttft
+
+    def _update_occupancy(self) -> None:
+        """Snapshot the occupancy gauges' inputs at a step-sync point.
+        Everything here is host state (slot list, allocator free list,
+        prefix index); nothing derived from a device tensor may be read
+        at scrape time (:meth:`_refresh_gauges`)."""
+        active = sum(1 for s in self._slots if s is not None)
+        snap = {
+            "queue_depth": len(self._pending),
+            "active_slots": active,
+            "slot_occupancy": active / max(1, self.config.max_batch),
+            "page_util": 1.0 - self._allocator.available / self._total_pages,
+        }
+        if self._prefix is not None:
+            snap["prefix_pages"] = self._prefix.total_pages
+        self._gauge_snapshot = snap
+        self._refresh_gauges()
+
+    def _refresh_gauges(self) -> None:
+        """Re-set the occupancy gauges from the cached snapshot: a
+        registry collect hook on every /metrics render, touching nothing
+        but host floats."""
+        snap = self._gauge_snapshot
+        if not snap:
+            return
+        self._queue_depth.set(snap["queue_depth"])
+        self._active_slots.set(snap["active_slots"])
+        self._slot_occupancy.set(snap["slot_occupancy"])
+        self._page_util.set(snap["page_util"])
+        if "prefix_pages" in snap:
+            self._prefix_pages.set(snap["prefix_pages"])
 
     # ------------------------------------------------------------------
-    # device steps
+    # device passes
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def _prefill(self, ids: torch.Tensor, bt_row: torch.Tensor,
-                 slot: int, plen: int):
-        logits, kvs = self.model(ids, return_kv=True)
-        scatter_prefill(self._cache, kvs, slot, bt_row, plen,
+    def _prefill(self, ids: torch.Tensor, bt_row: torch.Tensor, slot: int,
+                 plen: int, draft: bool = False) -> torch.Tensor:
+        """One bucketed prefill of the target (or the draft, into its own
+        pools): K/V scattered into the slot's pages; returns the logits
+        ``[bucket, vocab]``."""
+        model = self._draft_model if draft else self.model
+        cache = self._draft_cache if draft else self._cache
+        self._passes["draft_prefill" if draft else "prefill"] += 1
+        logits, kvs = model(ids, return_kv=True)
+        scatter_prefill(cache, kvs, slot, bt_row, plen,
                         self.cache_cfg.block_size)
-        first = int(torch.argmax(logits[0, plen - 1]))
-        return first, logits[0]
+        return logits[0]
 
     @torch.inference_mode()
-    def _decode(self, tokens: torch.Tensor, active: torch.Tensor):
-        cache = self._cache
+    def _decode(self, tokens: torch.Tensor, active: torch.Tensor,
+                draft: bool = False):
+        """One single-token pass of every active row, advancing the
+        *same* cache's ``seq_lens`` in place (the draft's own when
+        ``draft``)."""
+        model = self._draft_model if draft else self.model
+        cache = self._draft_cache if draft else self._cache
+        self._passes["draft_decode" if draft else "decode"] += 1
         # sanitize freed/idle slots: their stale tables must not write
         # into pages the allocator may have handed to someone else
         bt, pos = sanitized_views(cache, active)
+        logits = self._pass(model, cache, tokens, pos, bt)
+        cache["seq_lens"] += active.to(torch.int32)
+        return logits, torch.argmax(logits, dim=-1)
+
+    @staticmethod
+    def _pass(model, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
+              bt: torch.Tensor) -> torch.Tensor:
+        """One single-token pass over ``cache``'s pages: row i consumes
+        ``tokens[i]`` at position ``pos[i]`` through table ``bt[i]``,
+        writing its K/V there and attending to positions ``<= pos[i]``.
+        Leaves the cache's ``seq_lens`` alone; returns the logits."""
         model_cache = {k: cache[k] for k in PAGE_KEYS if k in cache}
         model_cache["block_tables"] = bt
         model_cache["seq_lens"] = pos + 1
-        logits, _ = self.model(tokens, positions=pos, cache=model_cache)
-        cache["seq_lens"] += active.to(torch.int32)
-        next_tokens = torch.argmax(logits, dim=-1)
-        return logits, next_tokens
+        logits, _ = model(tokens, positions=pos, cache=model_cache)
+        return logits
+
+    @torch.inference_mode()
+    def _verify(self, window: torch.Tensor, active: torch.Tensor):
+        """The spec verify step: ``spec_k + 1`` single-token passes of the
+        target, pass j consuming ``window[:, j]`` at position ``seq_len +
+        j`` and writing its K/V in place. ``seq_lens`` is NOT advanced:
+        the host sets it to the accepted length. Returns the logits after
+        each consumed token ``[max_batch, spec_k + 1, vocab]``."""
+        bt, base = sanitized_views(self._cache, active)
+        rows = []
+        for j in range(window.shape[1]):
+            self._passes["verify"] += 1
+            rows.append(self._pass(self.model, self._cache, window[:, j],
+                                   base + j, bt))
+        return torch.stack(rows, dim=1)
+
+    @torch.inference_mode()
+    def _chunk_pass(self, slot: int, tokens: list[int], start: int):
+        """One chunk of a chunked prefill: the slot's prompt tokens
+        ``tokens`` (positions ``start``..) fed as single-token passes of
+        the slot's own row, K/V written page-wise at each position. Only
+        this row runs: the reference runs every row with the others
+        pointed at the null page and discards their results. Sets the
+        slot's ``seq_lens`` to ``start + len(tokens)``; returns the logits
+        after the chunk's last token ``[vocab]``."""
+        cache = self._cache
+        n = len(tokens)
+        toks = torch.tensor(tokens, dtype=torch.int32, device=self.device)
+        pos = torch.arange(start, start + n, dtype=torch.int32,
+                           device=self.device)
+        bt = cache["block_tables"][slot:slot + 1]
+        logits = None
+        for j in range(n):
+            self._passes["chunk"] += 1
+            logits = self._pass(self.model, cache, toks[j:j + 1],
+                                pos[j:j + 1], bt)
+        cache["seq_lens"][slot] = start + n
+        return logits[0]
+
+    def _install(self, slot: int, bt_row: np.ndarray, seq_len: int,
+                 cow: tuple[int, int] | None = None) -> None:
+        """Point ``slot`` at ``bt_row`` holding ``seq_len`` tokens, in the
+        target's cache and the draft's, and copy-on-write page ``cow[0]``
+        into ``cow[1]`` in both."""
+        row = torch.from_numpy(bt_row)
+        for cache in (self._cache, self._draft_cache):
+            if cache is None:
+                continue
+            install_block_table(cache, slot, row, seq_len)
+            if cow is not None:
+                copy_page(cache, cow[0], cow[1])
 
     # ------------------------------------------------------------------
     # host-side continuous batching
@@ -221,18 +657,90 @@ class ServingEngine:
     def submit(self, req: Request) -> None:
         plen = len(req.prompt)
         max_new = req.max_new_tokens or self.config.max_new_tokens
-        if plen < 1:
-            raise ValueError(f"{req.rid}: empty prompt")
-        if plen > self.buckets[-1]:
-            raise ValueError(
-                f"{req.rid}: prompt length {plen} exceeds the largest "
-                f"prefill bucket {self.buckets[-1]}")
-        if plen + max_new > self.cache_cfg.max_seq:
-            raise ValueError(
-                f"{req.rid}: prompt + max_new_tokens = {plen + max_new} "
-                f"exceeds max_seq {self.cache_cfg.max_seq}")
-        self._submit_ts[req.rid] = time.perf_counter()
+        tenant = slolib.clean_tenant(req.tenant)
+        if self._draining:
+            raise EngineDraining(f"{req.rid}: engine is draining")
+        try:
+            if plen < 1:
+                raise ValueError(f"{req.rid}: empty prompt")
+            if plen > self.buckets[-1]:
+                raise ValueError(
+                    f"{req.rid}: prompt length {plen} exceeds the largest "
+                    f"prefill bucket {self.buckets[-1]}")
+            if plen + max_new + self._overrun_slack > self.cache_cfg.max_seq:
+                slack = (f" + overrun slack {self._overrun_slack}"
+                         if self._overrun_slack else "")
+                raise ValueError(
+                    f"{req.rid}: prompt + max_new_tokens = {plen + max_new}"
+                    f"{slack} exceeds max_seq {self.cache_cfg.max_seq}")
+            reason = self._deadline_verdict(req.deadline_s, max_new)
+            if reason is not None:
+                self._deadline_shed.labels(reason=reason).inc()
+                raise DeadlineExceeded(
+                    f"{req.rid}: deadline {req.deadline_s:.3f}s {reason} "
+                    f"for {max_new} new tokens")
+        except ValueError:
+            self._rejected.inc()
+            self._tenant_rejected.labels(tenant).inc()
+            self.slo.record(tenant, ok=False)
+            raise
+        now = time.perf_counter()
+        if req.deadline_s is not None:
+            self._deadline_abs[req.rid] = now + req.deadline_s
+        self._submit_ts[req.rid] = now
+        self._req_tenant[req.rid] = tenant
+        if self.tracer is not None:
+            self._req_spans[req.rid] = self.tracer.start(
+                "serve.request",
+                attrs={"rid": req.rid, "prompt_len": plen,
+                       "tenant": tenant},
+                detached=True, remote_parent=req.traceparent or None)
         self._pending.append(req)
+        self._update_occupancy()
+
+    def _deadline_verdict(self, deadline_s: float | None,
+                          max_new: int) -> str | None:
+        """Shed reason for a deadline, or None when it is acceptable:
+        "expired" = already past; "unmeetable" = the engine's observed
+        p50 decode-step latency says ``max_new`` tokens cannot land inside
+        the remaining budget (no history = benefit of the doubt)."""
+        if deadline_s is None:
+            return None
+        if deadline_s <= 0:
+            return "expired"
+        p50 = self._lat_hist.quantile(0.50) if self._lat_hist.count else 0.0
+        if p50 > 0 and max_new * p50 > deadline_s:
+            return "unmeetable"
+        return None
+
+    def drain(self) -> None:
+        """Stop admitting new requests; in-flight work keeps stepping.
+        The caller pumps :meth:`step` until :meth:`has_work` clears."""
+        self._draining = True
+
+    def undrain(self) -> None:
+        self._draining = False
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def _shed(self, req: Request, reason: str) -> Completion:
+        """Complete a queued request as shed: counted, SLO-charged, and
+        surfaced as a Completion so no waiter hangs."""
+        self._deadline_shed.labels(reason=reason).inc()
+        tenant = self._req_tenant.pop(req.rid, "default")
+        self.slo.record(tenant, ok=False)
+        self._submit_ts.pop(req.rid, None)
+        self._deadline_abs.pop(req.rid, None)
+        self._completed.labels(reason="shed").inc()
+        root = self._req_spans.pop(req.rid, None)
+        if root is not None:
+            self.tracer.end(root, attrs={"finish_reason": "shed",
+                                         "shed_reason": reason})
+        self._update_occupancy()
+        return Completion(rid=req.rid, prompt_len=len(req.prompt),
+                          tokens=[], finish_reason="shed")
 
     def has_work(self) -> bool:
         return bool(self._pending) or any(s is not None for s in self._slots)
@@ -244,40 +752,261 @@ class ServingEngine:
 
     def step(self) -> list[Completion]:
         """One engine iteration: admit pending requests into free slots
-        (up to ``admit_burst`` bucketed prefills), then run one decode
-        step for every active slot. Returns the sequences that finished
-        this iteration."""
+        (up to ``admit_burst``: a bucketed prefill, a block-table install
+        on a prefix-cache hit, or a seat for a chunked prefill), then run
+        one decode step (a spec window under ``spec_k``) for every active
+        slot, then one chunk of the chunked prefill in flight. Returns
+        the sequences that finished this iteration."""
         finished = self._admit_pending()
-        active = [s is not None for s in self._slots]
+        if self.spec_k:
+            return self._spec_step(finished)
+        # a chunking slot owns pages and a block table but has no prompt
+        # resident yet: it sits out the decode batch
+        active = [s is not None and not s.chunking for s in self._slots]
         if not any(active):
+            self._chunk_step(finished)
+            self._update_occupancy()
+            self._maybe_reset_gap()
             return finished
         tokens = torch.tensor(
-            [s.last_token if s is not None else 0 for s in self._slots],
+            [s.last_token if on else 0 for s, on in zip(self._slots, active)],
             dtype=torch.int32, device=self.device)
         active_mask = torch.tensor(active, device=self.device)
         t0 = time.perf_counter()
+        if self._last_consume_done is not None:
+            # host bookkeeping between reading step k and launching k+1
+            # is device idle time
+            gap = max(0.0, t0 - self._last_consume_done)
+            self._dispatch_gap.observe(gap)
+            self._gap_total += gap
         logits, next_tokens = self._decode(tokens, active_mask)
         next_tokens = next_tokens.cpu().numpy()  # waits for the step
         dt = time.perf_counter() - t0
-        produced = sum(active)
-        self._decode_time += dt
-        self._decode_tokens += produced
-        self._decode_steps += 1
+        self._busy_total += dt
+        self._last_consume_done = t0 + dt
+        self._host_overhead.set(
+            self._gap_total / (self._gap_total + self._busy_total))
+        # slots still feeding a cached prompt's suffix consume the step
+        # but produce nothing: their argmax is discarded below
+        produced = sum(1 for s, on in zip(self._slots, active)
+                       if on and not s.pending)
+        self._account_step(dt, produced)
         logits_np = (logits.float().cpu().numpy() if self.capture_logits
                      else None)
         for i, slot in enumerate(self._slots):
-            if slot is None:
+            if not active[i]:
                 continue
+            if slot.pending:
+                # the cache covered positions < seq_len; the next prompt
+                # token is ground truth, not the model's to choose
+                slot.last_token = slot.pending.pop(0)
+                continue
+            rid = slot.req.rid
             tok = int(next_tokens[i])
+            root = self._req_spans.get(rid)
+            if slot.prefix_hit and not slot.tokens:
+                # first generated token of a hit: TTFT closes here (the
+                # cold path closes it at prefill)
+                submit_ts = self._submit_ts.pop(rid, None)
+                if submit_ts is not None:
+                    self._close_ttft(rid, t0 + dt - submit_ts, root)
+            self._tenant_lat.labels(
+                self._req_tenant.get(rid, "default")).observe(dt)
             if logits_np is not None:
-                self.logit_log.setdefault(slot.req.rid, []).append(
+                self.logit_log.setdefault(rid, []).append(
                     logits_np[i].copy())
             slot.tokens.append(tok)
             slot.last_token = tok
-            self._emit_token(slot.req.rid, tok)
+            self._emit_token(rid, tok)
+            if root is not None:
+                # the step's own t0/dt readings: no clock call added
+                self.tracer.record(
+                    "serve.decode_step", t0, t0 + dt,
+                    attrs={"token_index": len(slot.tokens)},
+                    trace_id=root.trace_id, parent_id=root.span_id)
             done = self._finish_reason(slot, tok)
             if done:
                 finished.append(self._release(i, done))
+        self._chunk_step(finished)
+        self._update_occupancy()
+        self._maybe_reset_gap()
+        return finished
+
+    def _account_step(self, dt: float, produced: int) -> None:
+        """One decode (or spec) step's time and tokens, into the counters
+        and the latency histogram that both step paths share."""
+        self._decode_time += dt
+        self._decode_tokens += produced
+        self._decode_steps += 1
+        self._lat_hist.observe(dt)
+        self._decode_steps_total.inc()
+        self._tokens_total.inc(produced)
+
+    def _maybe_reset_gap(self) -> None:
+        """Restart dispatch-gap accounting when the engine goes idle: the
+        wait for the next request stream is load, not host overhead."""
+        if not self.has_work():
+            self._last_consume_done = None
+
+    def _chunk_step(self, finished: list[Completion]) -> None:
+        """Run at most one chunk of the in-flight chunked prefill, after
+        the decode batch, so the long prompt and the running streams
+        interleave."""
+        job = self._chunk_job
+        if job is None:
+            return
+        slot_idx = job.slot_idx
+        slot = self._slots[slot_idx]
+        prompt = slot.req.prompt
+        start = job.done
+        count = min(self.chunk_prefill, len(prompt) - start)
+        t0 = time.perf_counter()
+        last = self._chunk_pass(slot_idx, list(prompt[start:start + count]),
+                                start)
+        job.done += count
+        rid = slot.req.rid
+        root = self._req_spans.get(rid)
+        if job.done < len(prompt):
+            if root is not None:
+                self.tracer.record(
+                    "serve.chunk_prefill", t0, time.perf_counter(),
+                    attrs={"start": start, "count": count},
+                    trace_id=root.trace_id, parent_id=root.span_id)
+            return
+        # final chunk: its last reading is the logits a whole bucketed
+        # prefill produces for the prompt's last position; the first
+        # generated token argmaxes from them and TTFT closes here
+        last_np = last.float().cpu().numpy()  # waits for the chunk
+        now = time.perf_counter()
+        if root is not None:
+            self.tracer.record(
+                "serve.chunk_prefill", t0, now,
+                attrs={"start": start, "count": count},
+                trace_id=root.trace_id, parent_id=root.span_id)
+        self._chunk_job = None
+        slot.chunking = False
+        self._prefill_count += 1
+        tok = int(np.argmax(last_np))
+        if self.capture_logits:
+            self.logit_log.setdefault(rid, []).append(last_np.copy())
+        slot.tokens.append(tok)
+        slot.last_token = tok
+        self._emit_token(rid, tok)
+        submit_ts = self._submit_ts.pop(rid, None)
+        if submit_ts is not None:
+            self._close_ttft(rid, now - submit_ts, root)
+        done = self._finish_reason(slot, tok)
+        if done:
+            finished.append(self._release(slot_idx, done))
+
+    def _spec_step(self, finished: list[Completion]) -> list[Completion]:
+        """One speculative engine iteration. Window layout per slot:
+        ``X = [last_token, w_1 .. w_k]`` where the first ``f =
+        min(len(pending), k)`` window tokens are forced ground truth (a
+        prefix hit's prompt suffix) and the rest are draft proposals. The
+        draft runs ``k + 1`` single-token passes (pass j writes ``X[j]``'s
+        draft K/V and proposes ``X[j + 1]``; the last proposal is
+        discarded), then the target verifies the window.
+
+        Greedy-exact acceptance: proposal ``X[f+1+i]`` is accepted iff it
+        equals the target's argmax after consuming ``X[0..f+i]``, and the
+        first miss is replaced by that argmax (the bonus token), so every
+        emitted token is the target's own greedy choice. K/V written past
+        the accepted length is stale by construction: both caches'
+        ``seq_lens`` are set to the accepted length, masking it until
+        later steps overwrite it."""
+        k = self.spec_k
+        active = [s is not None for s in self._slots]
+        if not any(active):
+            self._update_occupancy()
+            return finished
+        # read before the draft runs: its passes advance the draft's
+        # seq_lens (never the target's)
+        base = self._cache["seq_lens"].cpu().numpy().copy()
+        B = self.config.max_batch
+        X = np.zeros((B, k + 1), np.int32)
+        X[:, 0] = [s.last_token if s else 0 for s in self._slots]
+        forced = np.zeros((B,), np.int64)
+        for i, s in enumerate(self._slots):
+            if s is not None and s.pending:
+                f = min(len(s.pending), k)
+                X[i, 1:1 + f] = s.pending[:f]
+                forced[i] = f
+        active_mask = torch.tensor(active, device=self.device)
+        t0 = time.perf_counter()
+        for j in range(k + 1):
+            _, nxt = self._decode(
+                torch.from_numpy(X[:, j].copy()).to(self.device),
+                active_mask, draft=True)
+            if j < k:
+                proposals = nxt.cpu().numpy()
+                fill = forced <= j  # rows whose slot j+1 is not forced
+                X[fill, j + 1] = proposals[fill]
+        logits = self._verify(torch.from_numpy(X).to(self.device),
+                              active_mask)
+        targets = torch.argmax(logits, dim=-1).cpu().numpy()  # blocks
+        dt = time.perf_counter() - t0
+        logits_np = (logits.float().cpu().numpy() if self.capture_logits
+                     else None)
+        produced = 0
+        new_lens = base.copy()
+        for i, slot in enumerate(list(self._slots)):
+            if slot is None:
+                continue
+            rid = slot.req.rid
+            f = int(forced[i])
+            del slot.pending[:f]
+            a = 0
+            while f + 1 + a <= k and X[i, f + 1 + a] == targets[i, f + a]:
+                a += 1
+            self._spec_proposed.inc(k - f)
+            self._spec_accepted.inc(a)
+            if slot.pending:
+                # suffix longer than the window: every input was ground
+                # truth (f == k), nothing is emitted this step, and the
+                # next window starts at the next owed prompt token (X[i, k]
+                # is already written at base + k)
+                slot.last_token = slot.pending.pop(0)
+                new_lens[i] = base[i] + k + 1
+                continue
+            emitted = [int(targets[i, f + j]) for j in range(a + 1)]
+            new_lens[i] = base[i] + f + a + 1
+            slot.last_token = emitted[-1]
+            root = self._req_spans.get(rid)
+            if slot.prefix_hit and not slot.tokens:
+                submit_ts = self._submit_ts.pop(rid, None)
+                if submit_ts is not None:
+                    self._close_ttft(rid, t0 + dt - submit_ts, root)
+            self._tenant_lat.labels(
+                self._req_tenant.get(rid, "default")).observe(dt)
+            done = None
+            for m, tok in enumerate(emitted):
+                if logits_np is not None:
+                    self.logit_log.setdefault(rid, []).append(
+                        logits_np[i, f + m].copy())
+                slot.tokens.append(tok)
+                produced += 1
+                self._emit_token(rid, tok)
+                done = self._finish_reason(slot, tok)
+                if done:
+                    slot.last_token = tok
+                    break
+            if root is not None:
+                self.tracer.record(
+                    "serve.spec_step", t0, t0 + dt,
+                    attrs={"proposed": k - f, "accepted": a,
+                           "emitted": len(slot.tokens)},
+                    trace_id=root.trace_id, parent_id=root.span_id)
+            if done:
+                finished.append(self._release(i, done))
+        lens = torch.from_numpy(new_lens.astype(np.int32))
+        self._cache["seq_lens"].copy_(lens)
+        self._draft_cache["seq_lens"].copy_(lens)
+        self._account_step(dt, produced)
+        prop = self._spec_proposed.value
+        if prop:
+            self._spec_acceptance.set(self._spec_accepted.value / prop)
+        self._update_occupancy()
         return finished
 
     def run(self, requests) -> list[Completion]:
@@ -307,10 +1036,23 @@ class ServingEngine:
 
     def _release(self, slot_idx: int, reason: str) -> Completion:
         slot = self._slots[slot_idx]
+        rid = slot.req.rid
         self._allocator.free(slot.pages)
         self._slots[slot_idx] = None
-        self._submit_ts.pop(slot.req.rid, None)
-        return Completion(rid=slot.req.rid, prompt_len=len(slot.req.prompt),
+        self._completed.labels(reason=reason).inc()
+        tenant = self._req_tenant.pop(rid, None) or "default"
+        self._tenant_prompt_tokens.labels(tenant).observe(
+            float(len(slot.req.prompt)))
+        self._tenant_decode_tokens.labels(tenant).observe(
+            float(len(slot.tokens)))
+        self._deadline_abs.pop(rid, None)
+        self._submit_ts.pop(rid, None)
+        root = self._req_spans.pop(rid, None)
+        if root is not None:
+            self.tracer.end(root, attrs={"finish_reason": reason,
+                                         "tokens": len(slot.tokens)})
+        self._update_occupancy()
+        return Completion(rid=rid, prompt_len=len(slot.req.prompt),
                           tokens=list(slot.tokens), finish_reason=reason)
 
     def _bucket_for(self, plen: int) -> int:
@@ -335,40 +1077,194 @@ class ServingEngine:
     def _admit_one(self) -> tuple[bool, list[Completion]]:
         if not self._pending:
             return False, []
+        req = self._pending[0]
+        dl = self._deadline_abs.get(req.rid)
+        if dl is not None and time.perf_counter() > dl:
+            # expired while queued: sheds even with no free slot, so a
+            # saturated engine still rejects dead-on-arrival work fast
+            self._pending.popleft()
+            return True, [self._shed(req, "queued_expired")]
+        plen = len(req.prompt)
+        max_new = req.max_new_tokens or self.config.max_new_tokens
+        chunked = self.chunk_prefill > 0 and plen > self.chunk_prefill
+        if chunked and self._chunk_job is not None:
+            return False, []  # one chunk job at a time; wait for it
         free = [i for i, s in enumerate(self._slots) if s is None]
         if not free:
             return False, []
-        req = self._pending[0]
-        plen = len(req.prompt)
-        max_new = req.max_new_tokens or self.config.max_new_tokens
+        hit = self._try_prefix_hit(req, plen)
+        if hit is not None:
+            return self._admit_hit(req, free[0], hit, plen, max_new)
+        if chunked:
+            return self._admit_chunked(req, free[0], plen, max_new)
         return self._admit_cold(req, free[0], plen, max_new)
+
+    def _count_admission(self, rid: str) -> None:
+        self._admitted.inc()
+        self._tenant_admitted.labels(
+            self._req_tenant.get(rid, "default")).inc()
+
+    def _new_bt_row(self) -> np.ndarray:
+        return np.full((self.cache_cfg.max_pages_per_seq,), NULL_PAGE,
+                       np.int32)
+
+    def _admit_chunked(self, req: Request, slot_idx: int, plen: int,
+                       max_new: int) -> tuple[bool, list[Completion]]:
+        """Seat a long prompt for chunked prefill: allocate its full page
+        run and block table up front (``seq_len`` starts at 0), mark the
+        slot ``chunking`` so decode skips it, and let :meth:`_chunk_step`
+        land the prompt one chunk per engine step."""
+        n_pages = pages_for(plen + max_new + self._overrun_slack,
+                            self.cache_cfg.block_size)
+        pages = self._alloc_with_evict(n_pages)
+        if pages is None:
+            return False, []
+        self._pending.popleft()
+        bt_row = self._new_bt_row()
+        bt_row[:len(pages)] = pages
+        self._install(slot_idx, bt_row, 0)
+        self._slots[slot_idx] = _Slot(req=req, pages=pages, tokens=[],
+                                      last_token=0, max_new=max_new,
+                                      chunking=True)
+        self._chunk_job = _ChunkJob(slot_idx=slot_idx)
+        self._chunk_count += 1
+        self._sched_chunked.labels(reason="long_prompt").inc()
+        self._count_admission(req.rid)
+        if self._prefix is not None:
+            # chunked prompts are not donated to the prefix cache (their
+            # pages fill across many steps); they count as misses
+            self._prefix_misses.inc()
+        self._update_occupancy()
+        return True, []
+
+    def _alloc_with_evict(self, n: int) -> list[int] | None:
+        pages = self._allocator.alloc(n)
+        if pages is None and self._prefix is not None and len(self._prefix):
+            # admission beats retention: shed cold prefix-cache entries
+            self._prefix.evict(n - self._allocator.available)
+            pages = self._allocator.alloc(n)
+        return pages
+
+    def _try_prefix_hit(self, req: Request, plen: int) -> PrefixHit | None:
+        """A cached-prefix hit worth taking, or None (refs dropped).
+        Coverage is capped at ``plen - 1`` so at least one prompt token
+        always runs through decode and yields the first token's logits;
+        hits whose uncached suffix would take longer to feed than a cold
+        prefill are declined."""
+        if self._prefix is None:
+            return None
+        hit = self._prefix.lookup(req.prompt)
+        if hit is None:
+            return None
+        bs = self.cache_cfg.block_size
+        c = min(hit.covered, plen - 1)
+        max_suffix = self.config.prefix_max_suffix or 2 * bs
+        if c < bs or plen - c > max_suffix:
+            self._allocator.free(hit.pages)
+            return None
+        return PrefixHit(pages=hit.pages, covered=c)
+
+    def _admit_hit(self, req: Request, slot_idx: int, hit: PrefixHit,
+                   plen: int, max_new: int) -> tuple[bool, list[Completion]]:
+        bs = self.cache_cfg.block_size
+        c = hit.covered
+        w = c // bs  # page index position c (the first write) lands in
+        n_total = pages_for(plen + max_new + self._overrun_slack, bs)
+        priv = self._alloc_with_evict(n_total - w)
+        if priv is None:
+            self._allocator.free(hit.pages)
+            return False, []
+        self._pending.popleft()
+        bt_row = self._new_bt_row()
+        bt_row[:w] = hit.pages[:w]
+        bt_row[w:n_total] = priv
+        t0 = time.perf_counter()
+        cow = w < len(hit.pages)
+        # position c lands inside a shared page (partial boundary, or a
+        # fully covered prompt re-feeding its final token): write into a
+        # private copy, never the shared original. Pages map 1:1 into the
+        # draft's pools, so its table surgery mirrors the target's
+        self._install(slot_idx, bt_row, c,
+                      cow=(hit.pages[w], int(bt_row[w])) if cow else None)
+        if cow:
+            self._cow_copies.inc()
+        if hit.pages[w:]:
+            self._allocator.free(hit.pages[w:])  # refs not kept past copy
+        self._slots[slot_idx] = _Slot(
+            req=req, pages=list(hit.pages[:w]) + priv, tokens=[],
+            last_token=int(req.prompt[c]), max_new=max_new,
+            pending=[int(t) for t in req.prompt[c + 1:]], prefix_hit=True)
+        self._count_admission(req.rid)
+        self._prefix_hits.inc()
+        self._prefix_hit_tokens.inc(c)
+        submit_ts = self._submit_ts.get(req.rid)
+        root = self._req_spans.get(req.rid)
+        if root is not None and submit_ts is not None:
+            now = time.perf_counter()
+            self.tracer.record(
+                "serve.queue_wait", submit_ts, t0,
+                trace_id=root.trace_id, parent_id=root.span_id)
+            self.tracer.record(
+                "serve.prefix_install", t0, now,
+                attrs={"covered": c, "suffix": plen - c, "cow": int(cow)},
+                trace_id=root.trace_id, parent_id=root.span_id)
+        self._update_occupancy()
+        return True, []
 
     def _admit_cold(self, req: Request, slot_idx: int, plen: int,
                     max_new: int) -> tuple[bool, list[Completion]]:
         bs = self.cache_cfg.block_size
-        pages = self._allocator.alloc(pages_for(plen + max_new, bs))
+        n_pages = pages_for(plen + max_new + self._overrun_slack, bs)
+        # a page-unaligned prompt that will be donated to the prefix
+        # cache needs one spare page: the boundary page becomes shared at
+        # insert, and this slot's own generation copy-on-writes it
+        want_partial = (self._prefix is not None and plen >= bs
+                        and plen % bs != 0)
+        spare: list[int] | None = None
+        pages = None
+        if want_partial:
+            got = self._alloc_with_evict(n_pages + 1)
+            if got is not None:
+                pages, spare = got[:n_pages], got[n_pages:]
+        if pages is None:
+            pages = self._alloc_with_evict(n_pages)
         if pages is None:
             return False, []  # wait for running sequences to free pages
         self._pending.popleft()
         bucket = self._bucket_for(plen)
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :plen] = req.prompt
-        bt_row = np.full((self.cache_cfg.max_pages_per_seq,), NULL_PAGE,
-                         np.int32)
+        bt_row = self._new_bt_row()
         bt_row[:len(pages)] = pages
+        ids_t = torch.from_numpy(ids).to(self.device)
+        bt_t = torch.from_numpy(bt_row).to(self.device)
         t_prefill = time.perf_counter()
-        tok, logits0 = self._prefill(
-            torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(bt_row).to(self.device), slot_idx, plen)
-        now = time.perf_counter()  # the argmax above waited for the device
+        logits0 = self._prefill(ids_t, bt_t, slot_idx, plen)
+        tok = int(torch.argmax(logits0[plen - 1]))  # waits for the device
+        if self._draft_model is not None:
+            # same ids, same pages: the draft's K/V for this prompt lands
+            # in the SAME page indices the target owns
+            self._prefill(ids_t, bt_t, slot_idx, plen, draft=True)
+        now = time.perf_counter()
         self._prefill_time += now - t_prefill
         self._prefill_count += 1
+        self._count_admission(req.rid)
+        if self._prefix is not None:
+            self._prefix_misses.inc()
         submit_ts = self._submit_ts.pop(req.rid, None)
         if submit_ts is not None:
-            ttft = now - submit_ts
-            self._ttft_sum += ttft
-            self._ttft_max = max(self._ttft_max, ttft)
-            self._ttft_count += 1
+            # ONE clock reading closes both the histogram sample and the
+            # trace: queue_wait + prefill spans sum to exactly the TTFT
+            root = self._req_spans.get(req.rid)
+            self._close_ttft(req.rid, now - submit_ts, root)
+            if root is not None:
+                self.tracer.record(
+                    "serve.queue_wait", submit_ts, t_prefill,
+                    trace_id=root.trace_id, parent_id=root.span_id)
+                self.tracer.record(
+                    "serve.prefill", t_prefill, now,
+                    attrs={"bucket": bucket, "prompt_len": plen},
+                    trace_id=root.trace_id, parent_id=root.span_id)
         if self.capture_logits:
             self.logit_log.setdefault(req.rid, []).append(
                 logits0[plen - 1].float().cpu().numpy().copy())
@@ -376,16 +1272,61 @@ class ServingEngine:
                      max_new=max_new)
         self._slots[slot_idx] = slot
         self._emit_token(req.rid, tok)
+        self._insert_prefix(slot_idx, slot, bt_row, plen, spare)
         done = self._finish_reason(slot, tok)
         if done:
             return True, [self._release(slot_idx, done)]
+        self._update_occupancy()
         return True, []
 
+    def _insert_prefix(self, slot_idx: int, slot: _Slot, bt_row: np.ndarray,
+                       plen: int, spare: list[int] | None) -> None:
+        """Donate a cold prompt's pages to the prefix cache. Prompts
+        shorter than one page can never clear the hit gate, so they are
+        not indexed."""
+        bs = self.cache_cfg.block_size
+        if self._prefix is None or plen < bs:
+            if spare:
+                self._allocator.free(spare)
+            return
+        m = pages_for(plen, bs)
+        f = plen % bs
+        if f and spare is None:
+            # no spare to copy-on-write the boundary into: share the full
+            # pages only
+            self._prefix.insert(slot.req.prompt[:plen - f],
+                                slot.pages[:m - 1])
+            return
+        self._prefix.insert(slot.req.prompt[:plen], slot.pages[:m])
+        if not f:
+            return
+        boundary = slot.pages[m - 1]
+        if not self._allocator.is_shared(boundary):
+            # an equivalent boundary page was already cached; ours stayed
+            # private and the spare goes back
+            self._allocator.free(spare)
+            return
+        # the cache adopted the boundary page, and this slot writes
+        # position plen into it next step: move the slot to a copy
+        new = int(spare[0])
+        bt_row = bt_row.copy()
+        bt_row[m - 1] = new
+        self._install(slot_idx, bt_row, plen, cow=(boundary, new))
+        self._cow_copies.inc()
+        slot.pages[m - 1] = new
+        self._allocator.free([boundary])  # slot's ref; the cache keeps its
+
     def stats(self) -> dict:
-        """Host-clock counters of this engine's work so far. Decode and
-        prefill times end in a read of the step's result, so they include
-        the device's work."""
-        return {
+        """Counters of this engine's work so far. Host-clock times end in
+        a read of the step's result, so they include the device's work.
+        Percentiles come from the fixed-bucket histograms (bucket-edge
+        interpolation). ``passes`` counts the model passes by kind
+        (``PASS_KINDS``): each runs one attention kernel per layer of its
+        model (the draft's layers for the ``draft_*`` kinds)."""
+        lat_n = self._lat_hist.count
+        ttft_n = self._ttft_hist.count
+        gaps = self._gap_total + self._busy_total
+        out = {
             "device": str(self.device),
             "decode_steps": self._decode_steps,
             "decode_tokens": self._decode_tokens,
@@ -395,7 +1336,42 @@ class ServingEngine:
                 if self._decode_time else 0.0),
             "prefills": self._prefill_count,
             "prefill_time_s": self._prefill_time,
-            "ttft_mean_ms": (self._ttft_sum / self._ttft_count * 1e3
-                             if self._ttft_count else 0.0),
+            "ttft_mean_ms": (self._ttft_hist.sum / ttft_n * 1e3
+                             if ttft_n else 0.0),
             "ttft_max_ms": self._ttft_max * 1e3,
+            "decode_p50_latency_ms": self._lat_hist.quantile(0.50) * 1e3,
+            "decode_p95_latency_ms": self._lat_hist.quantile(0.95) * 1e3,
+            "queue_depth": len(self._pending),
+            "active_slots": sum(1 for s in self._slots if s is not None),
+            "ttft_p50_ms": self._ttft_hist.quantile(0.50) * 1e3,
+            "ttft_p95_ms": self._ttft_hist.quantile(0.95) * 1e3,
+            # the port runs the synchronous loop only (no async pipeline)
+            "async_decode": False,
+            "dispatch_gap_p50_ms": self._dispatch_gap.quantile(0.50) * 1e3,
+            "dispatch_gap_total_s": self._gap_total,
+            "host_overhead_ratio": (self._gap_total / gaps if gaps > 0
+                                    else 0.0),
+            "passes": dict(self._passes),
         }
+        if self._prefix is not None:
+            hits = self._prefix_hits.value
+            misses = self._prefix_misses.value
+            out["prefix_hits"] = int(hits)
+            out["prefix_misses"] = int(misses)
+            out["prefix_hit_rate"] = (hits / (hits + misses)
+                                      if hits + misses else 0.0)
+            out["prefix_hit_tokens"] = int(self._prefix_hit_tokens.value)
+            out["prefix_cache_pages"] = self._prefix.total_pages
+            out["cow_copies"] = int(self._cow_copies.value)
+        if self.chunk_prefill:
+            out["chunked_prefills"] = self._chunk_count
+        if self.spec_k:
+            prop = self._spec_proposed.value
+            acc = self._spec_accepted.value
+            out["spec_proposed"] = int(prop)
+            out["spec_accepted"] = int(acc)
+            out["spec_acceptance_rate"] = acc / prop if prop else 0.0
+            # tokens landed per verify step: 1.0 is plain decode
+            out["spec_tokens_per_step"] = (
+                self._decode_tokens / lat_n if lat_n else 0.0)
+        return out

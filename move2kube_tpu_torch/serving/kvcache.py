@@ -248,6 +248,16 @@ class PageAllocator:
     def refcount(self, page: int) -> int:
         return self._refs.get(int(page), 0)
 
+    def is_shared(self, page: int) -> bool:
+        """More than one holder: writes must copy-on-write first."""
+        return self._refs.get(int(page), 0) > 1
+
+    def reclaimable(self, pages) -> int:
+        """How many of ``pages`` would return to the free list if their
+        holder freed them now; shared pages (prefix cache, copy-on-write
+        siblings) stay resident under their other holders."""
+        return sum(1 for p in pages if self._refs.get(int(p), 0) == 1)
+
     def free(self, pages) -> None:
         """Drop one reference per page; a page returns to the free list
         only when its last holder releases it."""

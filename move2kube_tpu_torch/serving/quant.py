@@ -1,6 +1,5 @@
-"""Post-training int8 serving quantization: the port of
-``move2kube_tpu/serving/quant.py`` (its draft-model helpers wait for
-speculative decoding).
+"""Post-training int8 serving quantization and the speculative draft
+model: the port of ``move2kube_tpu/serving/quant.py``.
 
 Weight quantization is symmetric per-output-channel int8, applied once
 when the engine is built: every ``nn.Linear`` (in ``Llama``: ``qkv``,
@@ -141,6 +140,35 @@ def quantize_model(model: nn.Module) -> nn.Module:
             if isinstance(child, nn.Linear):
                 setattr(parent, name, QuantLinear.from_linear(child))
     return qmodel
+
+
+def draft_config(cfg, factor: int = 2):
+    """Shrunk same-family draft config: the first
+    ``max(1, num_layers // factor)`` layers of the target. Everything
+    else (vocab, widths, heads) must match: the draft proposes token ids
+    the target verifies."""
+    return dataclasses.replace(
+        cfg, num_layers=max(1, cfg.num_layers // max(1, factor)))
+
+
+def draft_model_from(model: nn.Module, draft_cfg) -> nn.Module:
+    """The speculative draft of ``model`` at ``draft_cfg``'s depth (the
+    counterpart of the JAX package's ``draft_variables_from``): a model
+    of the same class whose embedding, first ``draft_cfg.num_layers``
+    blocks, final norm and head are *the target's own modules*, shared
+    and not copied, so the draft holds no memory of its own and an int8
+    target (:class:`QuantLinear` layers) has an int8 draft."""
+    if draft_cfg.num_layers > len(model.layers):
+        raise ValueError(f"draft of {draft_cfg.num_layers} layers from a "
+                         f"model of {len(model.layers)}")
+    draft = type(model).__new__(type(model))
+    nn.Module.__init__(draft)
+    draft.cfg = draft_cfg
+    draft.embed = model.embed
+    draft.layers = nn.ModuleList(model.layers[:draft_cfg.num_layers])
+    draft.final_norm = model.final_norm
+    draft.lm_head = model.lm_head
+    return draft.train(model.training)
 
 
 def param_bytes(model: nn.Module) -> int:

@@ -128,3 +128,31 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              timeout=120)
         assert res.returncode != 0, res.stdout
         assert '"ok": true' not in res.stdout
+
+
+# the serving engine's fleet-replica modules: each keeps its own copy of
+# what it needs from the JAX package's pure-Python modules
+FLEET_MODULES = ("obs/__init__.py", "obs/metrics.py", "obs/tracing.py",
+                 "obs/slo.py", "serving/prefixcache.py", "serving/engine.py",
+                 "serving/quant.py")
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_modules_import_nothing_of_jax(module):
+    path = REPO / "move2kube_tpu_torch" / module
+    assert path in _port_files()
+    bad = [f"{line} imports {root}" for line, root in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_fleet_modules_loads_no_jax():
+    mods = ", ".join("move2kube_tpu_torch." + m[:-3].replace("/", ".")
+                     .removesuffix(".__init__") for m in FLEET_MODULES)
+    code = (f"import sys, {mods}; bad = [m for m in sys.modules if "
+            f"m.split('.')[0] in {FORBIDDEN!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -757,3 +757,122 @@ def test_int8_kv_engine_on_card_matches_engine_on_cpu(cuda):
     assert tatt.PAGED_DECODE_INT8.launches > 0
     assert tatt.PAGED_DECODE.launches == 0
     assert on_card == run("cpu")
+
+
+# logits of the engine on the card (the kernels) against the same engine
+# on the CPU (their plain versions), fp32, from the same weights: sums in
+# other orders through 2 layers
+FLEET_LOGITS_ATOL = 1e-4
+
+
+def _fleet_run(model, device, econf, reqs):
+    """One engine run from the CPU model's weights on ``device``; returns
+    the streams, logit rows, stats and (on the card) the launch counts of
+    the run alone."""
+    from move2kube_tpu_torch import ServingEngine
+
+    eng = ServingEngine(model.to(device).eval(), econf, device=device)
+    eng.capture_logits = True
+    tatt.reset_launch_counts()
+    streams = {c.rid: c.tokens for c in eng.run(
+        [dataclasses.replace(r, prompt=list(r.prompt)) for r in reqs])}
+    launches = {k.name: k.launches for k in tatt.KERNELS}
+    return streams, eng.logit_log, eng.stats(), launches
+
+
+def _fleet_check(cuda, econf, reqs, draft_layers=0):
+    """The engine on the card against the engine on the CPU: the same
+    streams, every logit row within FLEET_LOGITS_ATOL, and on the card
+    one flash launch a layer a prefill and one paged launch a layer a
+    single-token pass (decode, hit suffix, verify, chunk, draft)."""
+    from move2kube_tpu_torch import init_llama, llama_tiny
+
+    cfg = dataclasses.replace(llama_tiny(), d_model=256, attn_impl="flash")
+    model = init_llama(cfg, seed=0, device="cpu", dtype=torch.float32)
+    want, want_log, _, _ = _fleet_run(model, "cpu", econf, reqs)
+    got, got_log, stats, launches = _fleet_run(model, cuda, econf, reqs)
+    assert got == want
+    for rid, rows in got_log.items():
+        assert len(rows) == len(want_log[rid])
+        for a, b in zip(rows, want_log[rid]):
+            np.testing.assert_allclose(a, b, atol=FLEET_LOGITS_ATOL, rtol=0)
+    p = stats["passes"]
+    assert launches == {
+        "flash_fwd": cfg.num_layers * p["prefill"]
+        + draft_layers * p["draft_prefill"],
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "paged_decode": cfg.num_layers * (p["decode"] + p["verify"]
+                                          + p["chunk"])
+        + draft_layers * p["draft_decode"],
+        "paged_decode_int8": 0}
+    return stats
+
+
+def _fleet_requests(seed):
+    from move2kube_tpu_torch import Request
+
+    gen = np.random.default_rng(seed)
+    shared = gen.integers(1, 500, size=20).tolist()
+    return [Request("cold", list(shared), 5), Request("rerun", shared, 5),
+            Request("fork", shared[:16] + [3, 5, 7], 5),
+            Request("other", gen.integers(1, 500, size=9).tolist(), 5)]
+
+
+def test_verify_pass_on_card_matches_cpu(cuda):
+    """The spec verify window (k + 1 single-token passes of the target)
+    and the draft's passes launch the paged kernel on the card and agree
+    with their plain versions on the CPU."""
+    from move2kube_tpu_torch import EngineConfig
+
+    stats = _fleet_check(cuda, EngineConfig(
+        max_batch=4, max_seq=64, block_size=8, buckets=(16, 32), spec_k=3,
+        spec_draft_factor=2, admit_burst=0), _fleet_requests(40),
+        draft_layers=1)
+    assert stats["passes"]["verify"] > 0 and stats["passes"]["decode"] == 0
+
+
+def test_chunk_pass_on_card_matches_cpu(cuda):
+    """Chunked prefill's single-token passes of the chunking row launch
+    the paged kernel on the card; the final chunk's logits agree with the
+    plain version's on the CPU."""
+    from move2kube_tpu_torch import EngineConfig, Request
+
+    gen = np.random.default_rng(41)
+    reqs = [Request("long", gen.integers(1, 500, size=45).tolist(), 4),
+            Request("short", gen.integers(1, 500, size=7).tolist(), 8)]
+    stats = _fleet_check(cuda, EngineConfig(
+        max_batch=2, max_seq=64, block_size=8, buckets=(16, 64),
+        chunk_prefill=16, admit_burst=0), reqs)
+    assert stats["passes"]["chunk"] == 45
+
+
+def test_hit_suffix_on_card_matches_cpu(cuda):
+    """A prefix hit's suffix, fed through decode steps over shared and
+    COW-copied pages, launches the paged kernel on the card and agrees
+    with the plain version on the CPU."""
+    from move2kube_tpu_torch import EngineConfig
+
+    stats = _fleet_check(cuda, EngineConfig(
+        max_batch=2, max_seq=64, block_size=8, buckets=(16, 32),
+        prefix_cache=True), _fleet_requests(42))
+    assert stats["prefix_hits"] == 2 and stats["cow_copies"] >= 1
+
+
+def test_spec_hit_long_suffix_on_card_matches_cpu(cuda):
+    """Spec decode beside prefix hits whose suffixes outrun the verify
+    window: fully forced windows of the verify and draft passes launch the
+    paged kernel on the card and agree with the plain versions on the
+    CPU."""
+    from move2kube_tpu_torch import EngineConfig, Request
+
+    gen = np.random.default_rng(43)
+    shared = gen.integers(1, 500, size=16).tolist()
+    tail = gen.integers(1, 500, size=10).tolist()
+    reqs = [Request("cold", list(shared), 5),
+            Request("fork", shared[:8] + tail, 5),
+            Request("fork2", shared + tail[:7], 5)]
+    stats = _fleet_check(cuda, EngineConfig(
+        max_batch=4, max_seq=64, block_size=8, buckets=(16, 32),
+        prefix_cache=True, spec_k=2, spec_draft_factor=2, admit_burst=0),
+        reqs, draft_layers=1)
+    assert stats["prefix_hits"] == 2 and stats["prefix_hit_tokens"] == 24
