@@ -52,16 +52,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside 7 running streams (their streams equal, the chunked prompt's
    logits within the route gate of its whole prefill's); every run's
    launch counts checked exactly against the engine's own pass counters
-9. training parity at Llama-8B width and 2 layers in fp32: 3 steps of the
+9. fleet router parity at Llama-8B width and 2 layers in fp32: a stream
+   preempted by a gold request and resumed by the router from its
+   journal (one slot, stepped by hand), a mixed LoRA batch against
+   single-adapter runs, a prefill replica's handoffs over the wire bytes
+   against the cold engine, and a same-weights swap mid-decode (bit-equal
+   logits, the version on the Completions, the prefix cache flushed)
+10. the fleet router slice: ``build_fleet`` with two full-depth Llama-8B
+   bf16 replicas on one card and a prefill replica, bronze traffic on 4
+   system prompts, gold requests that preempt, adapter requests, long
+   prompts through the disagg route and a rolling swap, all through
+   ``Router.generate``; the placement, prefix hits, resumed streams
+   (route gate against uninterrupted runs), adapter logits and launch
+   counts checked; TTFT by tenant and route, the handoffs' bytes and
+   times, the swap time, the fleet's tokens/s against one replica's; then
+   an int8-kv engine auditing every second cold prefill against the bf16
+   weights
+11. training parity at Llama-8B width and 2 layers in fp32: 3 steps of the
    LM train step with the attention in the kernels against the plain
    dense attention, from the same weights on the same batches; then the
    same in the bf16 policy, held to source/validate.py's gates
-10. the training slice: Llama-8B widths cut to 8 layers, fp32 master
+12. the training slice: Llama-8B widths cut to 8 layers, fp32 master
    weights, the bf16 policy, AdamW, remat, head-folded cross-entropy,
    batch 4 x 2048 tokens; 5 timed steps whose launch counts show every
    layer's forward, recompute and backward went through the kernels, and
    one step under the profiler
-11. one JSON line with every kernel's numbers, then the result line
+13. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -69,6 +85,7 @@ Without CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -1135,11 +1152,11 @@ def int8_slice_phase(torch):
 def _expected_launches(stats, layers: int, draft_layers: int) -> dict:
     """What the attention kernels' launch counts must come to after an
     engine run, from the engine's own pass counters: one kernel a layer
-    a pass; flash for the prefills, the paged kernel for every
-    single-token pass (decode steps, prefix-hit suffix feeding, verify,
-    chunk, draft)."""
+    a pass; flash for the prefills and the quant audit's fp forwards, the
+    paged kernel for every single-token pass (decode steps, prefix-hit
+    suffix feeding, verify, chunk, draft)."""
     p = stats["passes"]
-    return {"flash_fwd": layers * p["prefill"]
+    return {"flash_fwd": layers * (p["prefill"] + p["audit"])
             + draft_layers * p["draft_prefill"],
             "paged": layers * (p["decode"] + p["verify"] + p["chunk"])
             + draft_layers * p["draft_decode"]}
@@ -1629,6 +1646,821 @@ def fleet_slice_phase(torch, model) -> dict:
     return paged_total
 
 
+# ----------------------------------------------------------------------
+# the fleet: scheduler plane, multi-LoRA, live swap, disagg, router
+# ----------------------------------------------------------------------
+
+FLEET_SPEC = "gold:prio=high;bronze:prio=besteffort"
+FLEET_WAIT_S = 600.0  # bound on every wait for a client or replica thread
+
+
+def _launch_counts():
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _want_launches(parts, paged="paged_decode") -> dict:
+    """The exact launch counts of a run, from ``(stats, layers,
+    draft_layers)`` of every engine (or prefill replica) in it."""
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    want = {k.name: 0 for k in KERNELS}
+    for stats, layers, draft_layers in parts:
+        exp = _expected_launches(stats, layers, draft_layers)
+        want["flash_fwd"] += exp["flash_fwd"]
+        want[paged] += exp["paged"]
+    return want
+
+
+def _check_launches(label, got, want) -> None:
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, expected {want} from "
+                           "the passes")
+
+
+def _client(router, results, errors, rid, prompt, n, **kw):
+    """A thread that sends one request through ``router.generate``."""
+    import threading
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            out = router.generate(list(prompt), n, rid=rid, **kw)
+            out["t_start"], out["t_end"] = t0, time.perf_counter()
+            results[rid] = out
+        except Exception as err:  # noqa: BLE001 - reported by the caller
+            errors.append(f"{rid}: {type(err).__name__}: {err}")
+
+    t = threading.Thread(target=run, name=f"client-{rid}", daemon=True)
+    t.start()
+    return t
+
+
+def _join(threads, label) -> None:
+    t_end = time.perf_counter() + FLEET_WAIT_S
+    for t in threads:
+        t.join(timeout=max(0.0, t_end - time.perf_counter()))
+        if t.is_alive():
+            raise RuntimeError(f"{label}: {t.name} did not finish in "
+                               f"{FLEET_WAIT_S:.0f} s")
+
+
+def _wait_for(cond, label) -> None:
+    t_end = time.perf_counter() + FLEET_WAIT_S
+    while not cond():
+        if time.perf_counter() > t_end:
+            raise RuntimeError(f"timed out waiting for {label}")
+        time.sleep(0.001)
+
+
+def fleet_router_parity_phase(torch) -> None:
+    """The fleet paths at Llama-8B width, 2 layers, fp32, the attention in
+    the kernels, each against the plain engine from the same weights, each
+    run's launch counts exact: (a) a best-effort stream preempted by a
+    gold request on a one-slot replica driven by hand (its worker thread
+    not started), resumed by the router from its journal, its stream
+    equal to the uninterrupted one and its logits within FP32_ENGINE_ATOL;
+    (b) a batch of the base model and two adapters, each stream equal to
+    its single-adapter run; (c) a prefill replica's handoffs over the wire
+    bytes installed in a decode engine, streams equal to the cold
+    engine's and logits within FP32_ENGINE_ATOL; (d) a same-weights swap
+    mid-decode on a prefix-cache engine: streams and every logit row
+    bit-equal to the unswapped run, the new version on the Completions,
+    the prefix cache flushed."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        init_llama,
+        llama_8b,
+        reset_launch_counts,
+    )
+    from move2kube_tpu_torch.serving.fleet.disagg import (
+        KVHandoff,
+        PrefillReplica,
+    )
+    from move2kube_tpu_torch.serving.fleet.router import (
+        InProcessReplica,
+        Router,
+        RouterConfig,
+    )
+
+    cfg = dataclasses.replace(llama_8b(), num_layers=2, dtype=torch.float32,
+                              attn_impl="flash")
+    model = init_llama(cfg, seed=SEED, device="cuda").eval()
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(SEED + 10)
+    base = dict(max_batch=4, max_seq=640, block_size=16)
+
+    def rows_err(a, b):
+        if len(a) != len(b):
+            raise RuntimeError(f"fleet router parity: {len(a)} logit rows "
+                               f"against {len(b)}")
+        return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+    # (a) preemption and the router's resume
+    p_be = rng.integers(1, vocab, size=200).tolist()
+    p_gold = rng.integers(1, vocab, size=100).tolist()
+    one = dict(base, max_batch=1)
+    plain = ServingEngine(model, EngineConfig(**one), device="cuda")
+    plain.capture_logits = True
+    want = plain.run([Request("be", list(p_be), 12)])[0].tokens
+    eng = ServingEngine(model, EngineConfig(**one, sched_tenants=FLEET_SPEC),
+                        device="cuda")
+    eng.capture_logits = True
+    rep = InProcessReplica("replica-0", eng)
+    rep.start = lambda: rep  # no worker thread: this phase steps the engine
+    router = Router([rep], RouterConfig(sched_tenants=FLEET_SPEC,
+                                        deadline_s=FLEET_WAIT_S))
+    results, errors = {}, []
+    reset_launch_counts()
+    threads = [_client(router, results, errors, "be", p_be, 12,
+                       tenant="bronze")]
+    _wait_for(lambda: any(r.rid == "be" for r in eng._pending),
+              "the best-effort submit")
+    for _ in range(4):
+        rep._step_once()
+    threads.append(_client(router, results, errors, "gold", p_gold, 3,
+                           tenant="gold"))
+    _wait_for(lambda: any(r.rid == "gold" for r in eng._pending),
+              "the gold submit")
+    rep._step_once()  # admits gold: the best-effort stream is preempted
+    t_end = time.perf_counter() + FLEET_WAIT_S
+    while any(t.is_alive() for t in threads):
+        if time.perf_counter() > t_end:
+            raise RuntimeError("fleet router parity (a): streams did not "
+                               "finish")
+        if not rep._step_once():
+            time.sleep(0.001)
+    _join(threads, "fleet router parity (a)")
+    st = eng.stats()
+    _check_launches("fleet router parity (a)", _launch_counts(),
+                    _want_launches([(st, layers, 0)]))
+    err = rows_err(eng.logit_log["be"], plain.logit_log["be"])
+    if (errors or results["be"]["tokens"] != want
+            or not results["be"].get("resumed") or st["preempted"] != 1
+            or router._sched_resumed.labels(reason="preempted").value != 1
+            or err > FP32_ENGINE_ATOL):
+        raise RuntimeError(
+            f"fleet router parity (a): errors {errors}, resumed stream "
+            f"{results.get('be')} vs uninterrupted {want}, preempted "
+            f"{st['preempted']}, logits max abs err {err}")
+    log(f"fleet router parity (a) preemption: llama_8b widths, 2 layers, "
+        f"fp32, one slot driven by hand; a best-effort stream (200-token "
+        f"prompt, 12 new) preempted after 5 tokens by a gold request, "
+        f"resumed by the router from its journal: stream identical to the "
+        f"uninterrupted one, its 12 logit rows max abs err {err:.3e} (tol "
+        f"{FP32_ENGINE_ATOL}); passes {st['passes']}")
+    del eng, plain, rep, router
+
+    # (b) a mixed LoRA batch
+    adapters = {}
+    for name, r in (("fin", 8), ("law", 4)):
+        adapters[name] = (
+            (rng.normal(size=(cfg.d_model, r)) * 0.05).astype(np.float32),
+            (rng.normal(size=(r, vocab)) * 0.05).astype(np.float32))
+    lconf = EngineConfig(**base, max_loras=2, lora_rank=8, admit_burst=0)
+    mix = ["", "fin", "law", "fin"]
+    prompts = [rng.integers(1, vocab, size=n).tolist()
+               for n in (37, 150, 90, 300)]
+
+    def lora_run(names, idx):
+        e = ServingEngine(model, lconf if any(names) else EngineConfig(
+            **base, admit_burst=0), device="cuda")
+        for name in sorted(set(n for n in names if n)):
+            e.register_adapter(name, *adapters[name])
+        e.capture_logits = True
+        reset_launch_counts()
+        done = {c.rid: c.tokens for c in e.run(
+            [Request(f"r{i}", list(prompts[i]), 8, adapter=names[j])
+             for j, i in enumerate(idx)])}
+        _check_launches("fleet router parity (b)", _launch_counts(),
+                        _want_launches([(e.stats(), layers, 0)]))
+        return done, e.logit_log
+
+    got, got_log = lora_run(mix, range(4))
+    worst, differ = 0.0, 0
+    for i, name in enumerate(mix):
+        alone, alone_log = lora_run([name], [i])
+        if got[f"r{i}"] != alone[f"r{i}"]:
+            raise RuntimeError(f"fleet router parity (b): r{i} ({name!r}) "
+                               f"{got[f'r{i}']} != its single-adapter run "
+                               f"{alone[f'r{i}']}")
+        worst = max(worst, rows_err(got_log[f"r{i}"], alone_log[f"r{i}"]))
+        if name:
+            base_run, _ = lora_run([""], [i])
+            differ += base_run[f"r{i}"] != got[f"r{i}"]
+    if worst > FP32_ENGINE_ATOL or not differ:
+        raise RuntimeError(f"fleet router parity (b): logits max abs err "
+                           f"{worst}, adapter streams unlike the base "
+                           f"model's: {differ}")
+    log(f"fleet router parity (b) multi-LoRA: base + adapters of rank 8 and "
+        f"4 (A/B at 0.05 scale) on 4 requests in one batch, 8 new tokens: "
+        f"every stream identical to its single-adapter run, logits max abs "
+        f"err {worst:.3e} (tol {FP32_ENGINE_ATOL}); {differ} of 3 adapter "
+        f"streams differ from the base model's")
+
+    # (c) disagg over the wire bytes
+    dconf = EngineConfig(**base)
+    reqs = [Request(f"d{i}", rng.integers(1, vocab, size=n).tolist(), 8)
+            for i, n in enumerate((300, 520))]
+    pre = PrefillReplica(model, dconf, device="cuda")
+    eng = ServingEngine(model, dconf, device="cuda")
+    eng.capture_logits = True
+    reset_launch_counts()
+    wire = [pre.prefill(r).to_bytes() for r in reqs]
+    got, inbox = {}, [KVHandoff.from_bytes(b) for b in wire]
+    while inbox or eng.has_work():
+        while inbox:
+            h = inbox[0]
+            ok, done = eng.install_prefilled(h.request(), h.kv,
+                                             h.first_token, h.prompt_len)
+            got.update({c.rid: c.tokens for c in done})
+            if not ok:
+                break
+            inbox.pop(0)
+        got.update({c.rid: c.tokens for c in eng.step()})
+    _check_launches("fleet router parity (c)", _launch_counts(),
+                    _want_launches([(eng.stats(), layers, 0),
+                                    (pre.stats(), layers, 0)]))
+    cold, want, _, _ = _engine_run(
+        torch, model, dconf, [Request(r.rid, list(r.prompt), 8)
+                              for r in reqs], "fleet router parity (c) cold")
+    err = max(rows_err(eng.logit_log[r.rid], cold.logit_log[r.rid][1:])
+              for r in reqs)
+    if any(got[r.rid] != want[r.rid].tokens for r in reqs) or (
+            err > FP32_ENGINE_ATOL):
+        raise RuntimeError(f"fleet router parity (c): streams {got} vs cold "
+                           f"{ {r: c.tokens for r, c in want.items()} }, "
+                           f"logits max abs err {err}")
+    log(f"fleet router parity (c) disagg: prompts of 300 and 520 tokens "
+        f"prefilled on a prefill replica, {sum(map(len, wire))} wire bytes "
+        f"(fp32), installed and decoded 8 tokens: streams identical to the "
+        f"cold engine's, decode logits max abs err {err:.3e} (tol "
+        f"{FP32_ENGINE_ATOL})")
+    del eng, cold, pre
+
+    # (d) a same-weights swap mid-decode
+    shared = rng.integers(1, vocab, size=160).tolist()
+    tail = rng.integers(1, vocab, size=9).tolist()
+    other = rng.integers(1, vocab, size=70).tolist()
+    sconf = EngineConfig(**base, prefix_cache=True)
+
+    def swap_run(swap):
+        e = ServingEngine(model, sconf, device="cuda")
+        e.capture_logits = True
+        reset_launch_counts()
+        e.run([Request("warm", list(shared), 4)])
+        e.submit(Request("s", shared[:144] + tail, 12))
+        e.submit(Request("t", list(other), 12))
+        done, pages, swapped = [], e._prefix.total_pages, False
+        while e.has_work():
+            done += e.step()
+            slot = next((x for x in e._slots
+                         if x is not None and x.req.rid == "s"), None)
+            if swap and not swapped and slot and len(slot.tokens) >= 3:
+                if e.install_weights(model.state_dict()) != 2:
+                    raise RuntimeError("fleet router parity (d): version")
+                swapped = True
+                pages = (pages, e._prefix.total_pages)
+        _check_launches("fleet router parity (d)", _launch_counts(),
+                        _want_launches([(e.stats(), layers, 0)]))
+        return {c.rid: c for c in done}, e.logit_log, pages, e.stats()
+
+    got, got_log, pages, st = swap_run(True)
+    want, want_log, _, _ = swap_run(False)
+    same = all(np.array_equal(a, b) for rid in ("s", "t")
+               for a, b in zip(got_log[rid], want_log[rid]))
+    if (any(got[r].tokens != want[r].tokens for r in ("s", "t")) or not same
+            or {c.weights_version for c in got.values()} != {2}
+            or pages[0] == 0 or pages[1] != 0 or st["prefix_hits"] < 1):
+        raise RuntimeError(
+            f"fleet router parity (d): streams "
+            f"{[got[r].tokens for r in ('s', 't')]} vs "
+            f"{[want[r].tokens for r in ('s', 't')]}, logits bit-equal {same}, "
+            f"versions {[c.weights_version for c in got.values()]}, prefix "
+            f"pages before/after the swap {pages}, hits {st['prefix_hits']}")
+    log(f"fleet router parity (d) same-weights swap after 3 tokens of a "
+        f"prefix hit beside a second stream: streams and all "
+        f"{sum(len(got_log[r]) for r in ('s', 't'))} logit rows bit-equal "
+        f"to the "
+        f"unswapped run; Completions stamped version 2; prefix cache "
+        f"flushed ({pages[0]} pages before, {pages[1]} after)")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _balanced_groups(systems, names, per_replica):
+    """Request indices of each system prompt so that every replica (by the
+    router's own placement) starts with ``per_replica`` streams: each
+    replica's groups take its requests in turn."""
+    from move2kube_tpu_torch.serving.fleet.router import (
+        _rendezvous_score,
+        prefix_hash,
+    )
+
+    owner = [max(names, key=lambda n, k=prefix_hash(s, "", 16):
+                 _rendezvous_score(k, n)) for s in systems]
+    groups = []
+    for name in names:
+        mine = [g for g, o in enumerate(owner) if o == name]
+        if not mine:
+            raise RuntimeError(f"fleet router slice: no system prompt lands "
+                               f"on {name} ({owner})")
+        groups += [mine[i % len(mine)] for i in range(per_replica)]
+    return groups
+
+
+def fleet_router_slice_phase(torch, model) -> dict:
+    """The fleet at full width on one card: ``build_fleet`` with two
+    replicas of the serving slice's model (Llama-8B, bf16, flash, seed 0),
+    ``EngineConfig(max_batch=8, max_seq=2048, block_size=16,
+    prefix_cache=True, max_loras=2, lora_rank=8)`` with the tenant spec
+    FLEET_SPEC, and one prefill replica behind ``disagg_threshold=1024``.
+    Traffic through ``Router.generate``, each request from its own client
+    thread: 16 bronze requests on 4 system prompts of 512 tokens (seed 3;
+    tails of 1-24 tokens, 64 new), placed 8 to a replica; after 16 decode
+    steps on each replica, 4 gold requests of 64-256 tokens (seed 4, 32
+    new) that preempt, 4 requests under two adapters (rank 8, A/B from
+    seed 5 at 0.01 scale, 32 new) and 2 prompts of 1024-1536 tokens
+    (seed 6, 32 new) through the prefill replica; when the gold requests
+    are done, one ``router.swap`` of the same weights. Gates: each prompt
+    group on one replica, at least 12 prefix hits, every preempted stream
+    resumed to its full length and held by ``logit_gate`` against the same
+    request run uninterrupted (ROUTE_GATE_REL, up to where the streams
+    part), each adapter stream's first logits a base pass plus the plain
+    delta by the bf16 rule, and the launches exactly what the replicas'
+    and the prefill replica's passes imply. Then the fleet's tokens/s
+    against one replica's, and an int8-kv engine with
+    ``quant_audit_rate=0.5`` over 4 cold prefills (2 audits, drift under
+    QUANT_GATE_REL). Returns the launch counts of the traffic and of the
+    audit run."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        logit_gate,
+        reset_launch_counts,
+    )
+    from move2kube_tpu_torch.obs.tracing import SpanRecorder
+    from move2kube_tpu_torch.serving.fleet import disagg as disagglib
+    from move2kube_tpu_torch.serving.fleet.router import (
+        RouterConfig,
+        build_fleet,
+    )
+
+    cfg = model.cfg
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16,
+                         prefix_cache=True, max_loras=2, lora_rank=8,
+                         sched_tenants=FLEET_SPEC)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    router = build_fleet(model, 2, econf, RouterConfig(
+        sched_tenants=FLEET_SPEC, disagg_threshold=1024,
+        deadline_s=FLEET_WAIT_S), device="cuda")
+    pre = disagglib.PrefillReplica(model, econf, device="cuda")
+    router.prefill_replicas.append(pre)
+    engines = {r.name: r.engine for r in router.replicas}
+    names = list(engines)
+    rng = np.random.default_rng(5)
+    adapters = {n: ((rng.normal(size=(cfg.d_model, 8)) * 0.01).astype(
+        np.float32), (rng.normal(size=(8, vocab)) * 0.01).astype(np.float32))
+        for n in ("lora-a", "lora-b")}
+    submits, installs, swaps = [], {}, {}
+    wire = {"encode": [], "decode": []}
+    shared_log: dict = {}
+    for name, eng in engines.items():
+        for a_name, (a, b) in adapters.items():
+            eng.register_adapter(a_name, a, b)
+        eng.tracer = SpanRecorder(ring_seconds=3600.0)
+        eng.capture_logits = True
+        # one log for the fleet: a stream's rows stay in order when its
+        # resume lands on the other replica (one replica holds it at a time)
+        eng.logit_log = shared_log
+
+        def submit(req, _orig=eng.submit, _name=name):
+            submits.append((req.rid, _name, time.perf_counter()))
+            return _orig(req)
+
+        def install(req, *a, _orig=eng.install_prefilled, _name=name):
+            t0 = time.perf_counter()
+            ok, done = _orig(req, *a)
+            if ok:
+                installs[req.rid] = (_name, t0, time.perf_counter())
+            return ok, done
+
+        def install_weights(*a, _orig=eng.install_weights, _name=name,
+                            **kw):
+            t0 = time.perf_counter()
+            version = _orig(*a, **kw)
+            swaps[_name] = time.perf_counter() - t0
+            return version
+
+        eng.submit, eng.install_prefilled = submit, install
+        eng.install_weights = install_weights
+    to_bytes, from_bytes = disagglib.KVHandoff.to_bytes, (
+        disagglib.KVHandoff.from_bytes)
+
+    def timed_to_bytes(self):
+        t0 = time.perf_counter()
+        data = to_bytes(self)
+        wire["encode"].append((self.rid, len(data), self.bucket,
+                               time.perf_counter() - t0))
+        return data
+
+    def timed_from_bytes(data):
+        t0 = time.perf_counter()
+        h = from_bytes(data)
+        wire["decode"].append((h.rid, time.perf_counter() - t0))
+        return h
+
+    disagglib.KVHandoff.to_bytes = timed_to_bytes
+    disagglib.KVHandoff.from_bytes = staticmethod(timed_from_bytes)
+    try:
+        out = _router_traffic(router, engines, names, model.state_dict(),
+                              vocab)
+    finally:
+        disagglib.KVHandoff.to_bytes = to_bytes
+        disagglib.KVHandoff.from_bytes = classmethod(from_bytes.__func__)
+    results, groups, reqs, swap = out
+    launches = _launch_counts()
+    stats = {n: e.stats() for n, e in engines.items()}
+    _check_launches("fleet router slice", launches, _want_launches(
+        [(st, layers, 0) for st in stats.values()]
+        + [(pre.stats(), layers, 0)]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # placement: each prompt group's first submissions on one replica
+    first = {}
+    for rid, name, _ in submits:
+        first.setdefault(rid, name)
+    placed = {}
+    for rid, g in groups.items():
+        placed.setdefault(g, set()).add(first[rid])
+    hits = sum(st["prefix_hits"] for st in stats.values())
+    preempted = sum(st["preempted"] for st in stats.values())
+    resumed = sorted({rid for rid, _, _ in submits
+                      if sum(1 for r, _, _ in submits if r == rid) > 1})
+    # every preemption, from the engines' own request roots: a stream
+    # preempted after emitting tokens must come back through the journal
+    # (a resume); one preempted before its first token (its prefix-hit
+    # suffix just fed) restarts with an empty journal
+    paused = [(s["attrs"]["rid"], s["attrs"]["tokens"])
+              for e in engines.values() for s in e.tracer.snapshot()
+              if s["name"] == "serve.request"
+              and s["attrs"].get("finish_reason") == "preempted"]
+    short = [rid for rid, r in reqs.items()
+             if len(results[rid]["tokens"]) != r.max_new_tokens]
+    lost = [rid for rid, n in paused if n and not results[rid].get("resumed")]
+    if (any(len(v) != 1 for v in placed.values()) or hits < 12
+            or preempted < 4 or len(paused) != preempted or short or lost):
+        raise RuntimeError(
+            f"fleet router slice: group placement {placed}, prefix hits "
+            f"{hits} (want >= 12), preempted {preempted} (want >= 4; "
+            f"{len(paused)} preempted roots), streams short of their length "
+            f"{short}, preempted streams not resumed {lost}")
+
+    # resumed streams against the same requests run uninterrupted
+    ref = ServingEngine(model, EngineConfig(
+        max_batch=8, max_seq=2048, block_size=16, admit_burst=0, max_loras=2,
+        lora_rank=8), device="cuda")
+    for a_name, (a, b) in adapters.items():
+        ref.register_adapter(a_name, a, b)
+    ref.capture_logits = True
+    want = {c.rid: c.tokens for c in ref.run(
+        [Request(rid, list(reqs[rid].prompt), reqs[rid].max_new_tokens,
+                 adapter=reqs[rid].adapter) for rid in resumed])}
+    worst, agreed = 0.0, []
+    for rid, toks in want.items():
+        rows = shared_log[rid]
+        agree = _greedy_prefix(results[rid]["tokens"], toks)
+        agreed.append(agree)
+        for i in range(min(agree + 1, len(rows), len(ref.logit_log[rid]))):
+            worst = max(worst, logit_gate(ref.logit_log[rid][i],
+                                          rows[i])["max_rel_err"])
+    if not worst < ROUTE_GATE_REL:
+        raise RuntimeError(f"fleet router slice: resumed streams' logits "
+                           f"against uninterrupted runs: max rel err "
+                           f"{worst:.4f} (tol {ROUTE_GATE_REL})")
+    del ref
+
+    # adapter streams: first logits = a base pass + the plain delta
+    lora_worst = 0.0
+    eng0 = engines[names[0]]
+    for rid, r in reqs.items():
+        if not r.adapter:
+            continue
+        plen = len(r.prompt)
+        ids = torch.zeros((1, eng0._bucket_for(plen)), dtype=torch.long,
+                          device="cuda")
+        ids[0, :plen] = torch.tensor(r.prompt, device="cuda")
+        with torch.inference_mode():
+            hidden = model(ids, return_hidden=True)[0, plen - 1].float()
+            base_row = model._head(hidden[None])[0]
+            a, b = (torch.from_numpy(t).cuda() for t in adapters[r.adapter])
+            ref_row = (base_row + (hidden @ a) @ b).cpu().numpy()
+        got_row = shared_log[rid][0]
+        excess = (np.abs(got_row - ref_row)
+                  - (BF16_ATOL + BF16_RTOL * np.abs(ref_row))).max()
+        lora_worst = max(lora_worst, float(np.abs(got_row - ref_row).max()))
+        if excess > 0:
+            raise RuntimeError(f"fleet router slice: {rid}'s first logits "
+                               f"outside the bf16 rule by {excess:.3e}")
+    swap["install_s"] = swaps
+    _router_report(engines, results, reqs, submits, installs, wire, stats,
+                   swap, pre, peak, hits, preempted, paused, resumed, worst,
+                   agreed, lora_worst, launches)
+    tput = _fleet_throughput(torch, router, model, econf, vocab, adapters)
+    for rep in router.replicas:
+        rep.close()
+    # the engines' wrapped submit and install close over the engines
+    del router, engines, eng0, pre, shared_log
+    gc.collect()
+    torch.cuda.empty_cache()
+    audit = _audit_run(torch, model)
+    log(f"fleet router slice: tokens/s {tput}")
+    return {"traffic": launches, "audit": audit}
+
+
+def _router_traffic(router, engines, names, weights, vocab):
+    """The slice's traffic (see ``fleet_router_slice_phase``); returns the
+    router's answers by rid, the bronze requests' prompt groups, every
+    request by rid, and the swap's result and time."""
+    import numpy as np
+
+    from move2kube_tpu_torch import Request, reset_launch_counts
+
+    srng = np.random.default_rng(3)
+    systems = [srng.integers(1, vocab, size=512).tolist() for _ in range(4)]
+    tails = srng.integers(1, 25, size=16)
+    order = _balanced_groups(systems, names, 8)
+    reqs, groups = {}, {}
+    for i, g in enumerate(order):
+        rid = f"bronze{i}"
+        groups[rid] = g
+        reqs[rid] = Request(rid, systems[g] + srng.integers(
+            1, vocab, size=int(tails[i])).tolist(), 64, tenant="bronze")
+    grng = np.random.default_rng(4)
+    gold = [Request(f"gold{i}", grng.integers(1, vocab, size=int(n)).tolist(),
+                    32, tenant="gold")
+            for i, n in enumerate(grng.integers(64, 257, size=4))]
+    lrng = np.random.default_rng(5)
+    lora = [Request(f"lora{i}", lrng.integers(1, vocab, size=int(n)).tolist(),
+                    32, adapter=("lora-a", "lora-b")[i % 2])
+            for i, n in enumerate(lrng.integers(64, 193, size=4))]
+    drng = np.random.default_rng(6)
+    dis = [Request(f"disagg{i}", drng.integers(1, vocab,
+                                                size=int(n)).tolist(), 32)
+           for i, n in enumerate(drng.integers(1024, 1537, size=2))]
+    for r in gold + lora + dis:
+        reqs[r.rid] = r
+    results, errors = {}, []
+
+    def send(r):
+        kw = {"tenant": r.tenant} if r.tenant else {}
+        if r.adapter:
+            kw["adapter"] = r.adapter
+        return _client(router, results, errors, r.rid, r.prompt,
+                       r.max_new_tokens, **kw)
+
+    def queued(rid):
+        return any(r.rid == rid for e in engines.values()
+                   for r in list(e._pending))
+
+    reset_launch_counts()
+    bronze = [send(reqs[f"bronze{i}"]) for i in range(16)]
+    _wait_for(lambda: all(e.stats()["decode_steps"] >= 16
+                          for e in engines.values()),
+              "16 decode steps on each replica")
+    # the gold requests reach full replicas with nothing queued ahead of
+    # them: the replicas' step threads stop (each after its step) while
+    # the gold requests queue, then start again. Otherwise a preempted
+    # stream's resume, queued first, holds the head of the queue (it
+    # cannot preempt) and the next gold request waits behind it
+    for rep in router.replicas:
+        rep.close()
+    gold_t = [send(r) for r in gold]
+    _wait_for(lambda: all(queued(r.rid) for r in gold),
+              "the gold requests to queue")
+    for rep in router.replicas:
+        rep.revive()
+    _wait_for(lambda: not any(queued(r.rid) for r in gold),
+              "the gold requests' admission")
+    rest = [send(r) for r in lora + dis]
+    _join(gold_t, "fleet router slice gold")
+    t0 = time.perf_counter()
+    swap = router.swap(variables=weights)
+    swap["seconds"] = time.perf_counter() - t0
+    _join(bronze + rest, "fleet router slice")
+    if errors:
+        raise RuntimeError(f"fleet router slice: {errors}")
+    if swap["swapped"] != 2 or swap["weights_version"] != 2:
+        raise RuntimeError(f"fleet router slice: swap {swap}")
+    return results, groups, reqs, swap
+
+
+def _router_report(engines, results, reqs, submits, installs, wire, stats,
+                   swap, pre, peak, hits, preempted, paused, resumed, worst,
+                   agreed, lora_worst, launches) -> None:
+    """Print the slice's numbers: TTFT by tenant and route, the handoffs,
+    preemptions and resume times, the swap, memory."""
+    import numpy as np
+
+    roots = []
+    for eng in engines.values():
+        roots += [s for s in eng.tracer.snapshot()
+                  if s["name"] == "serve.request"]
+    roots.sort(key=lambda s: s["ts_unix"])
+    first_ttft, resume_ttft = {}, []
+    for s in roots:
+        rid, ttft = s["attrs"]["rid"], s["attrs"].get("ttft_s")
+        if ttft is None:
+            continue
+        if rid in first_ttft:
+            resume_ttft.append(ttft)
+        else:
+            first_ttft[rid] = ttft
+    by_tenant = {}
+    for rid, r in reqs.items():
+        if rid in first_ttft:
+            key = r.tenant or ("adapter" if r.adapter else "default")
+            by_tenant.setdefault(key, []).append(first_ttft[rid])
+    parts = [f"{k} ({len(v)}): p50 {_pctl(v, 50):.1f} p95 "
+             f"{_pctl(v, 95):.1f} ms" for k, v in sorted(by_tenant.items())]
+    dis = [rid for rid in reqs if rid.startswith("disagg")]
+    dis_ttft = [(installs[rid][2] - results[rid]["t_start"]) * 1e3
+                for rid in dis if rid in installs]
+    enc = ", ".join(f"{rid} bucket {bk}: {n / 1e6:.1f} MB in {dt:.3f} s"
+                    for rid, n, bk, dt in wire["encode"])
+    dec = ", ".join(f"{dt:.3f} s" for _, dt in wire["decode"])
+    inst = ", ".join(f"{(installs[r][2] - installs[r][1]) * 1e3:.1f} ms"
+                     for r in dis if r in installs)
+    log(f"fleet router slice: llama_8b bf16, 2 replicas x max_batch 8 on one"
+        f" card sharing the weights, + 1 prefill replica; {len(reqs)} "
+        f"requests; TTFT by tenant (first admission): {'; '.join(parts)}; "
+        f"disagg route TTFT (to the install) "
+        f"{', '.join(f'{t:.1f}' for t in dis_ttft)} ms")
+    log(f"fleet router slice: disagg handoffs: encode {enc}; decode {dec}; "
+        f"install {inst}; prefill replica {pre.stats()['prefills']} prefills "
+        f"in {pre.stats()['prefill_time_s']:.3f} s")
+    per_replica = ", ".join(f"{n} {st['preempted']}"
+                            for n, st in stats.items())
+    steps = ", ".join(
+        f"{n} {st['decode_time_s'] / max(1, st['decode_steps']) * 1e3:.2f} "
+        f"ms/step over {st['decode_steps']} steps"
+        for n, st in stats.items())
+    resume = (f"p50 {_pctl(resume_ttft, 50):.1f} p95 "
+              f"{_pctl(resume_ttft, 95):.1f} ms" if resume_ttft else "none")
+    log(f"fleet router slice: preempted {preempted} times ({per_replica}; "
+        f"after {sorted(n for _, n in paused)} tokens); {len(resumed)} "
+        f"streams resubmitted, every one completed to its full length; "
+        f"resume TTFT {resume} over {len(resume_ttft)} resumes; "
+        f"resumed streams against uninterrupted runs: max rel logit err "
+        f"{worst:.4f} (tol {ROUTE_GATE_REL}), streams agree for {agreed} "
+        f"tokens; prefix hits {hits}; adapter streams' first logits vs a "
+        f"base pass + the plain delta: max abs err {lora_worst:.3e}")
+    own = ", ".join(f"{n} {t * 1e3:.1f} ms"
+                    for n, t in sorted(swap["install_s"].items()))
+    log(f"fleet router slice: swap of the same weights {swap['seconds']:.3f}"
+        f" s for {swap['swapped']} replicas (version "
+        f"{swap['weights_version']}; install_weights itself {own}, the rest "
+        f"the wait for each replica's step lock); peak memory {peak:.2f} "
+        f"GiB; decode "
+        f"{steps}; launches {launches}")
+
+
+def _fleet_throughput(torch, router, model, econf, vocab,
+                      adapters) -> str:
+    """The fleet's tokens/s (16 requests through the router at once, 8 on
+    each replica by its placement, each replica's thread stepping its
+    engine) against one replica's (one replica's 8 on a lone engine):
+    128-token prompts drawn from seed 7, 64 new tokens. Then what the
+    LoRA delta costs a decode step: one profiled step at 8 of 8 slots, 4
+    of them under an adapter, beside the same step on an engine with no
+    adapters."""
+    import numpy as np
+
+    from move2kube_tpu_torch import Request, ServingEngine
+    from move2kube_tpu_torch.serving.fleet.router import (
+        _rendezvous_score,
+        prefix_hash,
+    )
+
+    names = [r.name for r in router.replicas]
+    rng = np.random.default_rng(7)
+    placed = {n: [] for n in names}
+    while min(len(v) for v in placed.values()) < 8:
+        p = rng.integers(1, vocab, size=128).tolist()
+        key = prefix_hash(p, "", 16)
+        owner = max(names, key=lambda n: _rendezvous_score(key, n))
+        if len(placed[owner]) < 8:
+            placed[owner].append(p)
+    before = {r.name: r.engine.stats() for r in router.replicas}
+    results, errors = {}, []
+    t0 = time.perf_counter()
+    threads = [_client(router, results, errors, f"tput{n}{i}", p, 64)
+               for n in names for i, p in enumerate(placed[n])]
+    _join(threads, "fleet throughput")
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    split = {}
+    for out in results.values():
+        split[out["replica"]] = split.get(out["replica"], 0) + 1
+    steps = []
+    for r in router.replicas:
+        st, st0 = r.engine.stats(), before[r.name]
+        n = st["decode_steps"] - st0["decode_steps"]
+        dt = st["decode_time_s"] - st0["decode_time_s"]
+        steps.append(f"{r.name} {dt / max(1, n) * 1e3:.2f} ms/step over {n}")
+    eng = ServingEngine(model, econf, device="cuda")
+    t0 = time.perf_counter()
+    done = eng.run([Request(f"one{i}", list(p), 64)
+                    for i, p in enumerate(placed[names[0]])])
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one_step = eng.stats()["decode_time_s"] / eng.stats()["decode_steps"]
+    if errors or len(results) != 16 or len(done) != 8:
+        raise RuntimeError(f"fleet throughput: {errors}")
+    fleet = 16 * 64 / fleet_wall
+    one = 8 * 64 / one_wall
+    out = (f"fleet {fleet:.1f} (16 x 64 tokens in {fleet_wall:.3f} s, split "
+           f"{split}; {', '.join(steps)}) against one replica's {one:.1f} "
+           f"(8 x 64 in {one_wall:.3f} s, {one_step * 1e3:.2f} ms/step): "
+           f"{fleet / one:.3f}x")
+    del eng
+    # the LoRA delta in a decode step: 8 rows, 4 under an adapter
+    busy = {}
+    for label, lora in (("4 of 8 rows under an adapter", True),
+                        ("no adapters", False)):
+        e = ServingEngine(model, dataclasses.replace(
+            econf, admit_burst=0, max_loras=2 if lora else 0), device="cuda")
+        if lora:
+            for a_name, (a, b) in adapters.items():
+                e.register_adapter(a_name, a, b)
+        for i, p in enumerate(placed[names[1]]):
+            e.submit(Request(f"l{i}", list(p), 16,
+                             adapter="lora-a" if lora and i % 2 else ""))
+        e.step()  # admits the 8 (prefills) and decodes
+        busy[lora] = _profiled(torch, f"one decode step at 8 of 8 slots, "
+                               f"{label}", e.step)
+        del e
+    return out + (f"; a decode step's device busy time with 4 adapter rows "
+                  f"{busy[True]:.3f} ms, without {busy[False]:.3f} ms")
+
+
+def _audit_run(torch, model) -> dict:
+    """An int8-kv engine on the bf16 model with ``quant_audit_rate=0.5``
+    over 4 cold prefills: exactly 2 audits, drift under QUANT_GATE_REL,
+    and ``paged_decode_int8`` and the audits' ``flash_fwd`` in its
+    launches, exactly as its passes imply."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        reset_launch_counts,
+    )
+
+    econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16,
+                         quant="int8-kv", quant_audit_rate=0.5)
+    eng = ServingEngine(model, econf, device="cuda")
+    rng = np.random.default_rng(8)
+    reqs = [Request(f"q{i}", rng.integers(1, model.cfg.vocab_size,
+                                          size=int(n)).tolist(), 8)
+            for i, n in enumerate(rng.integers(128, 513, size=4))]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    st = eng.stats()
+    _check_launches("audit run", launches, _want_launches(
+        [(st, model.cfg.num_layers, 0)], paged="paged_decode_int8"))
+    if not (st["quant_audits"] == 2 and st["passes"]["audit"] == 2
+            and st["quant_drift_max_rel"] < QUANT_GATE_REL
+            and launches["paged_decode_int8"] > 0):
+        raise RuntimeError(f"audit run: audits {st['quant_audits']}, passes "
+                           f"{st['passes']}, drift max "
+                           f"{st['quant_drift_max_rel']} (tol "
+                           f"{QUANT_GATE_REL})")
+    log(f"audit run: llama_8b int8-kv, quant_audit_rate 0.5, 4 cold "
+        f"prefills of {[len(r.prompt) for r in reqs]} tokens: "
+        f"{st['quant_audits']} audits through the bf16 model, drift last "
+        f"{st['quant_drift_last_rel']:.4f} max {st['quant_drift_max_rel']:.4f}"
+        f" (gate {QUANT_GATE_REL}); wall {wall:.3f} s; launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _train_run(torch, cfg, policy_name, batches, remat=True,
                first_grads=None):
     """Steps of the LM train step on fresh fp32 master weights drawn from
@@ -1875,10 +2707,20 @@ def main() -> int:
     t_fleet = time.perf_counter()
     fleet_parity_phase(torch)
     fleet_paged = fleet_slice_phase(torch, model)
-    del model
-    torch.cuda.empty_cache()
     log(f"fleet phases: {time.perf_counter() - t_fleet:.1f} s; the fleet "
         f"slice's three runs launched paged_decode {fleet_paged} times")
+    t_router = time.perf_counter()
+    fleet_router_parity_phase(torch)
+    router = fleet_router_slice_phase(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    log(f"fleet router phases: {time.perf_counter() - t_router:.1f} s")
+    # the main path's launches: the serving slices, and the fleet's
+    # traffic and quant audit run at full depth
+    for name, n in router["traffic"].items():
+        launches[name] += n
+    for name, n in router["audit"].items():
+        (int8_launches if name == "paged_decode_int8" else launches)[name] += n
     train_parity_phase(torch)
     train_launches = train_slice_phase(torch)
     main_flash = flash_rows[-1]  # s=2048, the longest prefill bucket

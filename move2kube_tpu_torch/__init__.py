@@ -5,11 +5,15 @@ model (:mod:`.models.llama`), its weights (:mod:`.models.convert`), the
 paged KV cache (:mod:`.serving.kvcache`) and the continuous-batching
 engine (:mod:`.serving.engine`) with its prefix cache
 (:mod:`.serving.prefixcache`), speculative decoding, chunked prefill,
-drain and deadlines, its metrics registry, request tracing and SLO ledger
-(:mod:`.obs`). int8 serving: the quant policies, int8 weights dequantized
-inside each step (:mod:`.serving.quant`) and the int8 paged KV cache with
-per-row scales. Training: the
-single-device Llama LM step (:mod:`.models.train`) with fp32 master
+drain and deadlines, priority preemption and multi-LoRA
+(:mod:`.serving.sched`), the live weight swap, the quant-drift audit and
+the install of a prefill done elsewhere, its metrics registry, request
+tracing and SLO ledger (:mod:`.obs`). The fleet (:mod:`.serving.fleet`):
+the router over in-process replicas (:func:`build_fleet`), disaggregated
+prefill, the weight plane and the chaos injectors. int8 serving: the
+quant policies, int8 weights dequantized inside each step
+(:mod:`.serving.quant`) and the int8 paged KV cache with per-row scales.
+Training: the single-device Llama LM step (:mod:`.models.train`) with fp32 master
 weights, the precision policies (:mod:`.models.precision`) and the
 head-folded chunked cross-entropy (:mod:`.ops.crossentropy`). Attention
 runs in hand-written CUDA kernels (:mod:`.ops.attention`): the flash
@@ -66,6 +70,22 @@ from move2kube_tpu_torch.serving.engine import (
     Request,
     ServingEngine,
 )
+from move2kube_tpu_torch.serving.fleet.disagg import (
+    DisaggPair,
+    KVHandoff,
+    PrefillReplica,
+)
+from move2kube_tpu_torch.serving.fleet.router import (
+    InProcessReplica,
+    Router,
+    RouterConfig,
+    RouterHTTPServer,
+    build_fleet,
+)
+from move2kube_tpu_torch.serving.fleet.weights import (
+    WeightPlane,
+    fetch_from_peers,
+)
 from move2kube_tpu_torch.serving.prefixcache import PrefixCache, PrefixHit
 from move2kube_tpu_torch.serving.quant import (
     QUANT_OPTIONS,
@@ -77,18 +97,29 @@ from move2kube_tpu_torch.serving.quant import (
     param_bytes,
     quantize_model,
 )
+from move2kube_tpu_torch.serving.sched import (
+    AdapterStore,
+    AdmissionController,
+    SchedThrottled,
+)
 
 __all__ = [
+    "AdapterStore",
+    "AdmissionController",
     "Completion",
     "DeadlineExceeded",
+    "DisaggPair",
     "EngineConfig",
     "EngineDraining",
     "FlashAttention",
+    "InProcessReplica",
     "KERNELS",
+    "KVHandoff",
     "Llama",
     "LlamaConfig",
     "Optimizer",
     "PrecisionPolicy",
+    "PrefillReplica",
     "PrefixCache",
     "PrefixHit",
     "QUANT_OPTIONS",
@@ -96,17 +127,24 @@ __all__ = [
     "QuantPolicy",
     "Registry",
     "Request",
+    "Router",
+    "RouterConfig",
+    "RouterHTTPServer",
     "SLOSpec",
     "SLOTracker",
+    "SchedThrottled",
     "ServingEngine",
     "SpanRecorder",
     "TrainState",
+    "WeightPlane",
     "adam",
     "adamw",
+    "build_fleet",
     "default_optimizer",
     "default_registry",
     "draft_config",
     "draft_model_from",
+    "fetch_from_peers",
     "flash_attention",
     "from_env",
     "fused_cross_entropy",

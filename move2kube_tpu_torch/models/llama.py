@@ -23,9 +23,9 @@ Decode against the paged cache always goes through
 cache (one that carries ``k_scale``/``v_scale``) gets each new token's
 rows quantized, and its scales passed on. The projections may be the
 int8 layers of :func:`move2kube_tpu_torch.serving.quant.quantize_model`.
-MoE,
-ring and ulysses attention and the LoRA logit delta are not ported yet
-(ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
+The multi-LoRA logit delta (``lora=``) is added to the fp32 logits in
+every mode, as the JAX model adds it. MoE, ring and ulysses attention are
+not ported yet (ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -114,6 +114,20 @@ class RMSNorm(nn.Module):
         norm = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True)
                                  + self.eps)
         return (norm * self.scale).to(x.dtype)
+
+
+def _lora_delta(x32, lora):
+    """Per-row LoRA logit delta for the lm-head (the JAX model's
+    ``_lora_delta``): gather each batch row's A/B from the stacked
+    adapter store and apply ``x32·A·B``. ``x32`` is the fp32 pre-head
+    hidden ``[b, s, d]``, ``lora`` is ``(a_stack [rows, d, r], b_stack
+    [rows, r, vocab], rows [b])``; returns ``[b, s, vocab]``. Row 0 is
+    the all-zeros base-model adapter."""
+    a_stack, b_stack, rows = lora
+    av = a_stack[rows]   # [b, d, r]
+    bv = b_stack[rows]   # [b, r, vocab]
+    u = torch.einsum("bsd,bdr->bsr", x32, av)
+    return torch.einsum("bsr,brv->bsv", u, bv)
 
 
 def _dense_attention(q, k, v, mask):
@@ -239,12 +253,10 @@ class Llama(nn.Module):
           pages are written in place. Returns ``(logits [b,
           vocab], cache)``.
 
-        ``lora`` (the JAX model's multi-LoRA logit delta) is not ported.
+        ``lora`` is the multi-LoRA operand ``(a_stack, b_stack, rows)``
+        (:mod:`move2kube_tpu_torch.serving.sched.lora`): each batch row's
+        adapter delta is added to its fp32 logits, in every mode.
         """
-        if lora is not None:
-            raise NotImplementedError(
-                "the LoRA logit delta is not ported yet (ROADMAP.md Queue 1 "
-                "item 4, multi-LoRA)")
         if cache is not None:
             x = self.embed(input_ids[:, None])
             pos2d = positions[:, None]
@@ -255,7 +267,7 @@ class Llama(nn.Module):
                 layer_cache["seq_lens"] = cache["seq_lens"]
                 x, _ = layer(x, pos2d, None, cache=layer_cache)
             x = self.final_norm(x)
-            return self._head(x)[:, 0], cache
+            return self._head(x, lora)[:, 0], cache
         if remat and return_kv:
             raise ValueError("remat recomputes the blocks in the backward; "
                              "it does not return their K/V")
@@ -279,19 +291,24 @@ class Llama(nn.Module):
         x = self.final_norm(x)
         if return_hidden:
             return x
-        logits = self._head(x)
+        logits = self._head(x, lora)
         if return_kv:
             return logits, kvs
         return logits
 
-    def _head(self, x):
+    def _head(self, x, lora=None):
         """fp32 lm-head on the fp32 hidden state; a bf16 weight (the cast
         view in training) is widened first, as flax's ``Dense(dtype=
-        float32)`` does, and an int8 head is dequantized to fp32."""
+        float32)`` does, and an int8 head is dequantized to fp32. The
+        LoRA delta, when given, is added to the fp32 logits."""
         head = self.lm_head
         w = (head.dequantized() if isinstance(head, QuantLinear)
              else head.weight)
-        return F.linear(x.float(), w.float())
+        x32 = x.float()
+        logits = F.linear(x32, w.float())
+        if lora is not None:
+            logits = logits + _lora_delta(x32, lora)
+        return logits
 
 
 def _remat_block(layer, x, positions, mask):

@@ -24,6 +24,8 @@ import time
 from collections import deque
 
 TRACE_ENV = "M2KT_TRACE"
+# the W3C header a span's identity rides between processes
+TRACEPARENT_HEADER = "traceparent"
 RING_SECONDS_ENV = "M2KT_TRACE_RING_SECONDS"
 ROLE_ENV = "M2KT_FLEET_ROLE"
 

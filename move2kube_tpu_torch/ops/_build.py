@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -33,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # C types of the kernels' exported arguments
+# launches are counted from every thread that runs a pass (one engine per
+# fleet replica, each on its own step thread): the count is exact
+_COUNT_LOCK = threading.Lock()
+
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
@@ -124,7 +129,8 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.name}: kernel launch failed with CUDA error {rc} "
                 f"({msg})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
 
 
 def build_all(kernels) -> dict[str, str]:

@@ -49,16 +49,35 @@ The paths below add no kernel; each is a sequence of those passes:
   span per request (adopting the caller's ``traceparent``) with
   ``serve.*`` children timed by the step's own clock readings, and the
   per-tenant SLO ledger.
+- **Scheduler plane** (:mod:`.sched`): when the tenant spec ranks
+  tenants into distinct priority classes, an admission that finds no
+  free slot (or no free pages) preempts the lowest-priority, most
+  recently admitted slot. Its pages free at once and its Completion
+  carries ``finish_reason="preempted"``: the router resumes it
+  token-exactly by feeding the journal as part of the prompt.
+- **Multi-LoRA** (``max_loras`` > 0, :mod:`.sched.lora`): each slot's
+  adapter row rides every prefill, decode and chunk pass as the model's
+  ``lora=`` operand, a gather of the stacked A/B and two products added
+  to the fp32 logits (row 0 is the base model). Spec decode and LoRA
+  exclude each other.
+- **Live weight swap** (:meth:`ServingEngine.install_weights`) between
+  steps, validated before anything is installed; it rebinds this
+  engine's own modules and never writes into tensors it shares with the
+  caller or with sibling engines.
+- **Quant-drift audit** (``quant_audit_rate``): a deterministic share of
+  cold prefills is replayed through the retained fp model (one more
+  flash prefill, pass kind ``audit``) and the logit drift exported.
+- **Disaggregated prefill** (:meth:`ServingEngine.install_prefilled`):
+  a slot is seated from K/V prefilled elsewhere
+  (:mod:`move2kube_tpu_torch.serving.fleet.disagg`).
 
 Low-precision serving (``quant``, :mod:`.quant`): the engine quantizes
 the model's weights once, at construction (per-output-channel int8,
-dequantized inside each step), and keeps only the quantized copy;
-``int8-kv`` also stores the paged KV cache as int8 rows with per-row
-scales, which every page copy moves with the rows. Not ported yet
-(ROADMAP.md, Queue 1): the scheduler plane and priority preemption,
-multi-LoRA, the async decode pipeline, ``install_weights``, the
-quant-drift audit and ``install_prefilled``; their metric families are
-registered and stay at zero.
+dequantized inside each step), and keeps only the quantized copy (and
+the caller's fp model when it audits); ``int8-kv`` also stores the paged
+KV cache as int8 rows with per-row scales, which every page copy moves
+with the rows. Not ported yet (ROADMAP.md, Queue 1 item 4h): the async
+decode pipeline; its gauge is registered and stays at zero.
 
 Env knobs (the JAX engine's names):
 
@@ -78,10 +97,20 @@ Env knobs (the JAX engine's names):
   (default 0)
 - ``M2KT_SCHED_CHUNK_PREFILL`` chunk size of chunked prefill; 0 disables
   (default 0)
+- ``M2KT_SCHED_TENANTS``    scheduler tenant spec; priorities drive
+  preemption here, quotas are enforced at the router (default empty =
+  never preempt); ``M2KT_SCHED_PRIORITIES`` and ``M2KT_SCHED_QUOTAS``
+  are its split forms
+- ``M2KT_SCHED_MAX_LORAS``  resident LoRA adapter rows; 0 disables
+  (default 0)
+- ``M2KT_LORA_RANK``        max adapter rank the stacks hold (default 8)
+- ``M2KT_QUANT_AUDIT_RATE`` share of cold prefills audited against the
+  fp weights under a weight-quantizing policy (default 0)
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -92,10 +121,12 @@ import numpy as np
 import torch
 
 from move2kube_tpu_torch._device import resolve_device
+from move2kube_tpu_torch.obs import numerics as numericslib
 from move2kube_tpu_torch.obs import slo as slolib
 from move2kube_tpu_torch.obs import tracing
 from move2kube_tpu_torch.obs.metrics import Registry
 from move2kube_tpu_torch.serving import quant as quantlib
+from move2kube_tpu_torch.serving import sched as schedlib
 from move2kube_tpu_torch.serving.kvcache import (
     NULL_PAGE,
     PAGE_KEYS,
@@ -121,10 +152,10 @@ LENGTH_BUCKETS = (16.0, 32.0, 64.0, 128.0, 256.0, 512.0, 1024.0,
                   2048.0, 4096.0)
 
 # the model passes the engine runs, by kind: each launches one attention
-# kernel per layer of the model it runs (flash for the prefills, paged
-# decode for every single-token pass)
+# kernel per layer of the model it runs (flash for the prefills and the
+# quant audit's fp forward, paged decode for every single-token pass)
 PASS_KINDS = ("prefill", "decode", "verify", "chunk", "draft_prefill",
-              "draft_decode")
+              "draft_decode", "audit")
 
 
 def _default_buckets(max_seq: int) -> tuple[int, ...]:
@@ -148,6 +179,10 @@ class EngineConfig:
     prefix_cache: bool = False
     prefix_max_suffix: int = 0  # 0 -> 2 * block_size
     quant: str = "off"         # off | int8 | int8-kv (serving/quant.py)
+    # quant-drift audit: share of cold admissions whose prefill is re-run
+    # through the retained fp model, exporting the max-rel logit error as
+    # m2kt_serve_quant_drift. 0 = off, no fp model kept
+    quant_audit_rate: float = 0.0
     spec_k: int = 0            # draft proposals per step; 0 = no spec decode
     # draft depth divisor: num_layers // factor layers (1 = full-depth
     # draft, acceptance 1.0)
@@ -162,6 +197,16 @@ class EngineConfig:
     # fleet_slice_phase and the serving profile). Leave it off on the card
     # until the single-token pass runs as a CUDA graph.
     chunk_prefill: int = 0
+    # scheduler plane (serving/sched): the combined tenant spec plus the
+    # split forms, merged at construction. Priorities order preemption
+    # in the engine; quotas only bite at the router
+    sched_tenants: str = ""
+    sched_priorities: str = ""
+    sched_quotas: str = ""
+    # multi-LoRA: resident adapter rows (0 = off) and the max rank the
+    # stacked A/B weights hold
+    max_loras: int = 0
+    lora_rank: int = 8
 
     def resolved_buckets(self) -> tuple[int, ...]:
         buckets = self.buckets or _default_buckets(self.max_seq)
@@ -197,9 +242,20 @@ class EngineConfig:
                                    cls.prefix_max_suffix),
             quant=(lambda q: q if q in quantlib.QUANT_OPTIONS else "off")(
                 os.environ.get("M2KT_SERVE_QUANT", "") or cls.quant),
+            quant_audit_rate=numericslib.audit_rate(),
             spec_k=max(0, _int("M2KT_SPEC_K", cls.spec_k)),
             chunk_prefill=max(0, _int("M2KT_SCHED_CHUNK_PREFILL",
                                       cls.chunk_prefill)),
+            # a bad value warns inside the spec parser; it never takes
+            # the engine down
+            sched_tenants=os.environ.get("M2KT_SCHED_TENANTS",
+                                         cls.sched_tenants),
+            sched_priorities=os.environ.get("M2KT_SCHED_PRIORITIES",
+                                            cls.sched_priorities),
+            sched_quotas=os.environ.get("M2KT_SCHED_QUOTAS",
+                                        cls.sched_quotas),
+            max_loras=max(0, _int("M2KT_SCHED_MAX_LORAS", cls.max_loras)),
+            lora_rank=max(1, _int("M2KT_LORA_RANK", cls.lora_rank)),
         )
         cfg.update(overrides)
         return cls(**cfg)
@@ -232,6 +288,9 @@ class Request:
     # Admission refuses requests that cannot finish inside it, and queued
     # requests that expire before a slot frees complete "shed"
     deadline_s: float | None = None
+    # named LoRA adapter to decode under ("" = base model); must be
+    # registered in the engine's adapter store or submit rejects
+    adapter: str = ""
 
 
 @dataclasses.dataclass
@@ -239,7 +298,13 @@ class Completion:
     rid: str
     prompt_len: int
     tokens: list[int]
-    finish_reason: str  # "eos" | "length" | "shed"
+    # "eos" | "length" | "shed" | "preempted": preempted is paused work,
+    # not failure; the router resumes it token-exactly from its journal
+    # (the tokens so far already rode on_token)
+    finish_reason: str
+    # the engine's weight generation at release time: a stream that rode
+    # across a live swap finishes stamped with the new version
+    weights_version: int = 0
 
 
 @dataclasses.dataclass
@@ -253,6 +318,12 @@ class _Slot:
     # token per decode step; argmax output is discarded until empty
     pending: list[int] = dataclasses.field(default_factory=list)
     prefix_hit: bool = False
+    # scheduler plane: admission order and priority class (preemption
+    # picks the lowest class, most recent seq), and the slot's row in the
+    # adapter store
+    seq: int = 0
+    priority: int = 1
+    adapter_row: int = 0
     # a chunking slot is excluded from decode until its whole prompt
     # has landed
     chunking: bool = False
@@ -272,7 +343,8 @@ class ServingEngine:
     modes). The KV cache lives on ``device`` (the card by default), which
     must be where the model's parameters are. Under a quant policy that
     quantizes weights, ``self.model`` is the engine's quantized copy
-    (:func:`~.quant.quantize_model`); the caller's model is not kept.
+    (:func:`~.quant.quantize_model`); the caller's model is kept only as
+    the quant audit's fp reference (``quant_audit_rate`` > 0).
 
     ``registry`` receives the engine's metric families (a private
     :class:`~move2kube_tpu_torch.obs.metrics.Registry` by default, so
@@ -292,9 +364,21 @@ class ServingEngine:
                              f"engine's device is {self.device}")
         self.config = config or EngineConfig.from_env()
         self.quant = quantlib.policy(self.config.quant)
+        # quant-drift auditor: keep the caller's fp model so a share of
+        # cold prefills can be replayed through it. Only when quantizing
+        # and auditing: the fp weights stay resident beside the int8 ones
+        self._audit_rate = (max(0.0, min(1.0, self.config.quant_audit_rate))
+                            if self.quant.quantize_weights else 0.0)
+        self._audit_model = model if self._audit_rate else None
+        self._audit_accum = 0.0    # deterministic rate accumulator
+        self._drift_last = 0.0
+        self._drift_max = 0.0
         if self.quant.quantize_weights:
             model = quantlib.quantize_model(model)
         self.model = model
+        # weight generation: bumped by install_weights (live swap);
+        # stamped into completions, spans and m2kt_weights_version
+        self.weights_version = 1
         self.buckets = self.config.resolved_buckets()
         self.cache_cfg = spec_for_model(
             model.cfg, block_size=self.config.block_size,
@@ -304,7 +388,31 @@ class ServingEngine:
         self._allocator = PageAllocator(self.cache_cfg.num_pages)
         self._slots: list[_Slot | None] = [None] * self.config.max_batch
         self._pending: deque[Request] = deque()
+        # scheduler plane: tenant policies shared with the router;
+        # priorities order preemption here, quotas bite at the router
+        self.sched = schedlib.AdmissionController.from_specs(
+            self.config.sched_tenants, self.config.sched_priorities,
+            self.config.sched_quotas)
+        self._preempt_enabled = self.sched.distinct_priorities()
+        self._admit_seq = 0
+        self._preempt_count = 0
         self.spec_k = max(0, self.config.spec_k)
+        # multi-LoRA excludes spec decode: the draft shares the target's
+        # head, and a proposer blind to the adapter would collapse
+        # acceptance anyway
+        self.max_loras = max(0, self.config.max_loras)
+        if self.max_loras and self.spec_k:
+            print("[m2kt] WARNING: M2KT_SCHED_MAX_LORAS is incompatible "
+                  "with spec decode (M2KT_SPEC_K); disabling multi-LoRA",
+                  flush=True)
+            self.max_loras = 0
+        self.adapters: schedlib.AdapterStore | None = None
+        if self.max_loras:
+            self.adapters = schedlib.AdapterStore(
+                d_model=model.cfg.d_model, vocab=model.cfg.vocab_size,
+                rank=max(1, self.config.lora_rank),
+                max_loras=self.max_loras, device=model_dev)
+        self._req_adapter: dict[str, int] = {}
         # chunked prefill: spec decode keeps its own window discipline
         # and opts out
         self.chunk_prefill = max(0, self.config.chunk_prefill)
@@ -328,6 +436,7 @@ class ServingEngine:
         if self.spec_k:
             draft_cfg = quantlib.draft_config(
                 model.cfg, self.config.spec_draft_factor)
+            self._draft_cfg = draft_cfg
             self._draft_model = quantlib.draft_model_from(model, draft_cfg)
             self._draft_cache = init_cache(dataclasses.replace(
                 self.cache_cfg, num_layers=draft_cfg.num_layers), model_dev)
@@ -369,8 +478,7 @@ class ServingEngine:
     def _init_metrics(self) -> None:
         """The reference's families (``move2kube_tpu/serving/engine.py``
         ``_init_metrics``), same names, help, labels and buckets. The
-        ones whose writers are not ported (preemption, the quant audit,
-        the weights version, async windows) stay at zero."""
+        async pipeline's gauge (not ported) stays at zero."""
         reg = self.registry
         self._lat_hist = reg.histogram(
             "m2kt_serve_token_latency_seconds",
@@ -421,7 +529,7 @@ class ServingEngine:
         self._prefix_pages = reg.gauge(
             "m2kt_serve_prefix_cache_pages",
             "KV pages currently pinned by the prefix cache")
-        reg.counter(
+        self._sched_preempted = reg.counter(
             "m2kt_sched_preempted_total",
             "Slots evicted by the scheduler as paused work (the router "
             "journal resumes them token-exactly)", labels=("reason",))
@@ -469,16 +577,17 @@ class ServingEngine:
             "m2kt_serve_quant_mode",
             "Serving quant policy (0=off, 1=int8, 2=int8-kv)")
         self._quant_mode.set(quantlib.QUANT_OPTIONS.index(self.quant.name))
-        reg.gauge(
+        self._quant_drift = reg.gauge(
             "m2kt_serve_quant_drift",
             "Max-rel logit error of the last audited prefill vs the fp "
             "reference weights (0 until a request is audited)")
-        reg.counter(
+        self._quant_audits = reg.counter(
             "m2kt_serve_quant_audit_total",
             "Cold admissions replayed through the fp reference path")
-        reg.gauge(
+        self._weights_version_gauge = reg.gauge(
             "m2kt_weights_version",
             "Weight generation currently installed in the engine")
+        self._weights_version_gauge.set(self.weights_version)
         self._dispatch_gap = reg.histogram(
             "m2kt_serve_dispatch_gap_seconds",
             "Host time between consuming decode step k and dispatching "
@@ -488,9 +597,10 @@ class ServingEngine:
             "m2kt_serve_host_overhead_ratio",
             "Fraction of serving wall time the device spent starved on "
             "the host: dispatch gaps / (gaps + device-busy time)")
+        # the synchronous loop never has a window in flight
         reg.gauge(
             "m2kt_serve_inflight_windows",
-            "Async decode windows dispatched but not yet consumed")
+            "Async decode windows dispatched but not yet consumed").set(0)
         self._total_pages = max(1, self.cache_cfg.num_pages - 1)
         # /metrics re-renders gauges from the host-side snapshot taken at
         # the last step-sync point: a scrape never reads a device tensor
@@ -556,16 +666,30 @@ class ServingEngine:
     # device passes
     # ------------------------------------------------------------------
 
+    def _lora_args(self, rows=None):
+        """The model's ``lora=`` operand when multi-LoRA is on: the
+        stacked A/B adapter weights plus each row's adapter (every slot's
+        by default). None when the engine serves no adapters."""
+        if not self.max_loras:
+            return None
+        a, b = self.adapters.stacks()
+        if rows is None:
+            rows = [s.adapter_row if s is not None else 0
+                    for s in self._slots]
+        return a, b, torch.tensor(rows, dtype=torch.long, device=a.device)
+
     @torch.inference_mode()
     def _prefill(self, ids: torch.Tensor, bt_row: torch.Tensor, slot: int,
-                 plen: int, draft: bool = False) -> torch.Tensor:
+                 plen: int, draft: bool = False,
+                 adapter_row: int = 0) -> torch.Tensor:
         """One bucketed prefill of the target (or the draft, into its own
         pools): K/V scattered into the slot's pages; returns the logits
-        ``[bucket, vocab]``."""
+        ``[bucket, vocab]`` (with the adapter's delta under LoRA)."""
         model = self._draft_model if draft else self.model
         cache = self._draft_cache if draft else self._cache
         self._passes["draft_prefill" if draft else "prefill"] += 1
-        logits, kvs = model(ids, return_kv=True)
+        lora = None if draft else self._lora_args(rows=[adapter_row])
+        logits, kvs = model(ids, return_kv=True, lora=lora)
         scatter_prefill(cache, kvs, slot, bt_row, plen,
                         self.cache_cfg.block_size)
         return logits[0]
@@ -582,13 +706,14 @@ class ServingEngine:
         # sanitize freed/idle slots: their stale tables must not write
         # into pages the allocator may have handed to someone else
         bt, pos = sanitized_views(cache, active)
-        logits = self._pass(model, cache, tokens, pos, bt)
+        logits = self._pass(model, cache, tokens, pos, bt,
+                            None if draft else self._lora_args())
         cache["seq_lens"] += active.to(torch.int32)
         return logits, torch.argmax(logits, dim=-1)
 
     @staticmethod
     def _pass(model, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
-              bt: torch.Tensor) -> torch.Tensor:
+              bt: torch.Tensor, lora=None) -> torch.Tensor:
         """One single-token pass over ``cache``'s pages: row i consumes
         ``tokens[i]`` at position ``pos[i]`` through table ``bt[i]``,
         writing its K/V there and attending to positions ``<= pos[i]``.
@@ -596,7 +721,8 @@ class ServingEngine:
         model_cache = {k: cache[k] for k in PAGE_KEYS if k in cache}
         model_cache["block_tables"] = bt
         model_cache["seq_lens"] = pos + 1
-        logits, _ = model(tokens, positions=pos, cache=model_cache)
+        logits, _ = model(tokens, positions=pos, cache=model_cache,
+                          lora=lora)
         return logits
 
     @torch.inference_mode()
@@ -629,11 +755,12 @@ class ServingEngine:
         pos = torch.arange(start, start + n, dtype=torch.int32,
                            device=self.device)
         bt = cache["block_tables"][slot:slot + 1]
+        lora = self._lora_args(rows=[self._slots[slot].adapter_row])
         logits = None
         for j in range(n):
             self._passes["chunk"] += 1
             logits = self._pass(self.model, cache, toks[j:j + 1],
-                                pos[j:j + 1], bt)
+                                pos[j:j + 1], bt, lora)
         cache["seq_lens"][slot] = start + n
         return logits[0]
 
@@ -679,6 +806,16 @@ class ServingEngine:
                 raise DeadlineExceeded(
                     f"{req.rid}: deadline {req.deadline_s:.3f}s {reason} "
                     f"for {max_new} new tokens")
+            if req.adapter:
+                if self.adapters is None:
+                    raise ValueError(
+                        f"{req.rid}: adapter {req.adapter!r} requested "
+                        "but the engine serves no adapters "
+                        "(M2KT_SCHED_MAX_LORAS=0)")
+                # refcounted row acquire (an unknown adapter raises): the
+                # store cannot drop the weights while this stream runs
+                self._req_adapter[req.rid] = self.adapters.acquire(
+                    req.adapter)
         except ValueError:
             self._rejected.inc()
             self._tenant_rejected.labels(tenant).inc()
@@ -733,6 +870,8 @@ class ServingEngine:
         self.slo.record(tenant, ok=False)
         self._submit_ts.pop(req.rid, None)
         self._deadline_abs.pop(req.rid, None)
+        if self.adapters is not None:
+            self.adapters.release(self._req_adapter.pop(req.rid, 0))
         self._completed.labels(reason="shed").inc()
         root = self._req_spans.pop(req.rid, None)
         if root is not None:
@@ -1041,19 +1180,26 @@ class ServingEngine:
         self._slots[slot_idx] = None
         self._completed.labels(reason=reason).inc()
         tenant = self._req_tenant.pop(rid, None) or "default"
-        self._tenant_prompt_tokens.labels(tenant).observe(
-            float(len(slot.req.prompt)))
-        self._tenant_decode_tokens.labels(tenant).observe(
-            float(len(slot.tokens)))
+        if reason != "preempted":
+            # a preempted stream resumes and releases again: recording it
+            # here would count the request's shape twice
+            self._tenant_prompt_tokens.labels(tenant).observe(
+                float(len(slot.req.prompt)))
+            self._tenant_decode_tokens.labels(tenant).observe(
+                float(len(slot.tokens)))
         self._deadline_abs.pop(rid, None)
         self._submit_ts.pop(rid, None)
+        if self.adapters is not None:
+            self.adapters.release(self._req_adapter.pop(rid, 0))
         root = self._req_spans.pop(rid, None)
         if root is not None:
-            self.tracer.end(root, attrs={"finish_reason": reason,
-                                         "tokens": len(slot.tokens)})
+            self.tracer.end(root, attrs={
+                "finish_reason": reason, "tokens": len(slot.tokens),
+                "weights_version": self.weights_version})
         self._update_occupancy()
         return Completion(rid=rid, prompt_len=len(slot.req.prompt),
-                          tokens=list(slot.tokens), finish_reason=reason)
+                          tokens=list(slot.tokens), finish_reason=reason,
+                          weights_version=self.weights_version)
 
     def _bucket_for(self, plen: int) -> int:
         for b in self.buckets:
@@ -1089,20 +1235,96 @@ class ServingEngine:
         chunked = self.chunk_prefill > 0 and plen > self.chunk_prefill
         if chunked and self._chunk_job is not None:
             return False, []  # one chunk job at a time; wait for it
+        pre: list[Completion] = []
         free = [i for i, s in enumerate(self._slots) if s is None]
         if not free:
-            return False, []
+            # under slot pressure a higher-priority tenant's request may
+            # evict the lowest-priority running stream (paused work, not
+            # failure: the router journal resumes it token-exactly)
+            victim = self._preempt_victim(req)
+            if victim is None:
+                return False, []
+            pre.append(self._preempt(victim, "slots"))
+            free = [victim]
         hit = self._try_prefix_hit(req, plen)
         if hit is not None:
-            return self._admit_hit(req, free[0], hit, plen, max_new)
-        if chunked:
-            return self._admit_chunked(req, free[0], plen, max_new)
-        return self._admit_cold(req, free[0], plen, max_new)
+            ok, done = self._admit_hit(req, free[0], hit, plen, max_new)
+        elif chunked:
+            ok, done = self._admit_chunked(req, free[0], plen, max_new)
+        else:
+            ok, done = self._admit_cold(req, free[0], plen, max_new)
+        return ok or bool(pre), pre + done
+
+    def _req_priority(self, req: Request) -> int:
+        return self.sched.priority(
+            self._req_tenant.get(req.rid, req.tenant))
+
+    def _next_seq(self) -> int:
+        self._admit_seq += 1
+        return self._admit_seq
+
+    def _new_slot(self, req: Request, **fields) -> _Slot:
+        """A slot for ``req`` with its scheduler fields: priority class,
+        admission order and adapter row."""
+        return _Slot(req=req, priority=self._req_priority(req),
+                     adapter_row=self._req_adapter.get(req.rid, 0),
+                     seq=self._next_seq(), **fields)
+
+    def _preempt_victim(self, req: Request) -> int | None:
+        """Slot to evict for ``req``: the lowest-priority active slot,
+        most recently admitted among ties, and only one strictly below
+        the incoming request's class, so a flat (or empty) tenant spec
+        never preempts. Chunking slots and slots still feeding a prefix
+        suffix are not candidates."""
+        if not self._preempt_enabled:
+            return None
+        prio = self._req_priority(req)
+        best, best_key = None, None
+        for i, s in enumerate(self._slots):
+            if s is None or s.chunking or s.pending:
+                continue
+            if s.priority >= prio:
+                continue
+            key = (s.priority, -s.seq)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
+
+    def _preempt(self, slot_idx: int, reason: str) -> Completion:
+        """Evict a slot as paused work: its pages free at once and its
+        Completion carries ``finish_reason="preempted"``. The tokens so
+        far already rode ``on_token`` into the router's journal, so the
+        resume (journal fed as ground truth) is token-exact."""
+        self._preempt_count += 1
+        self._sched_preempted.labels(reason=reason).inc()
+        return self._release(slot_idx, "preempted")
+
+    def _alloc_preempting(self, req: Request, n: int
+                          ) -> tuple[list[int] | None, list[Completion]]:
+        """``_alloc_with_evict`` escalated to preemption: when shedding
+        cold prefix-cache entries still leaves the pool short, release a
+        strictly lower-priority slot's pages and hand its stream back to
+        the router as paused work."""
+        pre: list[Completion] = []
+        pages = self._alloc_with_evict(n)
+        while pages is None:
+            victim = self._preempt_victim(req)
+            if victim is None:
+                break
+            if not self._allocator.reclaimable(self._slots[victim].pages):
+                # every page is shared (prefix cache, COW siblings):
+                # evicting this stream frees nothing; keep it running
+                break
+            pre.append(self._preempt(victim, "pages"))
+            pages = self._alloc_with_evict(n)
+        return pages, pre
 
     def _count_admission(self, rid: str) -> None:
+        self._count_admission_tenant(self._req_tenant.get(rid, "default"))
+
+    def _count_admission_tenant(self, tenant: str) -> None:
         self._admitted.inc()
-        self._tenant_admitted.labels(
-            self._req_tenant.get(rid, "default")).inc()
+        self._tenant_admitted.labels(tenant).inc()
 
     def _new_bt_row(self) -> np.ndarray:
         return np.full((self.cache_cfg.max_pages_per_seq,), NULL_PAGE,
@@ -1116,16 +1338,16 @@ class ServingEngine:
         land the prompt one chunk per engine step."""
         n_pages = pages_for(plen + max_new + self._overrun_slack,
                             self.cache_cfg.block_size)
-        pages = self._alloc_with_evict(n_pages)
+        pages, pre = self._alloc_preempting(req, n_pages)
         if pages is None:
-            return False, []
+            return False, pre
         self._pending.popleft()
         bt_row = self._new_bt_row()
         bt_row[:len(pages)] = pages
         self._install(slot_idx, bt_row, 0)
-        self._slots[slot_idx] = _Slot(req=req, pages=pages, tokens=[],
-                                      last_token=0, max_new=max_new,
-                                      chunking=True)
+        self._slots[slot_idx] = self._new_slot(
+            req, pages=pages, tokens=[], last_token=0, max_new=max_new,
+            chunking=True)
         self._chunk_job = _ChunkJob(slot_idx=slot_idx)
         self._chunk_count += 1
         self._sched_chunked.labels(reason="long_prompt").inc()
@@ -1135,7 +1357,7 @@ class ServingEngine:
             # pages fill across many steps); they count as misses
             self._prefix_misses.inc()
         self._update_occupancy()
-        return True, []
+        return True, pre
 
     def _alloc_with_evict(self, n: int) -> list[int] | None:
         pages = self._allocator.alloc(n)
@@ -1190,8 +1412,8 @@ class ServingEngine:
             self._cow_copies.inc()
         if hit.pages[w:]:
             self._allocator.free(hit.pages[w:])  # refs not kept past copy
-        self._slots[slot_idx] = _Slot(
-            req=req, pages=list(hit.pages[:w]) + priv, tokens=[],
+        self._slots[slot_idx] = self._new_slot(
+            req, pages=list(hit.pages[:w]) + priv, tokens=[],
             last_token=int(req.prompt[c]), max_new=max_new,
             pending=[int(t) for t in req.prompt[c + 1:]], prefix_hit=True)
         self._count_admission(req.rid)
@@ -1226,11 +1448,13 @@ class ServingEngine:
             got = self._alloc_with_evict(n_pages + 1)
             if got is not None:
                 pages, spare = got[:n_pages], got[n_pages:]
+        pre: list[Completion] = []
         if pages is None:
-            pages = self._alloc_with_evict(n_pages)
+            pages, pre = self._alloc_preempting(req, n_pages)
         if pages is None:
-            return False, []  # wait for running sequences to free pages
+            return False, pre  # wait for running sequences to free pages
         self._pending.popleft()
+        adapter_row = self._req_adapter.get(req.rid, 0)
         bucket = self._bucket_for(plen)
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :plen] = req.prompt
@@ -1239,7 +1463,8 @@ class ServingEngine:
         ids_t = torch.from_numpy(ids).to(self.device)
         bt_t = torch.from_numpy(bt_row).to(self.device)
         t_prefill = time.perf_counter()
-        logits0 = self._prefill(ids_t, bt_t, slot_idx, plen)
+        logits0 = self._prefill(ids_t, bt_t, slot_idx, plen,
+                                adapter_row=adapter_row)
         tok = int(torch.argmax(logits0[plen - 1]))  # waits for the device
         if self._draft_model is not None:
             # same ids, same pages: the draft's K/V for this prompt lands
@@ -1268,16 +1493,20 @@ class ServingEngine:
         if self.capture_logits:
             self.logit_log.setdefault(req.rid, []).append(
                 logits0[plen - 1].float().cpu().numpy().copy())
-        slot = _Slot(req=req, pages=pages, tokens=[tok], last_token=tok,
-                     max_new=max_new)
+        if self._audit_rate and adapter_row == 0:
+            # adapter-carrying prefills skip the audit: the fp reference
+            # runs the base model, so the LoRA delta would read as drift
+            self._maybe_audit_quant(req.rid, ids_t, plen, logits0)
+        slot = self._new_slot(req, pages=pages, tokens=[tok],
+                              last_token=tok, max_new=max_new)
         self._slots[slot_idx] = slot
         self._emit_token(req.rid, tok)
         self._insert_prefix(slot_idx, slot, bt_row, plen, spare)
         done = self._finish_reason(slot, tok)
         if done:
-            return True, [self._release(slot_idx, done)]
+            return True, pre + [self._release(slot_idx, done)]
         self._update_occupancy()
-        return True, []
+        return True, pre
 
     def _insert_prefix(self, slot_idx: int, slot: _Slot, bt_row: np.ndarray,
                        plen: int, spare: list[int] | None) -> None:
@@ -1315,6 +1544,198 @@ class ServingEngine:
         self._cow_copies.inc()
         slot.pages[m - 1] = new
         self._allocator.free([boundary])  # slot's ref; the cache keeps its
+
+    def _maybe_audit_quant(self, rid: str, ids: torch.Tensor, plen: int,
+                           logits0: torch.Tensor) -> None:
+        """Quant-drift audit of a cold prefill: replay the padded prompt
+        through the retained fp model (a full forward: the flash kernel
+        on the card, counted as pass kind ``audit``) and compare the
+        prompt rows' logits by :func:`~.quant.logit_gate`. Sampling is a
+        deterministic rate accumulator, not an RNG: a rate of 0.5 audits
+        exactly every second cold admission. The audit never fails the
+        request it rides on; ``stats()["quant_audits"]`` counts the ones
+        that completed, so a failing audit shows as a missing count."""
+        self._audit_accum += self._audit_rate
+        if self._audit_accum < 1.0:
+            return
+        self._audit_accum -= 1.0
+        try:
+            t0 = time.perf_counter()
+            self._passes["audit"] += 1
+            with torch.inference_mode():
+                ref = self._audit_model(ids)[0, :plen]
+            gate = quantlib.logit_gate(ref.float().cpu().numpy(),
+                                       logits0[:plen].float().cpu().numpy())
+            drift = float(gate["max_rel_err"])
+        except Exception:  # noqa: BLE001 - telemetry never fails serving
+            return
+        self._drift_last = drift
+        self._drift_max = max(self._drift_max, drift)
+        self._quant_drift.set(drift)
+        self._quant_audits.inc()
+        root = self._req_spans.get(rid)
+        if root is not None:
+            self.tracer.record(
+                "serve.quant_audit", t0, time.perf_counter(),
+                attrs={"max_rel_err": drift,
+                       "top1_agreement": float(gate["top1_agreement"])},
+                trace_id=root.trace_id, parent_id=root.span_id)
+
+    def register_adapter(self, name: str, a, b) -> int:
+        """Install a LoRA adapter (``a [d_model, r]``, ``b [r, vocab]``,
+        ``r <= lora_rank``) into the paged store; returns its row. The
+        next pass gathers the new row from the stacks."""
+        if self.adapters is None:
+            raise ValueError("engine serves no adapters "
+                             "(M2KT_SCHED_MAX_LORAS=0)")
+        return self.adapters.register(name, a, b)
+
+    def install_weights(self, state_dict, version: int | None = None) -> int:
+        """Live weight swap: replace the parameters between steps without
+        dropping in-flight requests; the next pass decodes with the new
+        weights. ``state_dict`` maps the model's ``state_dict`` names to
+        tensors or arrays: an fp tree (re-quantized under the engine's
+        policy) or one already quantized (``*.q8``/``*.scale``). A tree
+        whose names, shapes or dtypes differ from the resident one
+        raises ``ValueError`` naming the offending shard, before
+        anything is installed.
+
+        The swap rebinds this engine's own modules to the new tensors
+        (:func:`_rebind`); it never writes into the resident tensors,
+        which it may share with the caller's model and with sibling
+        engines built on it. Not safe concurrently with :meth:`step`:
+        the fleet layer serializes it under the replica's step lock.
+        Returns the installed version (``version`` for fleet-wide
+        agreement, else the resident version + 1)."""
+        fp_tree = {name: torch.as_tensor(t)
+                   for name, t in state_dict.items()}
+        tree = fp_tree
+        if self.quant.quantize_weights:
+            tree = _quantize_tree(self.model, fp_tree)
+            if self._audit_rate and tree is fp_tree:
+                raise ValueError(
+                    "install_weights: the engine audits its quantized "
+                    "weights against the fp checkpoint; pass the fp tree")
+        _check_tree(self.model, tree)
+        if self._audit_rate:
+            # the drift auditor must reference the new checkpoint, or
+            # every post-swap audit would report false drift
+            _check_tree(self._audit_model, fp_tree)
+            self._audit_model = _rebind(self._audit_model, fp_tree)
+        self.model = _rebind(self.model, tree)
+        if self.spec_k:
+            # the draft is the target's own first blocks, embedding and
+            # head: re-derive it so the proposer speaks the new weights
+            self._draft_model = quantlib.draft_model_from(
+                self.model, self._draft_cfg)
+        if self._prefix is not None:
+            # cached prefix K/V was computed under the old weights: drop
+            # the cache (pages borrowed by in-flight slots survive until
+            # those streams release them, the COW contract)
+            self._prefix.clear()
+            self._update_occupancy()
+        self.weights_version = (int(version) if version is not None
+                                else self.weights_version + 1)
+        self._weights_version_gauge.set(self.weights_version)
+        return self.weights_version
+
+    def install_prefilled(self, req: Request, kvs, first_token: int,
+                          prompt_len: int) -> tuple[bool, list[Completion]]:
+        """Admit a request whose prefill ran elsewhere
+        (:mod:`move2kube_tpu_torch.serving.fleet.disagg`): allocate
+        pages, scatter the handed-off per-layer K/V into them (quantized
+        under ``int8-kv``) and seat the slot with the prefill's first
+        token; no local target prefill runs. ``kvs`` is the prefill's
+        ``return_kv`` output, per layer ``(k, v)`` shaped ``[1, bucket,
+        kv_heads, head_dim]`` (tensors or arrays, anywhere). Returns
+        ``(installed, completions)``; not installed means no free slot
+        or pages right now: retry after a :meth:`step`."""
+        plen = int(prompt_len)
+        max_new = req.max_new_tokens or self.config.max_new_tokens
+        bucket = int(kvs[0][0].shape[1])
+        tenant = slolib.clean_tenant(req.tenant)
+        if self._draining:
+            raise EngineDraining(f"{req.rid}: engine is draining")
+
+        def reject(exc):
+            self._rejected.inc()
+            self._tenant_rejected.labels(tenant).inc()
+            self.slo.record(tenant, ok=False)
+            raise exc
+
+        reason = self._deadline_verdict(req.deadline_s, max_new)
+        if reason is not None:
+            self._deadline_shed.labels(reason=reason).inc()
+            reject(DeadlineExceeded(
+                f"{req.rid}: handoff deadline {req.deadline_s:.3f}s "
+                f"{reason} for {max_new} new tokens"))
+        if (plen < 1 or plen + max_new + self._overrun_slack
+                > self.cache_cfg.max_seq):
+            reject(ValueError(
+                f"{req.rid}: handoff of {plen} prompt + {max_new} new "
+                f"tokens does not fit max_seq {self.cache_cfg.max_seq}"))
+        if req.adapter:
+            # the handoff carries only base-model K/V and a first token
+            # the prefill replica argmaxed without the adapter's delta:
+            # admitting it would serve the wrong head
+            reject(ValueError(f"{req.rid}: disagg handoff does not carry "
+                              f"adapter state (adapter {req.adapter!r})"))
+        if bucket > self.cache_cfg.max_seq:
+            reject(ValueError(f"{req.rid}: handoff bucket {bucket} exceeds "
+                              f"max_seq {self.cache_cfg.max_seq}"))
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        if not free:
+            return False, []
+        pages = self._alloc_with_evict(pages_for(
+            plen + max_new + self._overrun_slack, self.cache_cfg.block_size))
+        if pages is None:
+            return False, []
+        slot_idx = free[0]
+        t_install = time.perf_counter()
+        bt_row = self._new_bt_row()
+        bt_row[:len(pages)] = pages
+        bt_t = torch.from_numpy(bt_row).to(self.device)
+        with torch.inference_mode():
+            kv_dev = [(torch.as_tensor(k).to(self.device),
+                       torch.as_tensor(v).to(self.device)) for k, v in kvs]
+            scatter_prefill(self._cache, kv_dev, slot_idx, bt_t, plen,
+                            self.cache_cfg.block_size)
+        del kv_dev
+        if self._draft_model is not None:
+            # the handoff carries only the target's K/V; the draft's comes
+            # from a local draft prefill over the same prompt
+            ids = np.zeros((1, bucket), np.int64)
+            ids[0, :plen] = req.prompt[:plen]
+            self._prefill(torch.from_numpy(ids).to(self.device), bt_t,
+                          slot_idx, plen, draft=True)
+        self._count_admission_tenant(tenant)
+        self._req_tenant[req.rid] = tenant
+        # availability counts the seat; TTFT closed on the prefill side,
+        # where the request's submit clock lives
+        self.slo.record(tenant, ok=True)
+        if self.tracer is not None and req.rid not in self._req_spans:
+            # the decode replica opens its own root for the handed-off
+            # request; remote_parent stitches it under the router's span
+            root = self.tracer.start(
+                "serve.request",
+                attrs={"rid": req.rid, "prompt_len": plen,
+                       "tenant": tenant, "disagg": 1},
+                detached=True, remote_parent=req.traceparent or None)
+            self._req_spans[req.rid] = root
+            self.tracer.record(
+                "serve.kv_install", t_install, time.perf_counter(),
+                attrs={"bucket": bucket, "prompt_len": plen},
+                trace_id=root.trace_id, parent_id=root.span_id)
+        tok = int(first_token)
+        slot = self._new_slot(req, pages=pages, tokens=[tok],
+                              last_token=tok, max_new=max_new)
+        self._slots[slot_idx] = slot
+        self._emit_token(req.rid, tok)
+        self._update_occupancy()
+        done = self._finish_reason(slot, tok)
+        if done:
+            return True, [self._release(slot_idx, done)]
+        return True, []
 
     def stats(self) -> dict:
         """Counters of this engine's work so far. Host-clock times end in
@@ -1363,8 +1784,16 @@ class ServingEngine:
             out["prefix_hit_tokens"] = int(self._prefix_hit_tokens.value)
             out["prefix_cache_pages"] = self._prefix.total_pages
             out["cow_copies"] = int(self._cow_copies.value)
+        if self._audit_rate:
+            out["quant_audits"] = int(self._quant_audits.value)
+            out["quant_drift_last_rel"] = self._drift_last
+            out["quant_drift_max_rel"] = self._drift_max
+        if self._preempt_enabled:
+            out["preempted"] = self._preempt_count
         if self.chunk_prefill:
             out["chunked_prefills"] = self._chunk_count
+        if self.adapters is not None:
+            out["lora_adapters"] = len(self.adapters.names)
         if self.spec_k:
             prop = self._spec_proposed.value
             acc = self._spec_accepted.value
@@ -1375,3 +1804,55 @@ class ServingEngine:
             out["spec_tokens_per_step"] = (
                 self._decode_tokens / lat_n if lat_n else 0.0)
         return out
+
+
+def _check_tree(model, tree: dict) -> None:
+    """Raise ``ValueError`` unless ``tree`` has exactly ``model``'s
+    ``state_dict`` names, each with the resident shape and dtype."""
+    resident = model.state_dict()
+    if set(resident) != set(tree):
+        missing = sorted(set(resident) - set(tree))[:3]
+        extra = sorted(set(tree) - set(resident))[:3]
+        raise ValueError(f"install_weights: parameter tree mismatch: "
+                         f"missing {missing}, unexpected {extra}")
+    for name in sorted(resident):
+        old, new = resident[name], tree[name]
+        if old.shape != new.shape or old.dtype != new.dtype:
+            raise ValueError(
+                f"install_weights: shard {name!r} is {new.dtype}"
+                f"{list(new.shape)}; the resident weights are "
+                f"{old.dtype}{list(old.shape)}")
+
+
+def _quantize_tree(qmodel, tree: dict) -> dict:
+    """An fp ``state_dict`` in ``qmodel``'s quantized layout: each
+    ``<layer>.weight`` whose layer is a :class:`~.quant.QuantLinear`
+    becomes ``<layer>.q8`` and ``<layer>.scale`` (quantized where it
+    lies, by :func:`~.quant.quantize_array`). An already-quantized tree
+    is returned as it is."""
+    qnames = {name for name, mod in qmodel.named_modules()
+              if isinstance(mod, quantlib.QuantLinear)}
+    if not any(f"{name}.weight" in tree for name in qnames):
+        return tree
+    out = {}
+    for key, t in tree.items():
+        layer, _, leaf = key.rpartition(".")
+        if leaf == "weight" and layer in qnames:
+            out[f"{layer}.q8"], out[f"{layer}.scale"] = (
+                quantlib.quantize_array(t))
+        else:
+            out[key] = t
+    return out
+
+
+def _rebind(model, tree: dict):
+    """A copy of ``model`` whose parameters and buffers are ``tree``'s
+    tensors (moved to where the resident ones lie; no copy when they are
+    there already), the module structure duplicated and no resident
+    tensor written. Engines that share the original model keep it."""
+    memo = {}
+    for name, old in model.state_dict(keep_vars=True).items():
+        new = tree[name].to(old.device)
+        memo[id(old)] = (torch.nn.Parameter(new, requires_grad=False)
+                         if isinstance(old, torch.nn.Parameter) else new)
+    return copy.deepcopy(model, memo)

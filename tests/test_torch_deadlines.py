@@ -24,9 +24,8 @@ from move2kube_tpu_torch.serving import engine as tengine  # noqa: E402
 GEOMETRY = dict(max_batch=2, max_seq=64, block_size=8, buckets=(16, 32))
 
 # stats keys of the JAX engine's parts the port does not have yet: the
-# async pipeline (4h), the quant audit (4j), preemption (4e) and LoRA (4g)
-UNPORTED_STATS = {"decode_substeps", "quant_audits", "quant_drift_last_rel",
-                  "quant_drift_max_rel", "preempted", "lora_adapters"}
+# async pipeline (4h)
+UNPORTED_STATS = {"decode_substeps"}
 
 # families the deadline / drain paths write
 SHED_FAMILIES = ("m2kt_serve_deadline_shed_total", "m2kt_serve_rejected_total",

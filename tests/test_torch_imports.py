@@ -133,8 +133,12 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 # the serving engine's fleet-replica modules: each keeps its own copy of
 # what it needs from the JAX package's pure-Python modules
 FLEET_MODULES = ("obs/__init__.py", "obs/metrics.py", "obs/tracing.py",
-                 "obs/slo.py", "serving/prefixcache.py", "serving/engine.py",
-                 "serving/quant.py")
+                 "obs/slo.py", "obs/numerics.py", "serving/prefixcache.py",
+                 "serving/engine.py", "serving/quant.py",
+                 "serving/sched/__init__.py", "serving/sched/admission.py",
+                 "serving/sched/lora.py", "serving/fleet/__init__.py",
+                 "serving/fleet/weights.py", "serving/fleet/chaos.py",
+                 "serving/fleet/disagg.py", "serving/fleet/router.py")
 
 
 @pytest.mark.parametrize("module", FLEET_MODULES)

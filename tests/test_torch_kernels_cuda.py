@@ -876,3 +876,128 @@ def test_spec_hit_long_suffix_on_card_matches_cpu(cuda):
         prefix_cache=True, spec_k=2, spec_draft_factor=2, admit_burst=0),
         reqs, draft_layers=1)
     assert stats["prefix_hits"] == 2 and stats["prefix_hit_tokens"] == 24
+
+
+def _tiny_fp32():
+    from move2kube_tpu_torch import init_llama, llama_tiny
+
+    cfg = dataclasses.replace(llama_tiny(), d_model=256, attn_impl="flash")
+    return init_llama(cfg, seed=0, device="cpu", dtype=torch.float32)
+
+
+def _scripted(device, script):
+    """Run ``script(model, device)`` on a fresh copy of the fp32 model on
+    ``device`` with the launch counts at 0; returns its result and the
+    launch counts of the run alone."""
+    model = _tiny_fp32().to(device).eval()
+    tatt.reset_launch_counts()
+    out = script(model, device)
+    return out, {k.name: k.launches for k in tatt.KERNELS}
+
+
+def _same_on_card(cuda, script):
+    """``script`` on the CPU and on the card: the same streams, every
+    logit row within FLEET_LOGITS_ATOL. Returns the card's result and
+    launch counts."""
+    (want, want_log, _), _ = _scripted("cpu", script)
+    (got, got_log, passes), launches = _scripted(cuda, script)
+    assert got == want
+    for rid, rows in got_log.items():
+        assert len(rows) == len(want_log[rid])
+        for a, b in zip(rows, want_log[rid]):
+            np.testing.assert_allclose(a, b, atol=FLEET_LOGITS_ATOL, rtol=0)
+    return passes, launches
+
+
+def _want_launches(layers, prefill, paged):
+    return {"flash_fwd": layers * prefill, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "paged_decode": layers * paged,
+            "paged_decode_int8": 0}
+
+
+def test_lora_decode_pass_on_card_matches_cpu(cuda):
+    """A batch mixing the base model and two adapters: every prefill and
+    decode row carries its slot's delta, the streams and logits agree with
+    the CPU's, and the launches are one a layer a pass."""
+    from move2kube_tpu_torch import EngineConfig, Request, ServingEngine
+
+    def script(model, device):
+        eng = ServingEngine(model, EngineConfig(
+            max_batch=4, max_seq=64, block_size=8, buckets=(16, 32),
+            max_loras=2, lora_rank=4, admit_burst=0), device=device)
+        gen = np.random.default_rng(44)
+        for name, r in (("fin", 4), ("law", 2)):
+            eng.register_adapter(
+                name, (gen.normal(size=(256, r)) * 0.05).astype(np.float32),
+                (gen.normal(size=(r, 512)) * 0.05).astype(np.float32))
+        eng.capture_logits = True
+        reqs = [Request(f"r{i}", gen.integers(1, 500, size=n).tolist(), 6,
+                        adapter=a)
+                for i, (n, a) in enumerate(((9, "fin"), (14, ""),
+                                            (5, "law"), (20, "fin")))]
+        out = {c.rid: c.tokens for c in eng.run(reqs)}
+        return out, eng.logit_log, eng.stats()["passes"]
+
+    passes, launches = _same_on_card(cuda, script)
+    assert launches == _want_launches(2, passes["prefill"],
+                                      passes["decode"])
+
+
+def test_install_prefilled_then_decode_on_card_matches_cpu(cuda):
+    """A prefill replica's handoff, through the wire bytes, seated by
+    install_prefilled and decoded: the same streams as on the CPU, the
+    flash kernel only on the prefill replica and the paged kernel for
+    every decode step."""
+    from move2kube_tpu_torch import EngineConfig, Request, ServingEngine
+    from move2kube_tpu_torch.serving.fleet.disagg import (
+        DisaggPair,
+        PrefillReplica,
+    )
+
+    def script(model, device):
+        econf = EngineConfig(max_batch=2, max_seq=64, block_size=8,
+                             buckets=(16, 32))
+        pre = PrefillReplica(model, econf, device=device)
+        eng = ServingEngine(model, econf, device=device)
+        eng.capture_logits = True
+        gen = np.random.default_rng(45)
+        reqs = [Request(f"d{i}", gen.integers(1, 500, size=n).tolist(), 6)
+                for i, n in enumerate((11, 25, 7))]
+        out = {c.rid: c.tokens for c in DisaggPair(pre, eng).run(reqs)}
+        passes = dict(eng.stats()["passes"])
+        passes["prefill"] += pre.stats()["passes"]["prefill"]
+        return out, eng.logit_log, passes
+
+    passes, launches = _same_on_card(cuda, script)
+    assert passes["prefill"] == 3
+    assert launches == _want_launches(2, 3, passes["decode"])
+
+
+def test_other_weights_swap_mid_decode_on_card_matches_cpu(cuda):
+    """install_weights of other weights (every tensor x 1.25) after 3
+    tokens, on the card and on the CPU: the same stream, logits before
+    and after the swap within FLEET_LOGITS_ATOL."""
+    from move2kube_tpu_torch import EngineConfig, Request, ServingEngine
+
+    def script(model, device):
+        eng = ServingEngine(model, EngineConfig(
+            max_batch=2, max_seq=64, block_size=8, buckets=(16, 32)),
+            device=device)
+        eng.capture_logits = True
+        new = {k: v * 1.25 for k, v in model.state_dict().items()}
+        gen = np.random.default_rng(46)
+        eng.submit(Request("s", gen.integers(1, 500, size=12).tolist(), 8))
+        done, swapped = [], False
+        while eng.has_work():
+            done += eng.step()
+            slot = eng._slots[0]
+            if not swapped and slot is not None and len(slot.tokens) >= 3:
+                assert eng.install_weights(new, version=4) == 4
+                swapped = True
+        assert swapped and done[0].weights_version == 4
+        return ({c.rid: c.tokens for c in done}, eng.logit_log,
+                eng.stats()["passes"])
+
+    passes, launches = _same_on_card(cuda, script)
+    assert launches == _want_launches(2, passes["prefill"],
+                                      passes["decode"])

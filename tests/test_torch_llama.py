@@ -189,9 +189,30 @@ def test_unported_configs_raise(change, exc):
 
 
 def test_lora_delta_is_not_ported():
-    model = tllama.Llama(tllama.llama_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        model(torch.zeros(1, 4, dtype=torch.long), lora=(None, None, None))
+    """``lora=`` no longer raises: a batch mixing the base row and two
+    adapters gives the flax model's logits with the same stacks, within
+    LOGITS_ATOL, and the base row equals a forward without ``lora``."""
+    fmodel, variables, model = _pair("dense", seed=2)
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    a = (rng.normal(size=(3, cfg.d_model, 4)) * 0.1).astype(np.float32)
+    b = (rng.normal(size=(3, 4, cfg.vocab_size)) * 0.1).astype(np.float32)
+    a[0], b[0] = 0.0, 0.0
+    rows = np.array([0, 2, 1], np.int32)
+    ids = rng.integers(1, 500, size=(3, 12))
+    want = np.asarray(fmodel.apply(
+        variables, jnp.asarray(ids, jnp.int32),
+        lora=(jnp.asarray(a), jnp.asarray(b), jnp.asarray(rows))))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(ids), lora=(
+            torch.from_numpy(a), torch.from_numpy(b),
+            torch.from_numpy(rows).long())).numpy()
+        base = model(torch.from_numpy(ids[:1])).numpy()
+    np.testing.assert_allclose(got, want, atol=LOGITS_ATOL, rtol=0)
+    np.testing.assert_array_equal(got[:1], base)
+    assert np.abs(got[1:] - want[1:]).max() < LOGITS_ATOL < np.abs(
+        got[1:] - np.asarray(fmodel.apply(
+            variables, jnp.asarray(ids[1:], jnp.int32)))).max()
 
 
 def test_llama_8b_widths_match_jax():

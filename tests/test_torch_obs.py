@@ -307,7 +307,8 @@ def _families(text):
                                                 quant="int8-kv")])
 def test_engine_registers_the_reference_families(tiny_pair, over):
     """A fresh engine's /metrics holds the reference engine's family set
-    (name, type and help), the unported writers' families at zero."""
+    (name, type and help); the weights version, the quant drift and the
+    async pipeline's gauge render as the reference's do (version 1)."""
     fmodel, variables, model = tiny_pair
     cfg = dict(max_batch=2, max_seq=64, block_size=8, buckets=(16, 32),
                **over)
@@ -320,11 +321,12 @@ def test_engine_registers_the_reference_families(tiny_pair, over):
     helps = [line for line in ours.splitlines() if line.startswith("# ")]
     assert helps == [line for line in theirs.splitlines()
                      if line.startswith("# ")]
-    for line in ours.splitlines():
-        for fam in ("m2kt_weights_version", "m2kt_serve_quant_drift",
-                    "m2kt_serve_inflight_windows"):
-            if line.startswith(fam + " "):
-                assert line == f"{fam} 0"
+    for fam in ("m2kt_weights_version", "m2kt_serve_quant_drift",
+                "m2kt_serve_inflight_windows"):
+        mine = [ln for ln in ours.splitlines() if ln.startswith(fam + " ")]
+        assert mine == [ln for ln in theirs.splitlines()
+                        if ln.startswith(fam + " ")], fam
+    assert "\nm2kt_weights_version 1\n" in ours
     mode = ("off", "int8", "int8-kv").index(cfg.get("quant", "off"))
     assert f"\nm2kt_serve_quant_mode {mode}\n" in ours
 

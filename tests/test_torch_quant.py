@@ -328,3 +328,102 @@ def test_engine_on_jax_int8_tree_matches_jax_engine(jax_parts, tcfg):
     jeng, teng = _engine_pair(*jax_parts, model.eval(), "int8-kv")
     assert teng.model.layers[0].qkv.q8 is model.layers[0].qkv.q8
     _assert_engines_agree(jeng, teng)
+
+
+# ----------------------------------------------------------------------
+# the quant-drift audit
+# ----------------------------------------------------------------------
+
+
+def _audit_pair(jax_parts, model, quant, rate):
+    fmodel, variables = jax_parts
+    cfg = dict(max_batch=4, max_seq=64, block_size=8, buckets=(16, 32),
+               quant=quant, quant_audit_rate=rate)
+    teng = tengine.ServingEngine(model, tengine.EngineConfig(**cfg),
+                                 device="cpu")
+    jeng = jengine.ServingEngine(
+        fmodel, variables, jengine.EngineConfig(**cfg, async_decode="off"))
+    return teng, jeng
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8-kv"])
+def test_audit_schedule_matches_jax(jax_parts, fp_model, quant):
+    """Rate 0.5: exactly every second cold admission is audited, on both
+    engines; the audit adds one fp prefill pass (kind ``audit``) each,
+    changes no stream, and the counters render alike."""
+    teng, jeng = _audit_pair(jax_parts, fp_model, quant, 0.5)
+    seen = {}
+    for eng, mod in ((teng, tengine), (jeng, jengine)):
+        counts = []
+        for i, (rid, prompt, n) in enumerate(
+                [("a", 9, 3), ("b", 12, 2), ("c", 20, 2), ("d", 7, 3),
+                 ("e", 15, 2)]):
+            eng.run([mod.Request(rid, np.random.default_rng(i).integers(
+                1, 500, size=prompt).tolist(), n)])
+            counts.append(eng.stats()["quant_audits"])
+        seen[mod] = (counts, [ln for ln in eng.registry.render().splitlines()
+                              if ln.startswith(
+                                  "m2kt_serve_quant_audit_total")])
+    assert seen[tengine] == seen[jengine]
+    assert seen[tengine][0] == [0, 1, 1, 2, 2]
+    assert teng.stats()["passes"]["audit"] == 2
+    assert teng.stats()["passes"]["prefill"] == 5
+    off = tengine.ServingEngine(fp_model, tengine.EngineConfig(
+        max_batch=4, max_seq=64, block_size=8, buckets=(16, 32),
+        quant_audit_rate=0.5), device="cpu")
+    off.run([tengine.Request("x", [1, 2, 3], 2)])
+    assert "quant_audits" not in off.stats()  # nothing quantized, no audit
+    assert off.stats()["passes"]["audit"] == 0
+
+
+def test_drift_gauge_is_the_logit_gate_of_fp_and_int8(jax_parts, fp_model):
+    """The drift gauge equals ``logit_gate`` of the fp model's and the
+    int8 engine's prefill logits over the prompt's rows, and the JAX
+    engine's drift within ENGINE_LOGITS_ATOL."""
+    teng, jeng = _audit_pair(jax_parts, fp_model, "int8", 1.0)
+    prompt = np.random.default_rng(5).integers(1, 500, size=13).tolist()
+    teng.capture_logits = True
+    for eng, mod in ((teng, tengine), (jeng, jengine)):
+        eng.run([mod.Request("r", list(prompt), 2)])
+    ids = torch.zeros((1, 16), dtype=torch.long)
+    ids[0, :13] = torch.tensor(prompt)
+    with torch.inference_mode():
+        ref = fp_model(ids)[0, :13].numpy()
+        got = teng.model(ids)[0, :13].numpy()
+    want = tquant.logit_gate(ref, got)["max_rel_err"]
+    st = teng.stats()
+    assert st["quant_audits"] == 1 and want > 0
+    assert st["quant_drift_last_rel"] == pytest.approx(want, rel=1e-6)
+    assert st["quant_drift_max_rel"] == st["quant_drift_last_rel"]
+    assert teng._quant_drift.value == st["quant_drift_last_rel"]
+    assert "m2kt_serve_quant_audit_total 1" in teng.registry.render()
+    assert abs(st["quant_drift_last_rel"]
+               - jeng.stats()["quant_drift_last_rel"]) < ENGINE_LOGITS_ATOL
+
+
+def test_audit_never_fails_its_request(fp_model):
+    """A failing audit (here the fp model raises) leaves the request's
+    stream as it was and counts nothing; an adapter-carrying prefill is
+    not audited."""
+    cfg = tengine.EngineConfig(max_batch=2, max_seq=64, block_size=8,
+                               buckets=(16, 32), quant="int8",
+                               quant_audit_rate=1.0, max_loras=1)
+    eng = tengine.ServingEngine(fp_model, cfg, device="cpu")
+    want = tengine.ServingEngine(fp_model, tengine.EngineConfig(
+        max_batch=2, max_seq=64, block_size=8, buckets=(16, 32),
+        quant="int8"), device="cpu").run(
+            [tengine.Request("r", [5, 6, 7, 8], 3)])[0].tokens
+
+    def broken(*args, **kw):
+        raise RuntimeError("audit path down")
+
+    eng._audit_model = broken
+    assert eng.run([tengine.Request("r", [5, 6, 7, 8], 3)])[0].tokens == want
+    assert eng.stats()["quant_audits"] == 0
+    rng = np.random.default_rng(3)
+    eng2 = tengine.ServingEngine(fp_model, cfg, device="cpu")
+    eng2.register_adapter("x", rng.normal(size=(128, 2)).astype(np.float32),
+                          rng.normal(size=(2, 512)).astype(np.float32))
+    eng2.run([tengine.Request("r", [5, 6, 7, 8], 2, adapter="x")])
+    assert eng2.stats()["quant_audits"] == 0
+    assert eng2.stats()["passes"]["audit"] == 0
