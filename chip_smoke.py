@@ -77,13 +77,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch 4 x 2048 tokens; 5 timed steps whose launch counts show every
    layer's forward, recompute and backward went through the kernels, and
    one step under the profiler
-13. one JSON line with every kernel's numbers, then the result line
+13. the model families. GPT-2: the five kernels at GPT-2 small's
+   attention (h = kvh = 12, d = 64; with the other kernel checks, after
+   phase 3); parity at GPT-2 small's widths, 2 layers, fp32 (the flash
+   engine against plain greedy, int8-kv with the prefix cache by the
+   quant gate, spec decode, a LoRA row on the tied head); the full
+   GPT-2 small (124 M) serving 16 requests in bf16 and int8-kv with
+   exact launches; GPT-2 small training at full depth, batch 8 x 1024,
+   and the bf16 training-parity gate at 2 layers. The MoE Llama
+   (llama_8b widths, 8 experts, top-2: Mixtral-8x7B's): flash against
+   dense engine parity at 2 layers in fp32, then 8 of its 32 layers in
+   bf16 serving 16 requests, with the tokens each pass drops over
+   capacity; one layer training at batch 2 x 2048 with the aux loss
+   checked in the loss. BERT-base, ResNet-50 and the DDPM UNet, each
+   through its own train step at its full config (no kernel of the port
+   runs there; the loss must fall on a repeated batch)
+14. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -385,17 +401,20 @@ def _copies(torch, tensors, min_bytes=200 << 20):
     return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
-def flash_phase(torch):
+def flash_phase(torch, h=32, kvh=8, d=128, lengths=(128, 1000, 2048)):
+    """The bf16 flash forward at a prefill's shape (b=1, causal) over
+    ``lengths``: checked by the flash rule (SDPA too), timed beside the
+    plain version and SDPA, with its bound; one row a length."""
     import torch.nn.functional as F
 
     from move2kube_tpu_torch.ops import attention as att
 
-    b, h, kvh, d = 1, 32, 8, 128
+    b = 1
     scale = d ** -0.5
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = []
-    for s in (128, 1000, 2048):
+    for s in lengths:
         q = torch.randn(b, s, h, d, device="cuda", generator=gen)
         k = torch.randn(b, s, kvh, d, device="cuda", generator=gen)
         v = torch.randn(b, s, kvh, d, device="cuda", generator=gen)
@@ -414,17 +433,26 @@ def flash_phase(torch):
         del ref, pv, sdpa
         sets = _copies(torch, (q, k, v))
         iters = 50 if s <= 1000 else 20
-        ms = cuda_ms(torch, lambda q_, k_, v_: att.flash_attention(
-            q_, k_, v_, causal=True), sets, iters)
+
+        def kernel(q_, k_, v_):
+            return att.flash_attention(q_, k_, v_, causal=True)
+
+        def library(q_, k_, v_):
+            return F.scaled_dot_product_attention(q_, k_, v_,
+                                                  is_causal=True)
+
+        # device time by a CUDA graph of 200 calls: at s <= 1024 a call
+        # takes 20-35 us, and an event-timed loop (printed beside) would
+        # time the host's launches
+        ms = graph_ms(torch, kernel, sets, 200)
+        loop_ms = cuda_ms(torch, kernel, sets, iters)
         plain_ms = cuda_ms(torch, lambda q_, k_, v_: att.reference_attention(
             q_, k_, v_, True, scale), sets, max(5, iters // 4))
         # PyTorch's fused attention on head-major, GQA-repeated copies
         # (made outside the timing): a yardstick the port never calls
         lib_sets = [tuple(_sdpa_layout(t, h).contiguous() for t in ts)
                     for ts in sets]
-        library_ms = cuda_ms(
-            torch, lambda q_, k_, v_: F.scaled_dot_product_attention(
-                q_, k_, v_, is_causal=True), lib_sets, iters)
+        library_ms = graph_ms(torch, library, lib_sets, 200)
         ops = 2 * b * h * d * s * (s + 1)  # QK^T and PV under the mask
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
         t_ops = ops / H100_BF16_FLOPS * 1e3
@@ -439,7 +467,8 @@ def flash_phase(torch):
             f"and sdpa differ in {int((vs_sdpa > 0).sum())} of "
             f"{vs_sdpa.numel()} values, by at most "
             f"{vs_sdpa.max().item():.3e}; kernel "
-            f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s) plain "
+            f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s; CUDA graph of 200 "
+            f"calls, {loop_ms:.4f} ms by an event-timed loop) plain "
             f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         del sets, lib_sets
@@ -513,7 +542,8 @@ def _paged_speed(torch, label, call, sets, seq_lens, kvh, bs, nbytes,
         f" the merge's span includes its blocks' wait for the split pass): "
         f"{passes}; wrapper host {us:.1f} us a call")
     log(f"{label}: sweep: {'; '.join(sweep)}")
-    log(f"{label}: b=1 on the 2048-token sequence: split of {p1 * bs} "
+    log(f"{label}: b=1 on the {int(seq_lens.max())}-token sequence: split "
+        f"of {p1 * bs} "
         f"tokens, {n1} splits, {n1 * kvh} blocks live; {ms_b1:.4f} ms, "
         f"{nbytes_b1 / ms_b1 / 1e6:.1f} GB/s, bound "
         f"{nbytes_b1 / H100_BYTES_S * 1e3:.4f} ms (bytes)")
@@ -542,10 +572,10 @@ def _paged_bytes(seq_lens, kvh, row_bytes, q_numel, tables):
             + tables.nbytes + 4 * len(seq_lens))
 
 
-def paged_phase(torch):
+def paged_phase(torch, h=32, kvh=8, d=128, max_seq=2048):
     from move2kube_tpu_torch.ops import attention as att
 
-    b, h, kvh, d, bs, max_seq = 8, 32, 8, 128, 16, 2048
+    b, bs = 8, 16
     scale = d ** -0.5
     seq_lens, tables, num_pages, _ = _paged_geometry(b, bs, max_seq)
     gen = torch.Generator(device="cuda")
@@ -614,7 +644,7 @@ def paged_phase(torch):
     return row
 
 
-def paged_int8_phase(torch):
+def paged_int8_phase(torch, h=32, kvh=8, d=128, max_seq=2048):
     """The int8 paged-decode kernel at paged_phase's batch: pools from
     ``quantize_kv_rows`` of random rows, a bf16 and an fp32 query, NaN
     scales and +-127 rows in the null page (the kernel must never read
@@ -624,7 +654,7 @@ def paged_int8_phase(torch):
     from move2kube_tpu_torch.ops import attention as att
     from move2kube_tpu_torch.serving.kvcache import copy_page
 
-    b, h, kvh, d, bs, max_seq = 8, 32, 8, 128, 16, 2048
+    b, bs = 8, 16
     scale = d ** -0.5
     seq_lens, tables, num_pages, spare = _paged_geometry(b, bs, max_seq)
     gen = torch.Generator(device="cuda")
@@ -743,7 +773,7 @@ def lse_phase(torch) -> float:
     return err
 
 
-def bwd_phase(torch):
+def bwd_phase(torch, b=4, s=2048, h=32, kvh=8, d=128):
     """The backward kernels in bf16 at the training slice's attention shape
     against the plain backward by the backward rule (SDPA's backward's
     share of the same allowance beside theirs), bit-identical over two
@@ -755,7 +785,6 @@ def bwd_phase(torch):
 
     from move2kube_tpu_torch.ops import attention as att
 
-    b, s, h, kvh, d = 4, 2048, 32, 8, 128
     scale = d ** -0.5
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 5)
@@ -904,13 +933,15 @@ def bwd_phase(torch):
     return rows
 
 
-def _greedy_dense(torch, model, prompt, n):
-    """Greedy continuation by full forwards of the plain dense path;
-    returns the tokens and the logits rows each was argmaxed from."""
+def _greedy_dense(torch, model, prompt, n, lora=None):
+    """Greedy continuation by full forwards of the plain dense path (with
+    the multi-LoRA operand ``lora``, if given); returns the tokens and the
+    logits rows each was argmaxed from."""
     toks, rows = list(prompt), []
     with torch.inference_mode():
         for _ in range(n):
-            logits = model(torch.tensor([toks], device="cuda"))[0, -1]
+            logits = model(torch.tensor([toks], device="cuda"),
+                           lora=lora)[0, -1]
             rows.append(logits)
             toks.append(int(torch.argmax(logits)))
     return toks[len(prompt):], rows
@@ -1018,16 +1049,20 @@ def quant_gate_phase(torch, model, prompts, n_new, ref) -> None:
         f"paged_decode_int8 launched {PAGED_DECODE_INT8.launches} times")
 
 
-def _serve_slice(torch, model, econf, label: str, decode_kernel: str):
+def _serve_slice(torch, model, econf, label: str, decode_kernel: str,
+                 max_prompt: int = 1536, n_new: int = 64,
+                 keep_logits: bool = False):
     """The serving slices' run: a warm-up on its own engine (first-call
     costs stay out of the numbers), then 16 requests submitted at once
-    (prompt lengths drawn from seed 2 in 64..1536, 64 new tokens each) on
-    a fresh engine with every launch count set to 0 just before. Checks
-    that every request completed with finite logits and that each layer
-    launched ``flash_fwd`` once a prefill and ``decode_kernel`` once a
-    decode step, and nothing else; prints the numbers, then profiles a
-    prefill and 4 decode steps. Returns the launch counts and one decode
-    step's profiled device busy time in ms."""
+    (prompt lengths drawn from seed 2 in 64..``max_prompt``, ``n_new`` new
+    tokens each) on a fresh engine with every launch count set to 0 just
+    before. Checks that every request completed with finite logits and
+    that each layer launched ``flash_fwd`` once a prefill and
+    ``decode_kernel`` once a decode step, and nothing else; prints the
+    numbers (TTFT p50/p95 from each request's first token), then profiles
+    a prefill and 4 decode steps. Returns the launch counts, one decode
+    step's profiled device busy time in ms, and (``keep_logits``) each
+    request's tokens and logit rows by rid, else None."""
     import numpy as np
 
     from move2kube_tpu_torch import (
@@ -1044,12 +1079,15 @@ def _serve_slice(torch, model, econf, label: str, decode_kernel: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(SEED + 2)
-    lengths = rng.integers(64, 1537, size=16)
+    lengths = rng.integers(64, max_prompt + 1, size=16)
     reqs = [Request(f"r{i}", rng.integers(1, cfg.vocab_size,
-                                          size=int(n)).tolist(), 64)
+                                          size=int(n)).tolist(), n_new)
             for i, n in enumerate(lengths)]
     eng = ServingEngine(model, econf, device="cuda")
     eng.capture_logits = True
+    first: dict = {}
+    eng.on_token = lambda rid, _tok: first.setdefault(
+        rid, time.perf_counter())
     reset_launch_counts()
     t0 = time.perf_counter()
     comps = eng.run(reqs)
@@ -1057,9 +1095,9 @@ def _serve_slice(torch, model, econf, label: str, decode_kernel: str):
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
     stats = eng.stats()
-    if len(comps) != 16 or any(len(c.tokens) != 64 for c in comps):
-        raise RuntimeError(f"{label}: not every request completed with 64 "
-                           "tokens")
+    if len(comps) != 16 or any(len(c.tokens) != n_new for c in comps):
+        raise RuntimeError(f"{label}: not every request completed with "
+                           f"{n_new} tokens")
     for rid, rows in eng.logit_log.items():
         if not all(np.isfinite(r).all() for r in rows):
             raise RuntimeError(f"{label}: non-finite logits for {rid}")
@@ -1071,12 +1109,15 @@ def _serve_slice(torch, model, econf, label: str, decode_kernel: str):
                            f"({stats['prefills']} prefills, "
                            f"{stats['decode_steps']} decode steps)")
     generated = sum(len(c.tokens) for c in comps)
+    resident = param_bytes(eng.model)  # the engine's copy (int8 if quant)
     peak = torch.cuda.max_memory_allocated() / 2**30
     kv_bytes = sum(t.numel() * t.element_size()
                    for pools in eng._cache.values()
                    if isinstance(pools, list) for t in pools)
-    log(f"{label}: 16 requests, prompts {sorted(lengths.tolist())}, 64 new "
-        f"tokens each, max_batch 8, quant {econf.quant}: wall {wall:.3f} s,"
+    ttft = sorted(first[r.rid] - t0 for r in reqs)
+    log(f"{label}: 16 requests, prompts {sorted(lengths.tolist())}, {n_new} "
+        f"new tokens each, max_batch {econf.max_batch}, quant {econf.quant}:"
+        f" wall {wall:.3f} s,"
         f" {generated / wall:.1f} tokens/s overall, decode "
         f"{stats['decode_throughput_tokens_s']:.1f} tokens/s over "
         f"{stats['decode_steps']} steps "
@@ -1084,14 +1125,17 @@ def _serve_slice(torch, model, econf, label: str, decode_kernel: str):
         f"ms/step), {stats['prefills']} prefills in "
         f"{stats['prefill_time_s']:.3f} s, mean TTFT "
         f"{stats['ttft_mean_ms']:.1f} ms (max {stats['ttft_max_ms']:.1f} "
-        f"ms, all submitted at once); resident parameters "
-        f"{param_bytes(model) / 1e9:.3f} GB, KV pools {kv_bytes / 1e9:.3f} "
+        f"ms, all submitted at once; p50 {_pctl(ttft, 50):.1f} ms, "
+        f"p95 {_pctl(ttft, 95):.1f} ms); resident parameters "
+        f"{resident / 1e9:.3f} GB, KV pools {kv_bytes / 1e9:.3f} "
         f"GB, peak memory {peak:.2f} GiB")
     log(f"{label}: launches {launches} = {cfg.num_layers} layers x "
         f"({stats['prefills']} prefills, {stats['decode_steps']} decode "
         "steps)")
+    run = ({c.rid: (c.tokens, eng.logit_log[c.rid]) for c in comps}
+           if keep_logits else None)
     del eng
-    return launches, profile_phase(torch, model, econf, rng)
+    return launches, profile_phase(torch, model, econf, rng), run
 
 
 def slice_phase(torch):
@@ -1133,8 +1177,8 @@ def int8_slice_phase(torch):
         "are freed")
     econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16,
                          quant="int8-kv")
-    launches, busy = _serve_slice(torch, model, econf, "int8 slice",
-                                  "paged_decode_int8")
+    launches, busy, _ = _serve_slice(torch, model, econf, "int8 slice",
+                                     "paged_decode_int8")
     # the dequantization a decode step runs, alone: every int8 weight to
     # its compute type once
     qlinears = [m for m in model.modules() if isinstance(m, QuantLinear)]
@@ -2464,13 +2508,15 @@ def _audit_run(torch, model) -> dict:
 def _train_run(torch, cfg, policy_name, batches, remat=True,
                first_grads=None):
     """Steps of the LM train step on fresh fp32 master weights drawn from
-    SEED, AdamW (lr 1e-4, weight decay 0.1); returns the state, the step
-    function and the losses and grad norms (tensors). A dict passed as
-    ``first_grads`` receives a copy of each parameter's first-step
-    gradient."""
+    SEED (``init_gpt2`` for a GPT-2 config, else ``init_llama``), AdamW
+    (lr 1e-4, weight decay 0.1); returns the state, the step function and
+    the losses and grad norms (tensors). A dict passed as ``first_grads``
+    receives a copy of each parameter's first-step gradient."""
     from move2kube_tpu_torch import (
+        GPT2Config,
         TrainState,
         adamw,
+        init_gpt2,
         init_llama,
         instrument_optimizer,
         make_lm_train_step,
@@ -2478,7 +2524,8 @@ def _train_run(torch, cfg, policy_name, batches, remat=True,
     )
 
     pol = policy(policy_name)
-    model = init_llama(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    init = init_gpt2 if isinstance(cfg, GPT2Config) else init_llama
+    model = init(cfg, seed=SEED, device="cuda", dtype=torch.float32)
     opt = instrument_optimizer(pol.wrap_optimizer(adamw(
         model.parameters(), 1e-4, weight_decay=0.1)))
     state = TrainState(model, opt)
@@ -2536,15 +2583,17 @@ def train_parity_phase(torch) -> None:
     bf16_train_parity(torch, cfg, batches)
 
 
-def bf16_train_parity(torch, cfg, batches) -> None:
+def bf16_train_parity(torch, cfg, batches, label="llama_8b widths") -> None:
     """The same weights and batches in the bf16 policy: 3 steps with the
     flash kernels (the tensor-core forward, and the backward kernels
-    reading its o and lse) against dense attention, held to
+    reading its o and lse) against dense attention (GPT-2, which has no
+    einsum path: the plain attention swapped in), held to
     source/validate.py's loss and grad-norm gates."""
     runs = {}
     for impl in ("flash", "dense"):
-        state, _, losses, norms = _train_run(
-            torch, dataclasses.replace(cfg, attn_impl=impl), "bf16", batches)
+        with _attention_impl(cfg, impl) as run_cfg:
+            state, _, losses, norms = _train_run(torch, run_cfg, "bf16",
+                                                 batches)
         runs[impl] = ([float(x) for x in losses], float(norms[0]))
         del state
         torch.cuda.empty_cache()
@@ -2558,7 +2607,7 @@ def bf16_train_parity(torch, cfg, batches) -> None:
             f"{dl} / {dn}: loss rel err {loss_rel:.3e} (tol "
             f"{BF16_TRAIN_LOSS_REL}), grad norm rel err {norm_rel:.3e} (tol "
             f"{BF16_TRAIN_GRAD_NORM_REL})")
-    log(f"train parity: llama_8b widths, 2 layers, bf16 policy, batch 2 x "
+    log(f"train parity: {label}, 2 layers, bf16 policy, batch 2 x "
         f"1024, 3 AdamW steps: flash losses {fl} vs dense {dl}, max rel err "
         f"{loss_rel:.3e} (tol {BF16_TRAIN_LOSS_REL}); first grad norm "
         f"{fn:.6f} vs {dn:.6f}, rel err {norm_rel:.3e} (tol "
@@ -2680,6 +2729,578 @@ def profile_phase(torch, model, econf, rng) -> float:
                      lambda: [eng.step() for _ in range(4)]) / 4
 
 
+@contextlib.contextmanager
+def _attention_impl(cfg, impl: str):
+    """``cfg`` with its attention on the kernels (``"flash"``) or on the
+    plain dense path (``"dense"``). Llama has a dense ``attn_impl``;
+    GPT-2 has none (its blocks always call ``flash_attention``), so for
+    it the plain version, ``reference_attention``, is swapped in for the
+    duration: the dense side of a parity check."""
+    from move2kube_tpu_torch import GPT2Config
+    from move2kube_tpu_torch.models import gpt2
+    from move2kube_tpu_torch.ops.attention import reference_attention
+
+    if not isinstance(cfg, GPT2Config):
+        yield dataclasses.replace(cfg, attn_impl=impl)
+        return
+    saved = gpt2.flash_attention
+    if impl == "dense":
+        gpt2.flash_attention = lambda q, k, v, causal: reference_attention(
+            q, k, v, causal, q.shape[-1] ** -0.5)
+    try:
+        yield cfg
+    finally:
+        gpt2.flash_attention = saved
+
+
+def gpt2_kernels_phase(torch) -> dict:
+    """Every kernel at GPT-2 small's attention (MHA: h = kvh = 12, d = 64),
+    the shapes its slices give them: the flash forward at a 1024-token
+    prefill, paged decode over fp and int8 pools at the decode batch of 8
+    with lengths up to n_positions (1024), and the backward kernels (and
+    the forward with lse) at the training slice's batch of 8 x 1024.
+    Checked by the same rules as the Llama shapes, timed beside the plain
+    versions and SDPA, with their bounds."""
+    return {"flash_fwd": flash_phase(torch, h=12, kvh=12, d=64,
+                                     lengths=(1024,))[0],
+            "paged_decode": paged_phase(torch, h=12, kvh=12, d=64,
+                                        max_seq=1024),
+            "paged_decode_int8": paged_int8_phase(torch, h=12, kvh=12, d=64,
+                                                  max_seq=1024),
+            "bwd": bwd_phase(torch, b=8, s=1024, h=12, kvh=12, d=64)}
+
+
+def _quant_rows_gate(ref, got) -> tuple[float, int, list]:
+    """``logit_gate`` over each request's agreed greedy prefix and the
+    first row after it; ``ref``/``got``: rid -> (tokens, logit rows).
+    Returns the worst max-rel error, the rows compared and the agreed
+    token counts."""
+    from move2kube_tpu_torch import logit_gate
+
+    worst, rows, agreed = 0.0, 0, []
+    for rid, (a_t, a_rows) in ref.items():
+        b_t, b_rows = got[rid]
+        agree = _greedy_prefix(a_t, b_t)
+        agreed.append(agree)
+        for i in range(min(agree + 1, len(a_rows), len(b_rows))):
+            worst = max(worst, logit_gate(a_rows[i],
+                                          b_rows[i])["max_rel_err"])
+            rows += 1
+    return worst, rows, agreed
+
+
+def gpt2_parity_phase(torch) -> None:
+    """GPT-2 small's widths at 2 layers in fp32 (seed-0 weights from
+    ``init_gpt2``), 8 prompts: the flash engine against plain greedy full
+    forwards (the plain attention swapped in), streams identical and
+    logits within FP32_ENGINE_ATOL; the int8-kv engine with the prefix
+    cache on prompts that share prefixes, held by the quant gate against
+    the fp32 engine; spec decode (k=3, a 1-layer draft), streams equal to
+    plain greedy; one LoRA row beside base rows, its stream equal to the
+    plain forward's with the adapter's delta."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        gpt2_small,
+        init_gpt2,
+    )
+
+    cfg = dataclasses.replace(gpt2_small(), num_layers=2,
+                              dtype=torch.float32)
+    model = init_gpt2(cfg, seed=SEED, device="cuda").eval()
+    rng = np.random.default_rng(SEED + 9)
+    lengths, n_new = (37, 100, 250, 300, 512, 640, 777, 900), 8
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in lengths]
+    base = EngineConfig(max_batch=8, max_seq=1024, block_size=16)
+
+    def reqs(ps, adapters=None):
+        return [Request(f"p{i}", p, n_new,
+                        adapter=(adapters or {}).get(i, ""))
+                for i, p in enumerate(ps)]
+
+    eng = ServingEngine(model, base, device="cuda")
+    eng.capture_logits = True
+    comps = {c.rid: c for c in eng.run(reqs(prompts))}
+    worst = 0.0
+    want = {}
+    with _attention_impl(cfg, "dense"):
+        for i, p in enumerate(prompts):
+            want[f"p{i}"], rows = _greedy_dense(torch, model, p, n_new)
+            if comps[f"p{i}"].tokens != want[f"p{i}"]:
+                raise RuntimeError(f"gpt2 parity: prompt {i} stream "
+                                   f"{comps[f'p{i}'].tokens} != plain "
+                                   f"{want[f'p{i}']}")
+            for j in (0, 1):
+                err = float(np.abs(eng.logit_log[f"p{i}"][j]
+                                   - rows[j].float().cpu().numpy()).max())
+                worst = max(worst, err)
+                if err > FP32_ENGINE_ATOL:
+                    raise RuntimeError(
+                        f"gpt2 parity: prompt {i} logits row {j} max abs "
+                        f"err {err} > {FP32_ENGINE_ATOL}")
+    log(f"gpt2 parity: gpt2_small widths, 2 layers, fp32, prompts "
+        f"{list(lengths)} x {n_new} tokens: streams identical to plain "
+        f"greedy, prefill/first-decode logits max abs err {worst:.3e} (tol"
+        f" {FP32_ENGINE_ATOL})")
+    del eng
+    # int8-kv with the prefix cache: 4 more prompts on the first four's
+    # prefixes (block-aligned and not), against the fp32 engine
+    shared = prompts + [prompts[i][:k] + rng.integers(
+        1, cfg.vocab_size, size=9).tolist()
+        for i, k in ((1, 96), (3, 250), (5, 512), (7, 800))]
+    runs = {}
+    for name, econf in (("fp32", base), ("int8-kv", dataclasses.replace(
+            base, quant="int8-kv", prefix_cache=True))):
+        eng = ServingEngine(model, econf, device="cuda")
+        eng.capture_logits = True
+        got = eng.run(reqs(shared))
+        runs[name] = {c.rid: (c.tokens, eng.logit_log[c.rid]) for c in got}
+        hits = eng.stats().get("prefix_hits", 0)
+        del eng
+    q_worst, q_rows, agreed = _quant_rows_gate(runs["fp32"], runs["int8-kv"])
+    if not (q_worst < QUANT_GATE_REL and q_rows >= len(shared) and hits):
+        raise RuntimeError(f"gpt2 parity: int8-kv + prefix cache vs fp32 max"
+                           f" rel err {q_worst:.4f} over {q_rows} rows (tol "
+                           f"{QUANT_GATE_REL}), prefix hits {hits}")
+    log(f"gpt2 parity: int8-kv engine with the prefix cache, 12 prompts "
+        f"({hits} prefix hits) vs the fp32 engine: greedy tokens agreed {agreed} "
+        f"of {n_new}, max rel logit err {q_worst:.4f} over {q_rows} rows "
+        f"(tol {QUANT_GATE_REL})")
+    eng = ServingEngine(model, dataclasses.replace(
+        base, spec_k=3, spec_draft_factor=2), device="cuda")
+    spec = {c.rid: c.tokens for c in eng.run(reqs(prompts))}
+    st = eng.stats()
+    del eng
+    if spec != want:
+        raise RuntimeError(f"gpt2 parity: spec decode streams {spec} != "
+                           f"plain greedy {want}")
+    log(f"gpt2 parity: spec decode (k=3, a 1-layer draft) streams identical "
+        f"to plain greedy; acceptance {st['spec_acceptance_rate']:.3f}, "
+        f"{st['passes']['verify']} verify passes")
+    # one LoRA row (rank 8) beside base rows, against the plain forward
+    # with the same adapter's delta
+    gen = np.random.default_rng(SEED + 10)
+    a = (gen.normal(size=(cfg.d_model, 8)) * 0.1).astype(np.float32)
+    b = (gen.normal(size=(8, cfg.vocab_size)) * 0.1).astype(np.float32)
+    eng = ServingEngine(model, dataclasses.replace(
+        base, max_loras=1, lora_rank=8), device="cuda")
+    eng.register_adapter("x", a, b)
+    eng.capture_logits = True
+    lora = {c.rid: c for c in eng.run(reqs(prompts[:4], {2: "x"}))}
+    stack = (torch.from_numpy(np.stack([np.zeros_like(a), a])).cuda(),
+             torch.from_numpy(np.stack([np.zeros_like(b), b])).cuda(),
+             torch.tensor([1], device="cuda"))
+    with _attention_impl(cfg, "dense"):
+        l_want, l_rows = _greedy_dense(torch, model, prompts[2], n_new,
+                                       lora=stack)
+    l_err = float(np.abs(eng.logit_log["p2"][0]
+                         - l_rows[0].float().cpu().numpy()).max())
+    del eng
+    base_ok = all(lora[f"p{i}"].tokens == want[f"p{i}"] for i in (0, 1, 3))
+    if not (lora["p2"].tokens == l_want and base_ok
+            and l_err <= FP32_ENGINE_ATOL):
+        raise RuntimeError(f"gpt2 parity: LoRA row {lora['p2'].tokens} vs "
+                           f"plain {l_want} (first row err {l_err}), base "
+                           f"rows equal: {base_ok}")
+    log(f"gpt2 parity: a rank-8 LoRA row beside 3 base rows: its stream "
+        f"identical to the plain forward's with the adapter's delta on the "
+        f"tied head (first logits row max abs err {l_err:.3e}), the base "
+        "rows' to plain greedy")
+    del model
+    torch.cuda.empty_cache()
+
+
+def gpt2_slice_phase(torch) -> tuple[dict, dict]:
+    """GPT-2 small at full width and depth (12 layers, d 768, 12 heads,
+    vocab 50257, n_positions 1024; 124 M parameters), bf16, flash,
+    ``EngineConfig(max_batch=8, max_seq=1024, block_size=16)``: 16
+    requests at once, prompts from seed 2 in 64..768, 64 new tokens; then
+    the same under ``quant="int8-kv"``, held to the quant gate against the
+    bf16 run. Returns both runs' launch counts."""
+    from move2kube_tpu_torch import EngineConfig, gpt2_small, init_gpt2
+
+    cfg = gpt2_small()
+    t0 = time.perf_counter()
+    model = init_gpt2(cfg, seed=SEED, device="cuda").eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"gpt2 slice: gpt2_small ({n_params / 1e6:.1f} M params), bf16 "
+        f"weights drawn on the card in {time.perf_counter() - t0:.1f} s")
+    econf = EngineConfig(max_batch=8, max_seq=1024, block_size=16)
+    launches, _, ref = _serve_slice(torch, model, econf, "gpt2 slice",
+                                    "paged_decode", max_prompt=768,
+                                    keep_logits=True)
+    launches8, _, got = _serve_slice(
+        torch, model, dataclasses.replace(econf, quant="int8-kv"),
+        "gpt2 int8-kv slice", "paged_decode_int8", max_prompt=768,
+        keep_logits=True)
+    worst, rows, agreed = _quant_rows_gate(ref, got)
+    if not (worst < QUANT_GATE_REL and rows >= len(ref)):
+        raise RuntimeError(f"gpt2 int8-kv slice: max rel err {worst:.4f} "
+                           f"over {rows} rows (tol {QUANT_GATE_REL})")
+    log(f"gpt2 int8-kv slice vs the bf16 slice: greedy tokens agreed "
+        f"{sorted(agreed)} of 64, max rel logit err {worst:.4f} over {rows}"
+        f" rows (tol {QUANT_GATE_REL})")
+    del model, ref, got
+    torch.cuda.empty_cache()
+    return launches, launches8
+
+
+def gpt2_train_phase(torch) -> dict:
+    """GPT-2 small at full depth: fp32 masters, the bf16 policy, AdamW,
+    remat, the head-folded chunked loss over the tied head, batch 8 x 1024
+    from a seed, 5 timed steps whose launches show every layer's forward,
+    recompute and backward in the kernels at d=64; then the bf16 training
+    parity gate at 2 layers, flash against the plain attention."""
+    import numpy as np
+
+    from move2kube_tpu_torch import gpt2_small, pick_chunk, reset_launch_counts
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    batch, seq, timed = 8, 1024, 5
+    cfg = gpt2_small()
+    layers = cfg.num_layers
+    rng = np.random.default_rng(SEED + 11)
+    batches = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (timed + 1, batch, seq))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step, _, _ = _train_run(torch, cfg, "bf16", batches[:1])
+    torch.cuda.synchronize()
+    log(f"gpt2 train: gpt2_small, fp32 masters, bf16 policy, AdamW, remat, "
+        f"head-folded CE over the tied head in chunks of "
+        f"{pick_chunk(cfg.vocab_size, 2048)}; set-up and warm-up step "
+        f"{time.perf_counter() - t0:.1f} s")
+    losses = []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids in batches[1:]:
+        state, loss = step(state, {"input_ids": ids})
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    losses = [float(x) for x in losses]
+    want = {"flash_fwd": 2 * layers * timed, "flash_bwd_dq": layers * timed,
+            "flash_bwd_dkv": layers * timed, "paged_decode": 0,
+            "paged_decode_int8": 0}
+    if launches != want or not np.isfinite(losses).all():
+        raise RuntimeError(f"gpt2 train: launches {launches}, expected "
+                           f"{want}; losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"gpt2 train: {timed} steps of batch {batch} x {seq}: "
+        f"{wall / timed * 1e3:.1f} ms/step, {timed * batch * seq / wall:.1f}"
+        f" tokens/s, peak memory {peak:.2f} GiB; losses {losses}; launches "
+        f"{launches} = {layers} layers x {timed} steps x (forward + remat "
+        "recompute, dq, dkv)")
+    del state, step
+    torch.cuda.empty_cache()
+    parity = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (3, 2, 1024))).cuda()
+    bf16_train_parity(torch, dataclasses.replace(cfg, num_layers=2), parity,
+                      label="gpt2_small widths (d=64 kernels)")
+    return launches
+
+
+def _moe_cfg(layers: int, **kw):
+    from move2kube_tpu_torch import llama_8b
+
+    # what the JAX trainer builds for M2KT_MOE_EXPERTS=8 on the Llama-8B
+    # config (train_tpu.py): Mixtral-8x7B's widths
+    return dataclasses.replace(llama_8b(), num_layers=layers, moe_experts=8,
+                               moe_top_k=2, attn_impl="flash", **kw)
+
+
+def moe_parity_phase(torch) -> None:
+    """The MoE Llama at 2 layers in fp32: the engine with the attention in
+    the kernels against the same weights on the dense path, at the same
+    pass shapes (routing depends on each pass's tokens): streams
+    identical, logits within FP32_ENGINE_ATOL."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        init_llama,
+    )
+
+    cfg = _moe_cfg(2, dtype=torch.float32)
+    model = init_llama(cfg, seed=SEED, device="cuda").eval()
+    rng = np.random.default_rng(SEED + 12)
+    lengths, n_new = (37, 300, 777, 1200), 8
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in lengths]
+    econf = EngineConfig(max_batch=4, max_seq=1280, block_size=16)
+    runs = {}
+    for impl in ("flash", "dense"):
+        dense = dataclasses.replace(cfg, attn_impl=impl)
+        model.cfg = dense
+        for layer in model.layers:
+            layer.cfg = dense
+        eng = ServingEngine(model, econf, device="cuda")
+        eng.capture_logits = True
+        runs[impl] = {c.rid: (c.tokens, eng.logit_log[c.rid])
+                      for c in eng.run([Request(f"p{i}", p, n_new)
+                                        for i, p in enumerate(prompts)])}
+        del eng
+    worst = 0.0
+    for rid, (toks, rows) in runs["flash"].items():
+        d_toks, d_rows = runs["dense"][rid]
+        if toks != d_toks:
+            raise RuntimeError(f"moe parity: {rid} stream {toks} != dense "
+                               f"{d_toks}")
+        for a, b in zip(rows, d_rows):
+            worst = max(worst, float(np.abs(a - b).max()))
+    if worst > FP32_ENGINE_ATOL:
+        raise RuntimeError(f"moe parity: logits max abs err {worst} > "
+                           f"{FP32_ENGINE_ATOL}")
+    log(f"moe parity: llama_8b + 8 experts top-2, 2 layers, fp32, prompts "
+        f"{list(lengths)} x {n_new} tokens: the engine on the kernels and "
+        f"on dense attention stream identical tokens, every logits row "
+        f"within {worst:.3e} (tol {FP32_ENGINE_ATOL})")
+    del model
+    torch.cuda.empty_cache()
+
+
+def moe_slice_phase(torch) -> dict:
+    """The repo's MoE Llama (``llama_8b()`` with ``moe_experts=8,
+    moe_top_k=2``: Mixtral-8x7B's widths) cut to 8 of its 32 layers, bf16,
+    flash, ``EngineConfig(max_batch=8, max_seq=2048, block_size=16)``, 16
+    requests from seed 2 in 64..1536, 32 new tokens; launches exact. Then
+    the same requests on a fresh engine with a hook on each MoE block
+    counting the (token, expert) assignments dropped over capacity in
+    each pass: its streams equal the timed run's. Returns the timed run's
+    launch counts."""
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        MoEMlp,
+        Request,
+        ServingEngine,
+        init_llama,
+        top_k_routing,
+    )
+    from move2kube_tpu_torch.models.moe import capacity_for
+
+    moe_parity_phase(torch)
+    cfg = _moe_cfg(8)
+    t0 = time.perf_counter()
+    model = init_llama(cfg, seed=SEED, device="cuda").eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe slice: llama_8b + 8 experts top-2, 8 of 32 layers "
+        f"({n_params / 1e9:.3f} B params; 32 layers would hold 46.7 B, 93 "
+        f"GB in bf16), bf16 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16)
+    launches, _, run = _serve_slice(torch, model, econf, "moe slice",
+                                    "paged_decode", n_new=32,
+                                    keep_logits=True)
+    passes = []  # per MoE call: (tokens, dropped assignments), on device
+
+    def hook(mod, inputs, _out):
+        x = inputs[0]
+        t = x.shape[0] * x.shape[1]
+        cap = capacity_for(t, mod.num_experts, mod.top_k,
+                           mod.capacity_factor)
+        dispatch, _, _ = top_k_routing(mod.router_logits(x.reshape(t, -1)),
+                                       mod.num_experts, mod.top_k, cap)
+        passes.append((t, t * mod.top_k - dispatch.sum()))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, MoEMlp)]
+    rng = np.random.default_rng(SEED + 2)
+    lengths = rng.integers(64, 1537, size=16)
+    reqs = [Request(f"r{i}", rng.integers(1, cfg.vocab_size,
+                                          size=int(n)).tolist(), 32)
+            for i, n in enumerate(lengths)]
+    counted = {c.rid: c.tokens for c in ServingEngine(
+        model, econf, device="cuda").run(reqs)}
+    for h in handles:
+        h.remove()
+    if counted != {rid: toks for rid, (toks, _) in run.items()}:
+        raise RuntimeError("moe slice: the counted run's streams differ "
+                           "from the timed run's")
+    layers = cfg.num_layers
+    per_pass = [(passes[i][0], int(sum(float(d) for _, d in
+                                       passes[i:i + layers])))
+                for i in range(0, len(passes), layers)]
+    prefill = [d for t, d in per_pass if t > econf.max_batch]
+    decode = [d for t, d in per_pass if t == econf.max_batch]
+    log(f"moe slice: (token, expert) assignments dropped over capacity, "
+        f"summed over the 8 layers of each pass: prefills {prefill} (of "
+        f"{[t * 2 * layers for t, _ in per_pass if t > econf.max_batch]}); "
+        f"{len(decode)} decode passes of 8 rows (capacity 3 an expert, idle"
+        f" rows included): {sum(decode)} in all, at most {max(decode)} in "
+        f"one, {sum(1 for d in decode if d)} passes with any")
+    del model, run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train_phase(torch) -> dict:
+    """The MoE Llama's widths at 1 layer (1.71 B parameters; fp32 masters,
+    AdamW and grads about 31 GB), the bf16 policy, batch 2 x 2048, 3 timed
+    steps. Gates: the step's loss is the LM loss plus 0.01 x the aux loss
+    (both recomputed from the same weights and batch before the step),
+    and every loss is finite."""
+    import numpy as np
+
+    from move2kube_tpu_torch import policy, reset_launch_counts
+    from move2kube_tpu_torch.ops.attention import KERNELS
+    from move2kube_tpu_torch.ops.crossentropy import (
+        linear_lm_loss,
+        lm_head_weight,
+    )
+
+    cfg = _moe_cfg(1)
+    timed = 3
+    rng = np.random.default_rng(SEED + 13)
+    batches = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (timed + 1, 2, 2048))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step, _, _ = _train_run(torch, cfg, "bf16", batches[:1])
+    torch.cuda.synchronize()
+    model = state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe train: llama_8b + 8 experts top-2, 1 layer "
+        f"({n_params / 1e9:.3f} B params, fp32 masters), bf16 policy, AdamW,"
+        f" remat; set-up and warm-up step {time.perf_counter() - t0:.1f} s")
+    # the loss's parts, from the same weights and the first timed batch
+    with torch.no_grad():
+        params = policy("bf16").cast_params(dict(model.named_parameters()))
+        hidden = torch.func.functional_call(
+            model, params, (batches[1],), {"return_hidden": True})
+        aux = float(model.moe_aux)
+        model.moe_aux = None
+        lm = float(linear_lm_loss(hidden, lm_head_weight(params),
+                                  batches[1]))
+        del hidden, params
+    losses = []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids in batches[1:]:
+        state, loss = step(state, {"input_ids": ids})
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    losses = [float(x) for x in losses]
+    gap = abs(losses[0] - (lm + 0.01 * aux))
+    if not (np.isfinite(losses).all() and aux > 0
+            and gap < 0.1 * 0.01 * aux):
+        raise RuntimeError(f"moe train: first loss {losses[0]} vs LM loss "
+                           f"{lm} + 0.01 x aux {aux} (gap {gap}); losses "
+                           f"{losses}")
+    if launches["flash_bwd_dq"] != timed or launches["flash_fwd"] != (
+            2 * timed):
+        raise RuntimeError(f"moe train: launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"moe train: {timed} steps of batch 2 x 2048: "
+        f"{wall / timed * 1e3:.1f} ms/step, {timed * 4096 / wall:.1f} "
+        f"tokens/s, peak memory {peak:.2f} GiB; losses {losses}; the first "
+        f"is the LM loss {lm:.6f} + 0.01 x aux {aux:.6f} (gap {gap:.2e}); "
+        f"launches {launches}")
+    del state, step, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_phase(torch) -> None:
+    """BERT-base, ResNet-50 and the DDPM UNet, each through its own train
+    step at its full config in bf16 over fp32 parameters, AdamW, on one
+    fixed batch from a seed: a warm-up step, then 5 timed ones. Gate: the
+    loss falls over the steps on the repeated batch. BERT takes lr 1e-6:
+    from its random init, with no warmup, AdamW's first steps overshoot
+    at 1e-5 and above (the JAX package's step does the same), so its
+    loss jumps before it falls. None of these families runs a TPU kernel
+    in the JAX package, so no kernel of the port runs here: the launch
+    counts stay at 0."""
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        bert_base,
+        init_family,
+        make_bert_train_step,
+        make_classifier_train_step,
+        make_diffusion_train_step,
+        reset_launch_counts,
+        resnet50,
+        unet_small,
+    )
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def ints(high, *shape):
+        return torch.randint(0, high, shape, device="cuda", generator=gen)
+
+    def normal(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    bert = bert_base()
+    seq = bert.max_len
+    lens = ints(seq - seq // 4 + 1, 32) + seq // 4  # real tokens a row
+    bert_batch = {"input_ids": ints(bert.vocab_size, 32, seq),
+                  "attention_mask": (torch.arange(seq, device="cuda")[None]
+                                     < lens[:, None]),
+                  "label": ints(2, 32)}
+    families = (
+        ("bert_base", bert, make_bert_train_step(), bert_batch,
+         f"batch 32 x {seq}, padded mask (real lengths {seq // 4}..{seq})",
+         1e-6),
+        ("resnet50", resnet50(), make_classifier_train_step(
+            has_batch_stats=True),
+         {"input": normal(64, 224, 224, 3), "label": ints(1000, 64)},
+         "batch 64 x 224 x 224 x 3", 1e-3),
+        ("unet_small", unet_small(), make_diffusion_train_step(),
+         {"image": normal(64, 32, 32, 3), "noise": normal(64, 32, 32, 3),
+          "t": ints(1000, 64)}, "batch 64 x 32 x 32 x 3", 1e-4),
+    )
+    log("families: BERT, ResNet-50 and the UNet run no TPU kernel in the "
+        "JAX package (plain einsums and convolutions), so none of the "
+        "port's kernels runs here")
+    for name, cfg, step, batch, shape, lr in families:
+        model = init_family(cfg, seed=SEED, device="cuda")
+        n_params = sum(p.numel() for p in model.parameters())
+        state = TrainState(model, adamw(model.parameters(), lr, 0.01))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        state, first = step(state, batch)
+        losses = [float(first)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, loss = step(state, batch)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        launched = {k.name: k.launches for k in KERNELS if k.launches}
+        if not (losses[-1] < losses[0] and all(
+                x == x and abs(x) != float("inf") for x in losses)
+                and not launched):
+            raise RuntimeError(f"families: {name} losses {losses} (must "
+                               f"fall), kernel launches {launched}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"families: {name} ({n_params / 1e6:.1f} M params, fp32, bf16 "
+            f"compute), {shape}, AdamW lr {lr}: {wall / 5 * 1e3:.1f} "
+            f"ms/step over 5 steps after a warm-up, peak memory {peak:.2f} "
+            f"GiB; losses {[round(x, 5) for x in losses]}")
+        del state, model
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2701,6 +3322,7 @@ def main() -> int:
     paged_int8 = paged_int8_phase(torch)
     lse_err = lse_phase(torch)
     bwd = bwd_phase(torch)
+    gpt2_kernels = gpt2_kernels_phase(torch)
     parity_phase(torch)
     launches, model = slice_phase(torch)
     int8_launches = int8_slice_phase(torch)
@@ -2712,7 +3334,10 @@ def main() -> int:
     t_router = time.perf_counter()
     fleet_router_parity_phase(torch)
     router = fleet_router_slice_phase(torch, model)
+    # the fleet's engines and threads leave reference cycles that hold
+    # the model: collect them, so the later phases' peaks are their own
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     log(f"fleet router phases: {time.perf_counter() - t_router:.1f} s")
     # the main path's launches: the serving slices, and the fleet's
@@ -2721,8 +3346,24 @@ def main() -> int:
         launches[name] += n
     for name, n in router["audit"].items():
         (int8_launches if name == "paged_decode_int8" else launches)[name] += n
+    # the model families: GPT-2 served and trained, the MoE Llama served
+    # and trained, and BERT, ResNet-50 and the UNet's train steps
+    t_families = time.perf_counter()
+    gpt2_parity_phase(torch)
+    gpt2_serve, gpt2_serve8 = gpt2_slice_phase(torch)
+    moe_serve = moe_slice_phase(torch)
+    for part in (gpt2_serve, moe_serve):
+        for name in ("flash_fwd", "paged_decode"):
+            launches[name] += part[name]
+    launches["flash_fwd"] += gpt2_serve8["flash_fwd"]
+    int8_launches["paged_decode_int8"] += gpt2_serve8["paged_decode_int8"]
     train_parity_phase(torch)
     train_launches = train_slice_phase(torch)
+    for part in (gpt2_train_phase(torch), moe_train_phase(torch)):
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            train_launches[name] += part[name]
+    families_phase(torch)
+    log(f"model family phases: {time.perf_counter() - t_families:.1f} s")
     main_flash = flash_rows[-1]  # s=2048, the longest prefill bucket
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
@@ -2730,7 +3371,9 @@ def main() -> int:
          "replaces": "move2kube_tpu/ops/attention.py:302",
          "launches": launches["flash_fwd"],
          "max_abs_err": max([r["err"] for r in flash_rows]
-                            + [lse_err, bwd["flash_fwd"]["err"]]),
+                            + [lse_err, bwd["flash_fwd"]["err"],
+                               gpt2_kernels["flash_fwd"]["err"],
+                               gpt2_kernels["bwd"]["flash_fwd"]["err"]]),
          "ms": main_flash["ms"], "plain_ms": main_flash["plain_ms"],
          "bound_ms": main_flash["bound_ms"],
          "bound_by": main_flash["bound_by"],
@@ -2739,14 +3382,18 @@ def main() -> int:
          "source": "move2kube_tpu_torch/csrc/paged_decode.cu",
          "replaces": "move2kube_tpu/ops/attention.py:763",
          "launches": launches["paged_decode"],
-         "max_abs_err": paged["err"], "ms": paged["ms"],
+         "max_abs_err": max(paged["err"],
+                            gpt2_kernels["paged_decode"]["err"]),
+         "ms": paged["ms"],
          "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
          "bound_by": paged["bound_by"], "library_ms": None},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "move2kube_tpu_torch/csrc/paged_decode_int8.cu",
          "replaces": "move2kube_tpu/ops/attention.py:878",
          "launches": int8_launches["paged_decode_int8"],
-         "max_abs_err": paged_int8["err"], "ms": paged_int8["ms"],
+         "max_abs_err": max(paged_int8["err"],
+                            gpt2_kernels["paged_decode_int8"]["err"]),
+         "ms": paged_int8["ms"],
          "plain_ms": paged_int8["plain_ms"],
          "bound_ms": paged_int8["bound_ms"],
          "bound_by": paged_int8["bound_by"], "library_ms": None},
@@ -2757,7 +3404,8 @@ def main() -> int:
             {"name": name, "route": "cuda",
              "source": f"move2kube_tpu_torch/csrc/{name}.cu",
              "replaces": f"move2kube_tpu/ops/attention.py:{line}",
-             "launches": train_launches[name], "max_abs_err": row["err"],
+             "launches": train_launches[name],
+             "max_abs_err": max(row["err"], gpt2_kernels["bwd"][name]["err"]),
              "ms": row["ms"], "plain_ms": row["plain_ms"],
              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
              "library_ms": row["library_ms"]})

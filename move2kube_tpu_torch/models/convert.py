@@ -1,4 +1,4 @@
-"""Weights for the torch ``Llama``: from a flax parameter tree, or drawn on
+"""Weights for the port's models: from a flax parameter tree, or drawn on
 the device.
 
 :func:`params_from_jax` maps the JAX package's ``Llama`` params (as a
@@ -6,21 +6,24 @@ tree of numpy arrays, e.g. from ``jax.device_get``) onto the port's
 ``state_dict``: flax ``Dense`` kernels ``[in, out]`` become ``nn.Linear``
 weights ``[out, in]``, the fused ``qkv``/``gate_up`` projections stay
 fused, ``embed/embedding`` becomes the embedding table and the norms'
-``scale`` stays a vector. Matrices take ``cfg.dtype`` (what flax's
-``dtype=`` computes in); the norm scales and the lm-head stay fp32, as
-flax keeps and computes them. The JAX package's int8 tree
-(``serving/quant.quantize_variables``: each kernel a ``{"q8", "scale"}``
-leaf) maps onto a quantized model's buffers (``serving/quant.
-quantize_model``): ``q8`` transposed to ``[out, in]``, ``scale`` to
-``[out, 1]``.
+``scale`` stays a vector; GPT-2's, BERT's, ResNet's and the UNet's trees
+map the same way (flax ``Conv`` kernels ``[kh, kw, in, out]`` become
+``[out, in, kh, kw]``, ResNet's ``batch_stats`` the BatchNorm buffers).
+Matrices take ``cfg.dtype`` (what flax's ``dtype=`` computes in); the
+norm scales and the lm-head stay fp32, as flax keeps and computes them.
+The JAX package's int8 tree (``serving/quant.quantize_variables``: each
+kernel a ``{"q8", "scale"}`` leaf, a bias beside it as it was) maps onto
+a quantized model's buffers (``serving/quant.quantize_model``): ``q8``
+transposed to ``[out, in]``, ``scale`` to ``[out, 1]``.
 
 :func:`init_llama` builds a model and initialises it where it lives, in
 its own types, from a ``torch.Generator`` on that device, with flax's
 default distributions: lecun-normal (truncated at two standard
 deviations) for ``Dense``, normal with variance 1/d_model for ``Embed``,
-ones for the norms. Drawing the 8B weights on the host in fp32 would
-take 32 GB and minutes; on the card it takes seconds. The draws differ
-from ``jax.random``'s for the same seed.
+ones for the norms; :func:`init_gpt2` does the same for GPT-2 and
+:func:`init_family` for BERT, ResNet and the UNet. Drawing the 8B
+weights on the host in fp32 would take 32 GB and minutes; on the card it
+takes seconds. The draws differ from ``jax.random``'s for the same seed.
 
 Training keeps fp32 master weights: from the JAX package,
 ``params_from_jax(p, dataclasses.replace(cfg, dtype=torch.float32))``;
@@ -37,47 +40,205 @@ import numpy as np
 import torch
 
 from move2kube_tpu_torch._device import resolve_device
+from move2kube_tpu_torch.models.bert import BertConfig, BertEncoder
+from move2kube_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from move2kube_tpu_torch.models.layers import (
+    Conv,
+    Dense,
+    Embed,
+    lecun_normal_,
+)
 from move2kube_tpu_torch.models.llama import Llama, LlamaConfig
+from move2kube_tpu_torch.models.resnet import ResNet, ResNetConfig
+from move2kube_tpu_torch.models.unet import UNet, UNetConfig
 
 _LINEARS = ("qkv", "attn_out", "gate_up", "down")
+_MOE_EXPERTS = ("w_in", "w_gate", "w_out")
 _NORMS = ("attn_norm", "mlp_norm")
-# flax's lecun_normal: a unit normal truncated to [-2, 2] has this std
-_TRUNC_STD = 0.87962566103423978
+_GPT2_LINEARS = ("c_attn", "attn_out", "c_fc", "mlp_out")
 
 
-def params_from_jax(params: dict, cfg: LlamaConfig) -> dict:
-    """flax ``Llama`` params (numpy leaves; an outer ``{"params": ...}``
-    is accepted too), plain or int8 -> the torch ``Llama`` ``state_dict``
-    (CPU tensors); an int8 tree gives the ``state_dict`` of the quantized
-    model."""
+def _np32(x):
+    return np.asarray(x, np.float32)
+
+
+def _tensor(x, dtype=torch.float32):
+    return torch.from_numpy(np.array(x, np.float32)).to(dtype)
+
+
+def _dense_into(sd, prefix, leaf, dtype):
+    """A flax ``Dense`` leaf (``kernel [in, out]``, maybe ``bias``) as
+    ``nn.Linear`` entries: ``weight [out, in]``, or the int8 tree's
+    ``{"q8", "scale"}`` kernel as a :class:`QuantLinear`'s ``q8 [out, in]``
+    and ``scale [out, 1]``; the bias takes ``dtype`` too."""
+    kernel = leaf["kernel"]
+    if isinstance(kernel, dict) and set(kernel) == {"q8", "scale"}:
+        for key, t in (("q8", np.int8), ("scale", np.float32)):
+            sd[f"{prefix}.{key}"] = torch.from_numpy(
+                np.array(np.asarray(kernel[key], t).T, order="C"))
+    else:
+        sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            _np32(kernel).T)).to(dtype)
+    if "bias" in leaf:
+        sd[f"{prefix}.bias"] = _tensor(leaf["bias"], dtype)
+
+
+def _norm_into(sd, prefix, leaf):
+    sd[f"{prefix}.weight"] = _tensor(leaf["scale"])
+    sd[f"{prefix}.bias"] = _tensor(leaf["bias"])
+
+
+def _conv_into(sd, prefix, leaf):
+    """flax ``Conv`` kernel ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``."""
+    sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(
+        _np32(leaf["kernel"]).transpose(3, 2, 0, 1)))
+    if "bias" in leaf:
+        sd[f"{prefix}.bias"] = _tensor(leaf["bias"])
+
+
+def params_from_jax(params: dict, cfg) -> dict:
+    """A flax parameter tree (numpy leaves; an outer ``{"params": ...}``
+    is accepted too) -> the port's ``state_dict`` (CPU tensors), by the
+    config's family: ``LlamaConfig`` (MoE included; plain or int8),
+    ``GPT2Config`` (plain or int8), ``BertConfig``, ``ResNetConfig``
+    (pass the whole variables, ``{"params", "batch_stats"}``: the
+    running statistics become the norms' ``mean``/``var`` buffers) or
+    ``UNetConfig``. An int8 tree gives the ``state_dict`` of the
+    quantized model."""
     p = params.get("params", params)
+    for kind, fn in ((LlamaConfig, _llama_sd), (GPT2Config, _gpt2_sd),
+                     (BertConfig, _bert_sd), (UNetConfig, _unet_sd)):
+        if isinstance(cfg, kind):
+            return fn(p, cfg)
+    if isinstance(cfg, ResNetConfig):
+        return _resnet_sd(p, params.get("batch_stats"), cfg)
+    raise TypeError(f"params_from_jax: no mapping for {type(cfg).__name__}")
 
-    def mat(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(
-            np.asarray(x, np.float32).T)).to(dtype)
 
-    def linear(prefix, kernel, dtype):
-        if isinstance(kernel, dict) and set(kernel) == {"q8", "scale"}:
-            for key, t in (("q8", np.int8), ("scale", np.float32)):
-                sd[f"{prefix}.{key}"] = torch.from_numpy(
-                    np.array(np.asarray(kernel[key], t).T, order="C"))
-        else:
-            sd[f"{prefix}.weight"] = mat(kernel, dtype)
-
-    def vec(x):
-        return torch.from_numpy(np.array(x, np.float32))
-
-    sd = {"embed.weight": torch.from_numpy(
-        np.array(p["embed"]["embedding"], np.float32)).to(cfg.dtype)}
+def _llama_sd(p, cfg: LlamaConfig) -> dict:
+    sd = {"embed.weight": _tensor(p["embed"]["embedding"], cfg.dtype)}
     for i in range(cfg.num_layers):
         layer = p[f"layer_{i}"]
-        for name in _LINEARS:
-            linear(f"layers.{i}.{name}", layer[name]["kernel"], cfg.dtype)
+        names = _LINEARS[:2] if cfg.moe_experts else _LINEARS
+        for name in names:
+            _dense_into(sd, f"layers.{i}.{name}", layer[name], cfg.dtype)
+        if cfg.moe_experts:
+            moe = layer["moe"]
+            _dense_into(sd, f"layers.{i}.moe.router", moe["router"],
+                        torch.float32)
+            for name in _MOE_EXPERTS:
+                sd[f"layers.{i}.moe.{name}"] = _tensor(moe[name], cfg.dtype)
         for name in _NORMS:
-            sd[f"layers.{i}.{name}.scale"] = vec(layer[name]["scale"])
-    sd["final_norm.scale"] = vec(p["final_norm"]["scale"])
-    linear("lm_head", p["lm_head"]["kernel"], torch.float32)
+            sd[f"layers.{i}.{name}.scale"] = _tensor(layer[name]["scale"])
+    sd["final_norm.scale"] = _tensor(p["final_norm"]["scale"])
+    _dense_into(sd, "lm_head", p["lm_head"], torch.float32)
     return sd
+
+
+def _gpt2_sd(p, cfg: GPT2Config) -> dict:
+    sd = {f"{name}.weight": _tensor(p[name]["embedding"], cfg.dtype)
+          for name in ("wte", "wpe")}
+    for i in range(cfg.num_layers):
+        block = p[f"h_{i}"]
+        for name in _GPT2_LINEARS:
+            _dense_into(sd, f"h.{i}.{name}", block[name], cfg.dtype)
+        for name in ("ln_1", "ln_2"):
+            _norm_into(sd, f"h.{i}.{name}", block[name])
+    _norm_into(sd, "ln_f", p["ln_f"])
+    return sd
+
+
+def _bert_sd(p, cfg: BertConfig) -> dict:
+    sd = {f"{name}.weight": _tensor(p[name]["embedding"])
+          for name in ("tok_embed", "pos_embed", "seg_embed")}
+    _norm_into(sd, "embed_norm", p["LayerNorm_0"])
+    for i in range(cfg.num_layers):
+        layer, pre = p[f"BertLayer_{i}"], f"layers.{i}"
+        attn = layer["BertSelfAttention_0"]
+        for name in ("qkv", "out"):
+            _dense_into(sd, f"{pre}.attn.{name}", attn[name], torch.float32)
+        _norm_into(sd, f"{pre}.attn_norm", layer["LayerNorm_0"])
+        _dense_into(sd, f"{pre}.mlp_in", layer["Dense_0"], torch.float32)
+        _dense_into(sd, f"{pre}.mlp_out", layer["Dense_1"], torch.float32)
+        _norm_into(sd, f"{pre}.mlp_norm", layer["LayerNorm_1"])
+    for name in ("pooler", "classifier"):
+        _dense_into(sd, name, p[name], torch.float32)
+    return sd
+
+
+def _bn_into(sd, prefix, leaf, stats):
+    _norm_into(sd, prefix, leaf)
+    if stats is not None:
+        sd[f"{prefix}.mean"] = _tensor(stats["mean"])
+        sd[f"{prefix}.var"] = _tensor(stats["var"])
+
+
+def _resnet_sd(p, stats, cfg: ResNetConfig) -> dict:
+    stats = stats or {}
+    sd = {}
+    _conv_into(sd, "stem_conv", p["Conv_0"])
+    _bn_into(sd, "stem_norm", p["BatchNorm_0"], stats.get("BatchNorm_0"))
+    for i in range(sum(cfg.stage_sizes)):
+        name = f"BottleneckBlock_{i}"
+        block, bstats = p[name], stats.get(name, {})
+        pairs = [("conv1", "norm1", 0), ("conv2", "norm2", 1),
+                 ("conv3", "norm3", 2)]
+        if "Conv_3" in block:
+            pairs.append(("proj_conv", "proj_norm", 3))
+        for conv, norm, j in pairs:
+            _conv_into(sd, f"blocks.{i}.{conv}", block[f"Conv_{j}"])
+            _bn_into(sd, f"blocks.{i}.{norm}", block[f"BatchNorm_{j}"],
+                     bstats.get(f"BatchNorm_{j}"))
+    _dense_into(sd, "head", p["Dense_0"], torch.float32)
+    return sd
+
+
+def _unet_sd(p, cfg: UNetConfig) -> dict:
+    sd = {}
+
+    def walk(prefix, node):
+        if "kernel" in node:
+            if np.ndim(node["kernel"]) == 4:
+                _conv_into(sd, prefix, node)
+            else:
+                _dense_into(sd, prefix, node, torch.float32)
+        elif "scale" in node:
+            _norm_into(sd, prefix, node)
+        else:
+            for key, sub in node.items():
+                walk(f"{prefix}.{key}" if prefix else key, sub)
+
+    walk("", p)
+    return sd
+
+
+def _init_linear_like(model, gen) -> None:
+    """flax's default draws over a model's layers: lecun-normal kernels
+    (a convolution's fan-in counts its window), zero biases, embeddings
+    normal with variance 1/features; norms keep ones and zeros."""
+    for mod in model.modules():
+        if isinstance(mod, (Dense, Conv)):
+            lecun_normal_(mod.weight, mod.weight[0].numel(), gen)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, Embed):
+            mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.weight.shape[1]),
+                               generator=gen)
+
+
+@torch.no_grad()
+def init_family(cfg, seed: int = 0, device=None):
+    """A BERT, ResNet or UNet (by ``cfg``'s type) with fp32 weights drawn
+    on ``device`` (the card by default) from ``seed`` with flax's default
+    distributions, and fresh BatchNorm statistics."""
+    dev = resolve_device(device)
+    models = {BertConfig: BertEncoder, ResNetConfig: ResNet,
+              UNetConfig: UNet}
+    model = models[type(cfg)](cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    _init_linear_like(model, gen)
+    return model
 
 
 @torch.no_grad()
@@ -86,26 +247,53 @@ def init_llama(cfg: LlamaConfig, seed: int = 0, device=None,
     """A ``Llama`` with random weights drawn on ``device`` (the card by
     default) from ``seed``. ``dtype`` overrides ``cfg.dtype``:
     ``dtype=torch.float32`` gives the fp32 master weights a training step
-    updates. One seed gives the same draws whatever ``attn_impl`` is."""
+    updates. One seed gives the same draws whatever ``attn_impl`` is. An
+    MoE block's expert weights ``[E, in, out]`` take flax's
+    ``lecun_normal`` fan-in over them, ``E * in``."""
     dev = resolve_device(device)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     model = Llama(cfg, device=dev)
+    _draw_lm(model, seed, dev, embeds=("embed.weight",))
+    return model
+
+
+@torch.no_grad()
+def init_gpt2(cfg: GPT2Config, seed: int = 0, device=None,
+              dtype: torch.dtype | None = None) -> GPT2:
+    """A ``GPT2`` with random weights drawn on ``device`` (the card by
+    default) from ``seed``, as :func:`init_llama` draws them: lecun-normal
+    projections with zero biases, normal embeddings of variance
+    1/d_model, LayerNorms of ones and zeros. ``dtype`` overrides
+    ``cfg.dtype`` (``torch.float32`` for training's master weights)."""
+    dev = resolve_device(device)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = GPT2(cfg, device=dev)
+    _draw_lm(model, seed, dev, embeds=("wte.weight", "wpe.weight"))
+    return model
+
+
+def _draw_lm(model, seed: int, dev, embeds) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    norms = {name for name, mod in model.named_modules()
+             if type(mod).__name__ in ("RMSNorm", "LayerNorm")}
+    d_model = model.cfg.d_model
     for name, param in model.named_parameters():
-        if name.endswith(".scale"):
-            param.fill_(1.0)
-            continue
-        # draw in fp32 (one matrix at a time), then cast into the param
-        draw = torch.empty(param.shape, dtype=torch.float32, device=dev)
-        if name == "embed.weight":
-            draw.normal_(0.0, 1.0 / math.sqrt(cfg.d_model), generator=gen)
+        owner, _, leaf = name.rpartition(".")
+        if owner in norms:
+            param.fill_(1.0 if leaf in ("scale", "weight") else 0.0)
+        elif leaf == "bias":
+            param.zero_()
+        elif name in embeds:
+            # draw in fp32 (one matrix at a time), then cast into the param
+            draw = torch.empty(param.shape, dtype=torch.float32, device=dev)
+            draw.normal_(0.0, 1.0 / math.sqrt(d_model), generator=gen)
+            param.copy_(draw)
+            del draw
         else:
-            fan_in = param.shape[1]  # nn.Linear weight is [out, in]
-            std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
-            torch.nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std,
-                                        2.0 * std, generator=gen)
-        param.copy_(draw)
-        del draw
-    return model
+            # nn.Linear weight [out, in]; expert weights [E, in, out]
+            fan_in = (param.shape[1] if param.ndim == 2
+                      else param.shape[0] * param.shape[1])
+            lecun_normal_(param, fan_in, gen)

@@ -24,8 +24,12 @@ cache (one that carries ``k_scale``/``v_scale``) gets each new token's
 rows quantized, and its scales passed on. The projections may be the
 int8 layers of :func:`move2kube_tpu_torch.serving.quant.quantize_model`.
 The multi-LoRA logit delta (``lora=``) is added to the fp32 logits in
-every mode, as the JAX model adds it. MoE, ring and ulysses attention are
-not ported yet (ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
+every mode, as the JAX model adds it. With ``moe_experts > 0`` each
+block's MLP is :class:`~move2kube_tpu_torch.models.moe.MoEMlp` (named
+``moe``, as in the JAX model); its load-balancing loss reaches the
+train step through ``Llama.moe_aux`` (see :meth:`Llama.forward`). Ring
+and ulysses attention are not ported yet (ROADMAP.md, Queue 1 item 9)
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from move2kube_tpu_torch._device import resolve_device
+from move2kube_tpu_torch.models.moe import MoEMlp
 from move2kube_tpu_torch.ops.attention import (
     flash_attention,
     paged_decode_attention,
@@ -60,7 +65,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "dense"  # dense | flash
-    moe_experts: int = 0      # MoE is not ported yet
+    moe_experts: int = 0      # 0 = dense MLP; >0 = MoE (models/moe.py)
+    moe_top_k: int = 2
 
     @property
     def head_dim(self) -> int:
@@ -78,10 +84,6 @@ def llama_tiny() -> LlamaConfig:
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md Queue 1 item 6, "
-            "models/moe.py)")
     if cfg.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP.md "
@@ -130,6 +132,32 @@ def _lora_delta(x32, lora):
     return torch.einsum("bsr,brv->bsv", u, bv)
 
 
+def paged_attention_step(q, k, v, pos, cache):
+    """Single-token decode against the paged cache: write this token's
+    K/V (``k``/``v`` ``[b, 1, kv_heads, d]``, at positions ``pos [b]``)
+    into its page in place, quantized with its row scales when the cache
+    is int8, then attend ``q [b, 1, heads, d]`` over the pages named by
+    the block table. Returns ``[b, heads, d]``."""
+    k_pages, v_pages = cache["k"], cache["v"]
+    k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
+    block_size = k_pages.shape[1]
+    pos = pos.long()
+    slot = torch.arange(q.shape[0], device=q.device)
+    blk = cache["block_tables"][slot, pos // block_size].long()
+    off = pos % block_size
+    if k_scale is not None:
+        # int8 cache: this token's quantized rows and their
+        # per-(token, kv-head) scales
+        k_pages[blk, off], k_scale[blk, off] = quantize_kv_rows(k[:, 0])
+        v_pages[blk, off], v_scale[blk, off] = quantize_kv_rows(v[:, 0])
+    else:
+        k_pages[blk, off] = k[:, 0].to(k_pages.dtype)
+        v_pages[blk, off] = v[:, 0].to(v_pages.dtype)
+    return paged_decode_attention(
+        q[:, 0].contiguous(), k_pages, v_pages, cache["block_tables"],
+        cache["seq_lens"], k_scale=k_scale, v_scale=v_scale)
+
+
 def _dense_attention(q, k, v, mask):
     """q/k/v [b, s, h, d] (k/v already repeated to h heads)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
@@ -151,14 +179,19 @@ class LlamaBlock(nn.Module):
         self.attn_out = nn.Linear(self.q_size, cfg.d_model, bias=False,
                                   dtype=cfg.dtype)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.gate_up = nn.Linear(cfg.d_model, 2 * cfg.mlp_dim, bias=False,
-                                 dtype=cfg.dtype)
-        self.down = nn.Linear(cfg.mlp_dim, cfg.d_model, bias=False,
-                              dtype=cfg.dtype)
+        if cfg.moe_experts > 0:
+            self.moe = MoEMlp(cfg.d_model, cfg.moe_experts, cfg.mlp_dim,
+                              top_k=cfg.moe_top_k, dtype=cfg.dtype)
+        else:
+            self.gate_up = nn.Linear(cfg.d_model, 2 * cfg.mlp_dim,
+                                     bias=False, dtype=cfg.dtype)
+            self.down = nn.Linear(cfg.mlp_dim, cfg.d_model, bias=False,
+                                  dtype=cfg.dtype)
 
     def forward(self, x, positions, mask, cache=None):
-        """Returns ``(x, (k, v))``: the rotary-embedded K/V of this call
-        (``[b, s, kv_heads, head_dim]``, before any GQA repeat)."""
+        """Returns ``(x, (k, v), aux)``: the rotary-embedded K/V of this
+        call (``[b, s, kv_heads, head_dim]``, before any GQA repeat) and
+        the MoE load-balancing loss (None for a dense MLP)."""
         cfg = self.cfg
         hd = cfg.head_dim
         h = self.attn_norm(x)
@@ -171,30 +204,7 @@ class LlamaBlock(nn.Module):
                   cfg.rope_theta)
         v = v.reshape(b, s, cfg.num_kv_heads, hd)
         if cache is not None:
-            # single-token decode against the paged cache: write this
-            # token's K/V into its page (in place), then attend over the
-            # pages named by the block table
-            k_pages, v_pages = cache["k"], cache["v"]
-            k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
-            block_size = k_pages.shape[1]
-            pos = positions[:, 0].long()
-            slot = torch.arange(b, device=x.device)
-            blk = cache["block_tables"][slot, pos // block_size].long()
-            off = pos % block_size
-            if k_scale is not None:
-                # int8 cache: this token's quantized rows and their
-                # per-(token, kv-head) scales
-                k_pages[blk, off], k_scale[blk, off] = quantize_kv_rows(
-                    k[:, 0])
-                v_pages[blk, off], v_scale[blk, off] = quantize_kv_rows(
-                    v[:, 0])
-            else:
-                k_pages[blk, off] = k[:, 0].to(k_pages.dtype)
-                v_pages[blk, off] = v[:, 0].to(v_pages.dtype)
-            o = paged_decode_attention(
-                q[:, 0].contiguous(), k_pages, v_pages,
-                cache["block_tables"], cache["seq_lens"], k_scale=k_scale,
-                v_scale=v_scale)
+            o = paged_attention_step(q, k, v, positions[:, 0], cache)
             o = o.reshape(b, 1, self.q_size)
         elif cfg.attn_impl == "flash":
             o = flash_attention(q, k, v.contiguous(), causal=True)
@@ -206,9 +216,12 @@ class LlamaBlock(nn.Module):
             o = o.reshape(b, s, self.q_size)
         x = x + self.attn_out(o)
         h = self.mlp_norm(x)
+        if cfg.moe_experts > 0:
+            y, aux = self.moe(h)
+            return x + y, (k, v), aux
         gate, up = self.gate_up(h).chunk(2, dim=-1)
         x = x + self.down(F.silu(gate) * up)
-        return x, (k, v)
+        return x, (k, v), None
 
 
 class Llama(nn.Module):
@@ -231,6 +244,11 @@ class Llama(nn.Module):
             self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size,
                                      bias=False, dtype=torch.float32)
         self.to_empty(device=dev)
+        # the MoE load-balancing loss of the last full forward (its
+        # blocks' summed aux; None for a dense MLP), for the train step
+        # to read and clear: the counterpart of flax's ``sow`` into the
+        # ``losses`` collection
+        self.moe_aux = None
 
     def forward(self, input_ids, positions=None, cache=None,
                 return_kv=False, return_hidden=False, remat=False,
@@ -256,6 +274,9 @@ class Llama(nn.Module):
         ``lora`` is the multi-LoRA operand ``(a_stack, b_stack, rows)``
         (:mod:`move2kube_tpu_torch.serving.sched.lora`): each batch row's
         adapter delta is added to its fp32 logits, in every mode.
+
+        A full forward of an MoE model (``moe_experts > 0``) leaves the sum
+        of its blocks' load-balancing losses in ``self.moe_aux``.
         """
         if cache is not None:
             x = self.embed(input_ids[:, None])
@@ -265,7 +286,7 @@ class Llama(nn.Module):
                                if key in cache}
                 layer_cache["block_tables"] = cache["block_tables"]
                 layer_cache["seq_lens"] = cache["seq_lens"]
-                x, _ = layer(x, pos2d, None, cache=layer_cache)
+                x = layer(x, pos2d, None, cache=layer_cache)[0]
             x = self.final_norm(x)
             return self._head(x, lora)[:, 0], cache
         if remat and return_kv:
@@ -280,14 +301,18 @@ class Llama(nn.Module):
             idx = torch.arange(s, device=x.device)
             mask = torch.where(idx[:, None] >= idx[None, :], 0.0,
                                -1e30)[None, None].float()
-        kvs = []
+        kvs, aux = [], []
         for layer in self.layers:
             if remat:
-                x = _remat_block(layer, x, positions, mask)
+                x, layer_aux = _remat_block(layer, x, positions, mask)
             else:
-                x, kv = layer(x, positions, mask)
+                x, kv, layer_aux = layer(x, positions, mask)
                 if return_kv:
                     kvs.append(kv)
+            if layer_aux is not None:
+                aux.append(layer_aux)
+        if aux and not return_kv:
+            self.moe_aux = torch.stack(aux).sum()
         x = self.final_norm(x)
         if return_hidden:
             return x
@@ -312,14 +337,16 @@ class Llama(nn.Module):
 
 
 def _remat_block(layer, x, positions, mask):
-    """One block under ``torch.utils.checkpoint``. The parameters the block
-    holds now (under ``functional_call``: the cast view, which is swapped
-    out again by the time the backward recomputes) are captured here and
-    put back for the recompute, so it runs on the same tensors."""
+    """One block under ``torch.utils.checkpoint``; returns ``(x, aux)``.
+    The parameters the block holds now (under ``functional_call``: the
+    cast view, which is swapped out again by the time the backward
+    recomputes) are captured here and put back for the recompute, so it
+    runs on the same tensors."""
     params = dict(layer.named_parameters())
 
     def run(x_):
-        return torch.func.functional_call(layer, params,
-                                          (x_, positions, mask))[0]
+        out = torch.func.functional_call(layer, params,
+                                         (x_, positions, mask))
+        return out[0], out[2]
 
     return checkpoint(run, x, use_reentrant=False)

@@ -1,4 +1,4 @@
-"""Single-device LM training step: the port of the LM parts of
+"""Single-device training steps: the port of
 ``move2kube_tpu/models/train.py``.
 
 :func:`make_lm_train_step` keeps the JAX step's semantics on one card:
@@ -8,16 +8,28 @@ the gradients land in fp32 on the masters), the lm-head folded into the
 chunked cross-entropy whenever the vocab spans more than one chunk, loss
 scaling before the backward and unscaling of gradients and loss after,
 gradient accumulation over ``[k, batch, seq]`` microbatches, and per-block
-rematerialisation. The optimizer is ``torch.optim.Adam``/``AdamW`` inside
+rematerialisation. An MoE ``Llama``'s load-balancing loss joins the LM
+loss with weight ``moe_aux_weight`` (the model leaves it in
+``Llama.moe_aux``; the step reads and clears it). GPT-2 trains through
+its tied head (:func:`~move2kube_tpu_torch.ops.crossentropy.
+lm_head_weight`). The optimizer is ``torch.optim.Adam``/``AdamW`` inside
 an :class:`Optimizer` that carries what the JAX trainer chains around
 optax's: the learning-rate schedule, the precision policy's
 :class:`~move2kube_tpu_torch.models.precision.FiniteGuard` and the
 grad-norm record.
 
+The family steps (:func:`make_classifier_train_step`,
+:func:`make_bert_train_step`, :func:`make_diffusion_train_step`) run the
+model in its own compute type over fp32 parameters, as the JAX steps do;
+ResNet's BatchNorm statistics are the model's buffers, updated in place
+by its training-mode forward (:attr:`TrainState.batch_stats` lists
+them).
+
 Not ported here: the mesh paths (overlapped accumulation, FSDP prefetch;
-ROADMAP.md Queue 1 item 9), the MoE auxiliary loss (MoE configs raise in
-``Llama``), the tensor-health recorder and ``StepTelemetry`` (Queue 1
-item 7). The step updates the state in place and returns it.
+ROADMAP.md Queue 1 item 9), the tensor-health recorder and
+``StepTelemetry`` (Queue 1 item 7). ``scan_steps`` (k optimizer steps in
+one compiled call) has no counterpart on one card: the caller runs the
+step k times. Each step updates the state in place and returns it.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from move2kube_tpu_torch.ops.crossentropy import (
     DEFAULT_CHUNK,
     fused_cross_entropy,
     linear_lm_loss,
+    lm_head_weight,
     reference_cross_entropy,
 )
 
@@ -190,11 +203,127 @@ class TrainState:
     optimizer: Optimizer
     step: int = 0
 
+    @property
+    def batch_stats(self) -> dict | None:
+        """The model's BatchNorm running statistics (its buffers, by
+        name; the JAX ``TrainState.batch_stats``), None when it has
+        none."""
+        stats = dict(self.model.named_buffers())
+        return stats or None
+
+
+def _accumulate(model, micro_losses, grad_accum: int) -> torch.Tensor:
+    """Backward each microbatch's loss (``micro_losses``: a generator of
+    ``grad_accum`` losses) into the fp32 ``.grad``, average the
+    gradients, return the mean loss."""
+    losses = []
+    for loss in micro_losses:
+        loss.backward()  # sums into the fp32 .grad
+        losses.append(loss.detach())
+    for p in model.parameters():
+        if p.grad is not None:
+            p.grad.div_(grad_accum)
+    return torch.stack(losses).mean()
+
+
+def _family_step(loss_fn, grad_accum: int = 1):
+    """A step around ``loss_fn(model, batch) -> loss`` (batch tensors on
+    the model's device): zero the grads, backward (over ``grad_accum``
+    microbatches stacked on each tensor's leading axis when > 1),
+    update."""
+
+    def step(state: TrainState, batch: dict):
+        model, opt = state.model, state.optimizer
+        dev = next(model.parameters()).device
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        opt.zero_grad()
+        if grad_accum <= 1:
+            loss = loss_fn(model, batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            lead = {v.shape[0] for v in batch.values()}
+            if lead != {grad_accum}:
+                raise ValueError(f"grad_accum={grad_accum} takes batch "
+                                 f"tensors [{grad_accum}, ...]; got leading "
+                                 f"extents {sorted(lead)}")
+            micro = ({k: v[i] for k, v in batch.items()}
+                     for i in range(grad_accum))
+            loss = _accumulate(model, (loss_fn(model, b) for b in micro),
+                               grad_accum)
+        opt.step()
+        state.step += 1
+        return state, loss
+
+    return step
+
+
+def make_classifier_train_step(has_batch_stats: bool = False,
+                               grad_accum: int = 1):
+    """Train step for image/sequence classifiers (ResNet); ``step(state,
+    {"input": x, "label": y}) -> (state, loss)``, cross-entropy of the
+    logits in fp32.
+
+    ``has_batch_stats``: the model carries BatchNorm statistics (ResNet);
+    the step runs it in training mode, which normalises with each batch's
+    statistics and updates the running ones in place. A model with
+    BatchNorm buffers needs it, as the JAX step needs the collection.
+    ``grad_accum=k`` takes ``[k, batch, ...]`` tensors and folds the k
+    microbatches into one update; the statistics go through the
+    microbatches in order, so the final ones reflect all k, as the JAX
+    step threads them through its scan."""
+
+    def loss_fn(model, batch):
+        if has_batch_stats:
+            model.train()
+        elif next(model.buffers(), None) is not None:
+            raise ValueError("the model carries BatchNorm statistics; "
+                             "pass has_batch_stats=True")
+        return cross_entropy_loss(model(batch["input"]), batch["label"])
+
+    return _family_step(loss_fn, grad_accum)
+
+
+def make_bert_train_step():
+    """Fine-tune step for ``BertEncoder``; ``step(state, {"input_ids",
+    "attention_mask" (optional), "label"}) -> (state, loss)``."""
+
+    def loss_fn(model, batch):
+        logits = model(batch["input_ids"], batch.get("attention_mask"))
+        return cross_entropy_loss(logits, batch["label"])
+
+    return _family_step(loss_fn)
+
+
+def make_diffusion_train_step(num_diffusion_steps: int = 1000):
+    """DDPM denoising step for the ``UNet``: the batch carries clean
+    ``image``s, pre-drawn gaussian ``noise`` and integer timesteps ``t``;
+    the step forms ``x_t`` from the linear-beta schedule
+    (``ddpm_alpha_bars``, made once on the model's device) and regresses
+    the predicted noise with the mean squared error in fp32."""
+    from move2kube_tpu_torch.models.unet import ddpm_alpha_bars
+
+    schedules: dict = {}
+
+    def loss_fn(model, batch):
+        x0, noise, t = batch["image"], batch["noise"], batch["t"]
+        dev = x0.device
+        if dev not in schedules:
+            schedules[dev] = ddpm_alpha_bars(num_diffusion_steps, device=dev)
+        ab = schedules[dev][t.long()][:, None, None, None]
+        noise32 = noise.float()
+        x_t = torch.sqrt(ab) * x0.float() + torch.sqrt(1.0 - ab) * noise32
+        pred = model(x_t, t)
+        return torch.mean((pred - noise32) ** 2)
+
+    return _family_step(loss_fn)
+
 
 def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
-                       precision=None, chunk: int = DEFAULT_CHUNK):
-    """Next-token-prediction step for Llama-class models; ``step(state,
-    {"input_ids": ids}) -> (state, loss)``.
+                       precision=None, chunk: int = DEFAULT_CHUNK,
+                       moe_aux_weight: float = 0.01):
+    """Next-token-prediction step for ``Llama`` (MoE included) and
+    ``GPT2``; ``step(state, {"input_ids": ids}) -> (state, loss)``.
 
     - ``remat`` recomputes each block's activations in the backward
       (``torch.utils.checkpoint`` per block; the JAX step checkpoints the
@@ -208,7 +337,11 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
     - ``chunk``: the vocab chunk of the cross-entropy. When the vocab is
       wider than ``chunk`` the model returns its pre-head hidden states and
       the lm-head product is folded into the chunked loss (the ``[b, s,
-      vocab]`` logits never exist); otherwise the logits path runs.
+      vocab]`` logits never exist); otherwise the logits path runs. The
+      head is ``Llama``'s ``lm_head`` or GPT-2's tied ``wte``.
+    - ``moe_aux_weight``: the weight of an MoE model's load-balancing
+      loss (``Llama.moe_aux``, its blocks' sum) in the loss, on both
+      paths; dense models have none.
 
     The batch runs where the model's parameters lie."""
 
@@ -216,7 +349,7 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
         params = dict(model.named_parameters())
         if precision is not None:
             params = precision.cast_params(params)
-        head_w = params["lm_head.weight"]
+        head_w = lm_head_weight(params)
         if head_w.shape[0] > chunk:
             hidden = torch.func.functional_call(
                 model, params, (ids,), {"return_hidden": True,
@@ -226,6 +359,10 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
             logits = torch.func.functional_call(model, params, (ids,),
                                                 {"remat": remat})
             loss = lm_loss(logits, ids, chunk)
+        aux = getattr(model, "moe_aux", None)
+        if aux is not None:
+            model.moe_aux = None
+            loss = loss + moe_aux_weight * aux
         if precision is not None:
             loss = precision.scale_loss(loss)
         return loss
@@ -243,15 +380,8 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
                 raise ValueError(
                     f"grad_accum={grad_accum} takes input_ids [k, batch, "
                     f"seq] with k = {grad_accum}; got {tuple(ids.shape)}")
-            losses = []
-            for micro in ids:
-                micro_loss = _loss(model, micro)
-                micro_loss.backward()  # sums into the fp32 .grad
-                losses.append(micro_loss.detach())
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(grad_accum)
-            loss = torch.stack(losses).mean()
+            loss = _accumulate(model, (_loss(model, micro)
+                                       for micro in ids), grad_accum)
         if precision is not None:
             precision.unscale([p.grad for p in model.parameters()
                                if p.grad is not None])

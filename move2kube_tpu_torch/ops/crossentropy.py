@@ -162,6 +162,19 @@ def fused_linear_cross_entropy(hidden, weight, labels,
     return _FusedLinearCE.apply(flat, weight, labels.reshape(-1), c)
 
 
+def lm_head_weight(params: dict):
+    """The LM-head weight ``[V, D]`` of the port's head layouts, from a
+    ``name -> tensor`` parameter dict, or None when there is no head it
+    knows: ``Llama``'s separate ``lm_head``, or GPT-2's head tied to the
+    token embedding ``wte`` (already ``[V, D]``: the JAX function returns
+    its ``[D, V]`` transpose). The tied weight is the embedding's own
+    tensor, so its gradient sums both uses, the lookup and the head."""
+    for name in ("lm_head.weight", "wte.weight"):
+        if name in params:
+            return params[name]
+    return None
+
+
 def linear_lm_loss(hidden, weight, input_ids,
                    chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """Next-token-prediction loss straight from the pre-head hidden

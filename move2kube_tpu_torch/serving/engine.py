@@ -338,13 +338,16 @@ class _ChunkJob:
 
 
 class ServingEngine:
-    """Greedy-decoding continuous-batching engine for the port's ``Llama``
-    (anything whose ``forward`` carries the prefill and paged-decode
-    modes). The KV cache lives on ``device`` (the card by default), which
-    must be where the model's parameters are. Under a quant policy that
-    quantizes weights, ``self.model`` is the engine's quantized copy
-    (:func:`~.quant.quantize_model`); the caller's model is kept only as
-    the quant audit's fp reference (``quant_audit_rate`` > 0).
+    """Greedy-decoding continuous-batching engine for the port's LMs,
+    ``Llama`` (MoE included) and ``GPT2`` (anything whose ``forward``
+    carries the prefill and paged-decode modes; a model with a learned
+    position table of ``n_positions`` needs ``max_seq <=
+    n_positions``). The KV cache lives on ``device`` (the card by
+    default), which must be where the model's parameters are. Under a
+    quant policy that quantizes weights, ``self.model`` is the engine's
+    quantized copy (:func:`~.quant.quantize_model`); the caller's model
+    is kept only as the quant audit's fp reference (``quant_audit_rate``
+    > 0).
 
     ``registry`` receives the engine's metric families (a private
     :class:`~move2kube_tpu_torch.obs.metrics.Registry` by default, so
@@ -363,6 +366,13 @@ class ServingEngine:
             raise ValueError(f"model parameters are on {model_dev}, the "
                              f"engine's device is {self.device}")
         self.config = config or EngineConfig.from_env()
+        n_positions = getattr(model.cfg, "n_positions", None)
+        if n_positions is not None and self.config.max_seq > n_positions:
+            # a learned position table: a position past it would be an
+            # out-of-range index (an IndexError on the CPU, a device-side
+            # assert on the card), where flax's Embed gives NaN rows
+            raise ValueError(f"max_seq {self.config.max_seq} exceeds the "
+                             f"model's n_positions {n_positions}")
         self.quant = quantlib.policy(self.config.quant)
         # quant-drift auditor: keep the caller's fp model so a share of
         # cold prefills can be replayed through it. Only when quantizing

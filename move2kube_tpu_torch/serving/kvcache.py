@@ -68,14 +68,19 @@ class KVCacheConfig:
 def spec_for_model(model_cfg, *, block_size: int = 16, max_batch: int = 8,
                    max_seq: int | None = None,
                    cache_dtype: torch.dtype | None = None) -> KVCacheConfig:
-    """Cache geometry for a Llama config: one full-length context per slot
-    plus the null page, stored in ``cache_dtype`` (``torch.int8`` for the
-    quantized layout), by default the model's compute dtype."""
+    """Cache geometry for a model config (``LlamaConfig`` or
+    ``GPT2Config``, duck-typed: MHA models have no ``num_kv_heads``, and
+    ``max_seq`` defaults to ``max_len`` or else ``n_positions``): one
+    full-length context per slot plus the null page, stored in
+    ``cache_dtype`` (``torch.int8`` for the quantized layout), by default
+    the model's compute dtype."""
     if max_seq is None:
-        max_seq = model_cfg.max_len
+        max_seq = getattr(model_cfg, "max_len", None) or (
+            model_cfg.n_positions)
     max_pages = -(-max_seq // block_size)
     return KVCacheConfig(
-        num_layers=model_cfg.num_layers, num_kv_heads=model_cfg.num_kv_heads,
+        num_layers=model_cfg.num_layers,
+        num_kv_heads=getattr(model_cfg, "num_kv_heads", model_cfg.num_heads),
         head_dim=model_cfg.d_model // model_cfg.num_heads,
         block_size=block_size, num_pages=1 + max_batch * max_pages,
         max_batch=max_batch, max_pages_per_seq=max_pages,

@@ -3,15 +3,19 @@ model: the port of ``move2kube_tpu/serving/quant.py``.
 
 Weight quantization is symmetric per-output-channel int8, applied once
 when the engine is built: every ``nn.Linear`` (in ``Llama``: ``qkv``,
-``attn_out``, ``gate_up``, ``down`` and ``lm_head``, the modules that are
-flax ``Dense`` kernels in the JAX model) becomes a :class:`QuantLinear`
-holding an int8 ``q8 [out, in]`` and fp32 ``scale [out, 1]``. The
-embedding and the norm scales stay as they are. Each forward dequantizes
-its weight as the JAX step does inside its compiled program, ``q8 *
-scale`` in fp32, then multiplies in the layer's compute type (fp32 for
-the lm-head, as flax's ``Dense(dtype=float32)``). So the resident weights
-are the int8 tensors, and the dequantized weight is a transient of one
-layer.
+``attn_out``, ``gate_up``, ``down``, ``lm_head`` and an MoE block's
+``router``; in ``GPT2``: ``c_attn``, ``attn_out``, ``c_fc`` and
+``mlp_out``; the modules that are flax ``Dense`` kernels in the JAX
+models) becomes a :class:`QuantLinear` holding an int8 ``q8 [out, in]``
+and fp32 ``scale [out, 1]``, and its bias, if it has one, as it was. The
+embeddings (GPT-2's tied head among them), the norms and an MoE block's
+expert weights stay as they are, as the JAX package's
+``quantize_variables`` leaves every leaf not named ``kernel``. Each
+forward dequantizes its weight as the JAX step does inside its compiled
+program, ``q8 * scale`` in fp32, then multiplies in the layer's compute
+type (fp32 for the lm-head, as flax's ``Dense(dtype=float32)``). So the
+resident weights are the int8 tensors, and the dequantized weight is a
+transient of one layer.
 
 The KV half lives in :mod:`.kvcache` (``cache_dtype=torch.int8`` and its
 row-scale pools); :func:`~move2kube_tpu_torch.ops.attention.quantize_kv_rows`
@@ -91,12 +95,15 @@ def quantize_array(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class QuantLinear(nn.Module):
-    """A bias-free linear layer on an int8 weight with per-output-channel
-    fp32 scales. ``compute_dtype`` is the type the product runs in (the
-    replaced layer's weight type)."""
+    """A linear layer on an int8 weight with per-output-channel fp32
+    scales. ``compute_dtype`` is the type the product runs in (the
+    replaced layer's weight type). A bias stays in high precision and is
+    added after the product in the compute type, as flax's ``Dense``
+    adds it to the dequantized kernel's product."""
 
     def __init__(self, q8: torch.Tensor, scale: torch.Tensor,
-                 compute_dtype: torch.dtype) -> None:
+                 compute_dtype: torch.dtype,
+                 bias: torch.Tensor | None = None) -> None:
         super().__init__()
         if q8.dtype != torch.int8 or q8.ndim != 2 or (
                 scale.shape != (q8.shape[0], 1)):
@@ -105,16 +112,16 @@ class QuantLinear(nn.Module):
                              f"{tuple(scale.shape)}")
         self.register_buffer("q8", q8)
         self.register_buffer("scale", scale.float())
+        self.register_buffer("bias", bias)
         self.compute_dtype = compute_dtype
 
     @classmethod
     def from_linear(cls, lin: nn.Linear) -> "QuantLinear":
-        if lin.bias is not None:
-            raise ValueError("QuantLinear: layers with a bias are not "
-                             "quantized")
+        """The int8 layer of ``lin``; its bias is shared, not copied."""
         with torch.no_grad():
             q8, scale = quantize_array(lin.weight)
-        return cls(q8, scale, lin.weight.dtype)
+        bias = None if lin.bias is None else lin.bias.detach()
+        return cls(q8, scale, lin.weight.dtype, bias)
 
     def dequantized(self) -> torch.Tensor:
         """The weight ``[out, in]``: ``q8 * scale`` in fp32, then the
@@ -123,7 +130,10 @@ class QuantLinear(nn.Module):
         return (self.q8.float() * self.scale).to(self.compute_dtype)
 
     def forward(self, x):
-        return F.linear(x, self.dequantized())
+        y = F.linear(x, self.dequantized())
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.compute_dtype)
 
 
 def quantize_model(model: nn.Module) -> nn.Module:
@@ -151,23 +161,30 @@ def draft_config(cfg, factor: int = 2):
         cfg, num_layers=max(1, cfg.num_layers // max(1, factor)))
 
 
+# the block list of each model family: ``Llama.layers`` (flax
+# ``layer_i``), ``GPT2.h`` (flax ``h_i``)
+_BLOCK_LISTS = ("layers", "h")
+
+
 def draft_model_from(model: nn.Module, draft_cfg) -> nn.Module:
     """The speculative draft of ``model`` at ``draft_cfg``'s depth (the
-    counterpart of the JAX package's ``draft_variables_from``): a model
-    of the same class whose embedding, first ``draft_cfg.num_layers``
-    blocks, final norm and head are *the target's own modules*, shared
-    and not copied, so the draft holds no memory of its own and an int8
-    target (:class:`QuantLinear` layers) has an int8 draft."""
-    if draft_cfg.num_layers > len(model.layers):
+    counterpart of the JAX package's ``draft_variables_from``, which
+    prunes ``layer_i`` and ``h_i``): a model of the same class whose
+    first ``draft_cfg.num_layers`` blocks and every other module
+    (embeddings, final norm, head) are *the target's own modules*,
+    shared and not copied, so the draft holds no memory of its own and
+    an int8 target (:class:`QuantLinear` layers) has an int8 draft."""
+    name = next(n for n in _BLOCK_LISTS if n in model._modules)
+    blocks = model._modules[name]
+    if draft_cfg.num_layers > len(blocks):
         raise ValueError(f"draft of {draft_cfg.num_layers} layers from a "
-                         f"model of {len(model.layers)}")
+                         f"model of {len(blocks)}")
     draft = type(model).__new__(type(model))
     nn.Module.__init__(draft)
     draft.cfg = draft_cfg
-    draft.embed = model.embed
-    draft.layers = nn.ModuleList(model.layers[:draft_cfg.num_layers])
-    draft.final_norm = model.final_norm
-    draft.lm_head = model.lm_head
+    for key, mod in model._modules.items():
+        setattr(draft, key, nn.ModuleList(blocks[:draft_cfg.num_layers])
+                if key == name else mod)
     return draft.train(model.training)
 
 

@@ -160,3 +160,41 @@ def test_importing_the_fleet_modules_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# the model families' modules (GPT-2, MoE, BERT, ResNet, the UNet and the
+# flax-semantics layers they share)
+FAMILY_MODULES = ("models/gpt2.py", "models/moe.py", "models/bert.py",
+                  "models/resnet.py", "models/unet.py", "models/layers.py")
+
+
+@pytest.mark.parametrize("module", FAMILY_MODULES)
+def test_family_modules_import_nothing_of_jax(module):
+    path = REPO / "move2kube_tpu_torch" / module
+    assert path in _port_files()
+    bad = [f"{line} imports {root}" for line, root in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_family_entry_points_default_to_the_card():
+    _no_cuda()
+    from move2kube_tpu_torch import (
+        GPT2,
+        BertEncoder,
+        ResNet,
+        UNet,
+        bert_tiny,
+        gpt2_tiny,
+        init_family,
+        init_gpt2,
+        resnet18_ish,
+        unet_tiny,
+    )
+
+    for build in (lambda: GPT2(gpt2_tiny()), lambda: init_gpt2(gpt2_tiny()),
+                  lambda: BertEncoder(bert_tiny()),
+                  lambda: ResNet(resnet18_ish()), lambda: UNet(unet_tiny()),
+                  lambda: init_family(unet_tiny())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()

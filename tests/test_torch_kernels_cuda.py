@@ -1001,3 +1001,166 @@ def test_other_weights_swap_mid_decode_on_card_matches_cpu(cuda):
     passes, launches = _same_on_card(cuda, script)
     assert launches == _want_launches(2, passes["prefill"],
                                       passes["decode"])
+
+
+# ----------------------------------------------------------------------
+# the model families: GPT-2 at its own head_dim (64, MHA) and the MoE
+# Llama on the kernels
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpt2_shape_flash_forward_and_backward(cuda, dtype):
+    """The flash forward and both backward kernels at GPT-2 small's
+    attention (h = kvh = 12, d = 64, s = 1024, causal) against the plain
+    versions, by the flash rule and the backward rule in bf16."""
+    s, h, d = 1024, 12, 64
+    q, k, v, o, lse, g = _bwd_inputs(cuda, dtype, 64, s, s, h, h, d, True)
+    out, lse_k = tatt.flash_attention_fwd(q, k, v, True, d ** -0.5)
+    ref = tatt.reference_attention(q.float(), k.float(), v.float(), True,
+                                   d ** -0.5)
+    torch.cuda.synchronize()
+    _assert_flash_close(out, q, k, v, True, ref)
+    torch.testing.assert_close(lse_k, lse, atol=LSE_ATOL, rtol=0)
+    got = tatt.flash_attention_bwd(q, k, v, o, lse, g, True, d ** -0.5)
+    want = tatt.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, g.float(), True,
+        d ** -0.5)
+    terms = tatt.flash_attention_bwd_abs_terms(q, k, v, o, lse, g, True,
+                                               d ** -0.5)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, want, terms, dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpt2_shape_paged_decode(cuda, quant, dtype):
+    """Paged decode at the GPT-2 slice's decode batch: b = 8 slots, h =
+    kvh = 12, d = 64, pages of 16, lengths up to n_positions (1024); the
+    fp pools and the int8 ones with their row scales."""
+    h, d, bs = 12, 64, 16
+    seq_lens = [1024, 17, 640, 1, 333, 900, 64, 129]
+    gen = np.random.default_rng(12)
+    q, kp, vp, bt, sl = _paged(gen, 8, h, h, d, bs, seq_lens)
+    q = q.to(cuda, dtype)
+    bt, sl = bt.to(cuda), sl.to(cuda)
+    if quant:
+        k8, ks = tatt.quantize_kv_rows(kp)
+        v8, vs = tatt.quantize_kv_rows(vp)
+        k8, ks, v8, vs = (t.to(cuda) for t in (k8, ks, v8, vs))
+        out = tatt.paged_decode_attention(q, k8, v8, bt, sl, k_scale=ks,
+                                          v_scale=vs)
+        ref = tatt.paged_decode_int8_reference(q.float(), k8, v8, ks, vs, bt,
+                                               sl, d ** -0.5)
+    else:
+        kp, vp = kp.to(cuda, dtype), vp.to(cuda, dtype)
+        out = tatt.paged_decode_attention(q, kp, vp, bt, sl)
+        ref = tatt.paged_decode_reference(q.float(), kp.float(), vp.float(),
+                                          bt, sl, d ** -0.5)
+    torch.cuda.synchronize()
+    _assert_kernel_close(out, ref, dtype)
+
+
+def _small_gpt2():
+    from move2kube_tpu_torch import GPT2Config
+
+    # gpt2_tiny's head_dim (16) is below the kernels' 64: 2 heads of 64
+    return GPT2Config(vocab_size=256, n_positions=128, d_model=128,
+                      num_layers=2, num_heads=2, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("quant", ["off", "int8-kv"])
+def test_gpt2_engine_on_card_matches_engine_on_cpu(cuda, quant):
+    """A small GPT-2 (head_dim 64) in fp32: the engine on the card, through
+    the flash and paged kernels (the int8 one under int8-kv), streams the
+    same greedy tokens as on the CPU; launches exactly one flash a layer a
+    prefill and one paged decode a layer a decode step."""
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        init_gpt2,
+    )
+
+    cfg = _small_gpt2()
+    econf = EngineConfig(max_batch=2, max_seq=64, block_size=8,
+                         buckets=(16, 32), quant=quant)
+    gen = np.random.default_rng(2)
+    prompts = [gen.integers(1, 256, size=n).tolist() for n in (5, 20, 9)]
+
+    def run(device):
+        model = init_gpt2(cfg, seed=0, device="cpu").to(device).eval()
+        eng = ServingEngine(model, econf, device=device)
+        out = {c.rid: c.tokens for c in eng.run(
+            [Request(f"r{i}", p, 6) for i, p in enumerate(prompts)])}
+        return out, eng.stats()
+
+    tatt.reset_launch_counts()
+    on_card, stats = run(cuda)
+    paged = tatt.PAGED_DECODE_INT8 if quant == "int8-kv" else (
+        tatt.PAGED_DECODE)
+    assert tatt.FLASH_FWD.launches == cfg.num_layers * stats["prefills"]
+    assert paged.launches == cfg.num_layers * stats["decode_steps"]
+    assert on_card == run("cpu")[0]
+
+
+def test_gpt2_train_step_on_card_matches_cpu(cuda):
+    """Two fp32 steps of the small GPT-2 with remat, the tied head folded
+    into the chunked loss, on the card through all three flash kernels,
+    against the same steps on the CPU."""
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        init_gpt2,
+        make_lm_train_step,
+        policy,
+    )
+
+    cfg = _small_gpt2()
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 2, 96)))
+    step = make_lm_train_step(remat=True, precision=policy("fp32"),
+                              chunk=128)
+
+    def run(device):
+        model = init_gpt2(cfg, seed=0, device="cpu").to(device)
+        state = TrainState(model, adamw(model.parameters(), 1e-3, 0.1))
+        return [float(step(state, {"input_ids": b})[1]) for b in ids]
+
+    tatt.reset_launch_counts()
+    on_card = run(cuda)
+    n = cfg.num_layers * len(ids)
+    assert [k.launches for k in tatt.KERNELS] == [2 * n, n, n, 0, 0]
+    np.testing.assert_allclose(on_card, run("cpu"), rtol=1e-5)
+
+
+def test_moe_engine_on_card_matches_engine_on_cpu(cuda):
+    """A small MoE Llama (head_dim 64, 4 experts, top-2) in fp32: the
+    engine on the card streams the same greedy tokens as on the CPU, idle
+    rows and all (they take part in the routing)."""
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        init_llama,
+        llama_tiny,
+    )
+
+    cfg = dataclasses.replace(llama_tiny(), d_model=256, attn_impl="flash",
+                              moe_experts=4)
+    econf = EngineConfig(max_batch=4, max_seq=64, block_size=8,
+                         buckets=(16, 32))
+    gen = np.random.default_rng(4)
+    prompts = [gen.integers(1, 500, size=n).tolist() for n in (5, 20, 9)]
+
+    def run(device):
+        model = init_llama(cfg, seed=0, device="cpu", dtype=torch.float32)
+        eng = ServingEngine(model.to(device).eval(), econf, device=device)
+        return {c.rid: c.tokens for c in eng.run(
+            [Request(f"r{i}", p, 6) for i, p in enumerate(prompts)])}
+
+    tatt.reset_launch_counts()
+    on_card = run(cuda)
+    assert tatt.FLASH_FWD.launches == cfg.num_layers * 3
+    assert tatt.PAGED_DECODE.launches > 0
+    assert on_card == run("cpu")

@@ -177,7 +177,8 @@ def test_init_llama_follows_flax_distributions():
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(moe_experts=4), NotImplementedError),
+    # MoE is ported: an MoE config raises only for its unported attention
+    (dict(moe_experts=4, attn_impl="ring"), NotImplementedError),
     (dict(attn_impl="ring"), NotImplementedError),
     (dict(attn_impl="ulysses"), NotImplementedError),
     (dict(attn_impl="sparse"), ValueError),
@@ -186,6 +187,13 @@ def test_unported_configs_raise(change, exc):
     cfg = dataclasses.replace(tllama.llama_tiny(), **change)
     with pytest.raises(exc):
         tllama.Llama(cfg, device="cpu")
+
+
+def test_moe_config_builds():
+    cfg = dataclasses.replace(tllama.llama_tiny(), moe_experts=4)
+    model = tllama.Llama(cfg, device="cpu")
+    assert model.layers[0].moe.w_in.shape == (4, cfg.d_model, cfg.mlp_dim)
+    assert not hasattr(model.layers[0], "gate_up")
 
 
 def test_lora_delta_is_not_ported():
