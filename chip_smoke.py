@@ -35,6 +35,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. the serving slice: full-depth Llama-8B in bf16 serving 16 requests on
    the engine; the kernels' launch counts show every prefill and decode
    step went through them
+5b. obs serve: the serving slice's model behind a TelemetryServer (port
+   0) over the engine's registry, tracer and a UsageLedger fed by
+   ``engine_source``: 4 requests with ``cost_report()`` called between two
+   decode steps, the streams, pass counts and launches held to a run
+   without it; ``/metrics``, ``/traces``, ``/usage``, ``/readyz`` scraped
+   over HTTP (the cost families and each roofline class); one
+   ``/profile?seconds=1`` capture; ``cost_report()`` on a 2-layer int8-kv
+   engine at the same widths
 6. the int8-kv serving slice: the same model and requests with int8
    weights and an int8 paged KV cache, every decode step's attention in
    the int8 kernel; its memory, and a profile of 4 decode steps beside
@@ -77,6 +85,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch 4 x 2048 tokens; 5 timed steps whose launch counts show every
    layer's forward, recompute and backward went through the kernels, and
    one step under the profiler
+12b. obs train: the training slice's step with the health recorder and
+   StepTelemetry off and on (the overhead in % of step time); the cost
+   model's FLOPs of the step held to the plain versions' count of the
+   same step (``OBS_FLOPS_REL``), its MFU against the H100 row and its
+   peak bytes; an Inf planted in a middle layer's gradient, named by
+   ``first_bad_group`` in the ``<flight>.numerics`` sidecar and moving
+   the non-finite counters by one; the ``<flight>.mem`` sidecar read back
 13. the model families. GPT-2: the five kernels at GPT-2 small's
    attention (h = kvh = 12, d = 64; with the other kernel checks, after
    phase 3); parity at GPT-2 small's widths, 2 layers, fp32 (the flash
@@ -174,6 +189,14 @@ ROUTE_GATE_REL = 0.05
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (NVIDIA data sheet)
 H100_BYTES_S = 3.35e12     # HBM3 (NVIDIA data sheet)
 SEED = 0
+# the cost model's FLOPs of the training slice's step through the kernels
+# against the plain versions' count of the same step on the card: the
+# same einsums and matmuls counted by torch's FlopCounterMode, so only
+# fp rounding of the sums separates them
+OBS_FLOPS_REL = 1e-6
+# nvidia-smi's name and power limit, set by card_phase; the obs phases'
+# numbers are printed beside it
+CARD = ""
 
 
 def log(msg: str) -> None:
@@ -181,10 +204,12 @@ def log(msg: str) -> None:
 
 
 def card_phase(torch) -> None:
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    CARD = smi
     log(f"nvidia-smi: {smi}")
     log(f"torch: {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -2729,6 +2754,464 @@ def profile_phase(torch, model, econf, rng) -> float:
                      lambda: [eng.step() for _ in range(4)]) / 4
 
 
+def _plain_flash(torch):
+    """``flash_attention`` with the flash kernels' plain versions in their
+    place, forward (with its logsumexp) and backward: what the cost
+    model's count of the kernels must equal."""
+    from move2kube_tpu_torch.ops import attention as att
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, scale):
+            o, lse = att.reference_attention_lse(q, k, v, causal, scale)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.causal, ctx.scale = causal, scale
+            return o
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*att.flash_attention_bwd_reference(
+                q, k, v, o, lse, g.contiguous(), ctx.causal, ctx.scale),
+                None, None)
+
+    def flash(q, k, v, *, causal=False, scale=None):
+        return PlainFlash.apply(q, k, v, causal,
+                                q.shape[-1] ** -0.5 if scale is None
+                                else scale)
+
+    return flash
+
+
+@contextlib.contextmanager
+def _counted_attention(torch, model, impl: str):
+    """``model`` (a Llama) with its attention swapped for a count only:
+    ``"plain"`` runs the flash kernels' plain versions, ``"dense"`` the
+    model's own dense attention (``attn_impl``)."""
+    from move2kube_tpu_torch.models import llama
+
+    saved_fn = llama.flash_attention
+    saved_cfgs = [model.cfg] + [layer.cfg for layer in model.layers]
+    if impl == "plain":
+        llama.flash_attention = _plain_flash(torch)
+    else:
+        cfg = dataclasses.replace(model.cfg, attn_impl="dense")
+        model.cfg = cfg
+        for layer in model.layers:
+            layer.cfg = cfg
+    try:
+        yield
+    finally:
+        llama.flash_attention = saved_fn
+        model.cfg = saved_cfgs[0]
+        for layer, cfg in zip(model.layers, saved_cfgs[1:]):
+            layer.cfg = cfg
+
+
+def _metric(text: str, sample: str) -> float:
+    """The value of one sample line of a Prometheus text (0 when the
+    series is absent)."""
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def obs_train_phase(torch) -> dict:
+    """The compute-side obs hooks around the training slice's step
+    (Llama-8B widths, 8 layers, batch 4 x 2048, bf16 policy, AdamW,
+    remat): the steps' time with the health recorder and StepTelemetry
+    off and on; the cost model's FLOPs against the plain versions' count
+    of the same step; an Inf planted in a middle layer's gradient, named
+    by first_bad_group in the ``<flight>.numerics`` sidecar and moving
+    the counters by one; and the ``<flight>.mem`` sidecar read back.
+    Returns the kernels' launches."""
+    import tempfile
+
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        init_llama,
+        instrument_optimizer,
+        llama_8b,
+        make_lm_train_step,
+        policy,
+        reset_launch_counts,
+    )
+    from move2kube_tpu_torch.models.train import StepTelemetry
+    from move2kube_tpu_torch.obs import (
+        DiagWatchdog,
+        Registry,
+        SpanRecorder,
+        chip_spec,
+        costmodel,
+        install_memory_snapshot,
+        numerics,
+        write_memory_snapshot,
+    )
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    t_phase = time.perf_counter()
+    layers, batch, seq, block = 8, 4, 2048, 3
+    cfg = dataclasses.replace(llama_8b(), num_layers=layers,
+                              attn_impl="flash")
+    rng = np.random.default_rng(SEED + 11)
+    ids = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4 * block + 4, batch, seq))).cuda()
+    batches = iter([{"input_ids": x} for x in ids])
+    pol = policy("bf16")
+    model = init_llama(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    opt = pol.wrap_optimizer(adamw(model.parameters(), 1e-4,
+                                   weight_decay=0.1))
+    state = TrainState(model, opt)
+    step = make_lm_train_step(remat=True, precision=pol)
+    reg, tracer = Registry(), SpanRecorder()
+    telem = StepTelemetry(registry=reg, items_per_step=batch * seq,
+                          tracer=tracer)
+    telem.record_precision(pol)
+    state, _ = step(state, next(batches))  # warm-up, uncounted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    instrument_optimizer(opt)
+    n = 1
+
+    def run_block(on: bool) -> float:
+        nonlocal state, n
+        opt.record_grad_norm = opt.record_health = on
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(block):
+            if on:
+                state, _ = telem.timed_step(n, step, state, next(batches),
+                                            sync=i == block - 1)
+            else:
+                state, _ = step(state, next(batches))
+            n += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / block
+
+    # off and on alternate, so a drift of the card's clocks hits both
+    off_s, on_s = [], []
+    for _ in range(2):
+        off_s.append(run_block(False))
+        on_s.append(run_block(True))
+    off, on = sum(off_s) / len(off_s), sum(on_s) / len(on_s)
+    params = opt.params()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        opt._record_health(params)
+    torch.cuda.synchronize()
+    rec_ms = (time.perf_counter() - t0) / 3 * 1e3
+    _profiled(torch, "the health recorder (one update's summaries)",
+              lambda: opt._record_health(params))
+    overhead = 100.0 * (on / off - 1.0)
+    log(f"obs train: llama_8b widths, {layers} layers, batch {batch} x "
+        f"{seq}, bf16 policy, AdamW, remat ({CARD}): {off * 1e3:.1f} ms/step"
+        f" with the health recorder and StepTelemetry off, {on * 1e3:.1f} "
+        f"ms/step with both on (blocks of {block} steps, off "
+        f"{[round(x * 1e3, 1) for x in off_s]} ms, on "
+        f"{[round(x * 1e3, 1) for x in on_s]} ms): telemetry overhead "
+        f"{overhead:.2f}% of step time (the reference's budget is 3%); the "
+        f"health recorder alone {rec_ms:.2f} ms a step "
+        f"({len(opt.health_names)} groups, gradients and parameters)")
+
+    # the cost model: the step through the kernels, then the same step
+    # with the kernels' plain versions and with dense attention, counted
+    # with the optimizer held
+    b0 = next(batches)
+    telem.record_cost_model(step, state, b0)
+    report = telem._cost_report
+    if report is None or not report.flops:
+        raise RuntimeError("obs train: record_cost_model left no report")
+    with _counted_attention(torch, model, "plain"):
+        plain = costmodel.analyze_step_fn(step, state, b0)
+    torch.cuda.empty_cache()
+    with _counted_attention(torch, model, "dense"):
+        dense = costmodel.analyze_step_fn(step, state, b0)
+    torch.cuda.empty_cache()
+    # the flight sidecar describes the step the run takes, not the counts
+    costmodel.note_memory_report(report)
+    hd = cfg.d_model // cfg.num_heads
+    # the plain flash backward recomputes P from the logsumexp: one
+    # q.k^T product a layer more than dense attention's autograd
+    recompute = layers * 2 * batch * cfg.num_heads * seq * seq * hd
+    rel_plain = abs(report.flops - plain.flops) / plain.flops
+    rel_dense = abs(report.flops - (dense.flops + recompute)) / (
+        dense.flops + recompute)
+    if not (rel_plain <= OBS_FLOPS_REL and rel_dense <= OBS_FLOPS_REL):
+        raise RuntimeError(
+            f"obs train: cost model FLOPs {report.flops:.6e} vs the plain "
+            f"versions' {plain.flops:.6e} (rel {rel_plain:.3e}) and dense "
+            f"{dense.flops:.6e} + recompute {recompute:.6e} (rel "
+            f"{rel_dense:.3e}); tol {OBS_FLOPS_REL}")
+    spec, assumed = chip_spec()
+    mfu = report.mfu(on, spec)
+    log(f"obs train: cost model ({CARD}; spec {spec.name}, assumed "
+        f"{assumed}): {report.flops:.6e} FLOPs/step through the kernels, the"
+        f" plain versions' count {plain.flops:.6e} (rel {rel_plain:.2e}), "
+        f"dense attention's {dense.flops:.6e} + the flash backward's "
+        f"recompute {recompute:.6e} (rel {rel_dense:.2e}); "
+        f"{report.bytes_accessed:.6e} bytes accessed (unfused bound), "
+        f"roofline {report.roofline(spec)}; MFU {100 * mfu:.2f}% at "
+        f"{on * 1e3:.1f} ms/step; peak {report.peak_hbm_bytes / 2**30:.2f} "
+        f"GiB ({report.memory})")
+
+    # an Inf planted in a middle layer's gradient
+    flight = tempfile.mkdtemp(prefix="m2kt-obs-")
+    saved_env = os.environ.get("M2KT_FLIGHT_PATH")
+    os.environ["M2KT_FLIGHT_PATH"] = os.path.join(flight, "m2kt-flight.json")
+    try:
+        dog = DiagWatchdog(registry=reg, tracer=tracer,
+                           out_dir=os.path.join(flight, "diag"),
+                           profile_seconds=0.0)
+        telem.watchdog = dog
+        bad = layers // 2
+        weight = model.layers[bad].gate_up.weight
+        row = torch.zeros((1,), dtype=torch.long, device="cuda")
+        hook = weight.register_hook(
+            lambda g: g.index_fill(0, row, float("inf")))
+        before = _metric(reg.render(), "m2kt_train_nonfinite_steps_total")
+        state, loss = telem.timed_step(n, step, state, next(batches),
+                                       sync=True)
+        hook.remove()
+        dog.wait()
+        after = reg.render()
+        doc = numerics.read_sidecar()
+        want = {g: (cfg.d_model if g == f"layer_{bad}" else 0)
+                for g in opt.health_names}
+        got = ({g: int(f["grad_nonfinite"] + f["param_nonfinite"])
+                for g, f in doc["groups"].items()} if doc else None)
+        moved = (_metric(after, "m2kt_train_nonfinite_steps_total") - before,
+                 _metric(after, 'm2kt_diag_captures_total{reason='
+                         '"nonfinite"}'))
+        if (doc is None or doc["first_bad_group"] != f"layer_{bad}"
+                or got != want or moved != (1.0, 1.0)
+                or not np.isfinite(float(loss))):
+            raise RuntimeError(
+                f"obs train: planted Inf in layer_{bad}: sidecar "
+                f"{None if doc is None else doc['first_bad_group']}, "
+                f"non-finite by group {got} (want {want}), counters moved "
+                f"{moved}, loss {float(loss)}")
+        log(f"obs train: an Inf row planted in layers.{bad}.gate_up's "
+            f"gradient: first_bad_group {doc['first_bad_group']!r}; the "
+            f"sidecar {numerics.sidecar_path()} counts "
+            f"{want[f'layer_{bad}']} non-finite entries there and none "
+            f"elsewhere; m2kt_train_nonfinite_steps_total and the "
+            f"watchdog's nonfinite captures moved by one; m2kt_train_mfu "
+            f"{_metric(after, 'm2kt_train_mfu'):.4f} at that step")
+        mem_path = costmodel.mem_snapshot_path()
+        install_memory_snapshot(mem_path)
+        write_memory_snapshot()
+        with open(mem_path, encoding="utf-8") as f:
+            mem = json.load(f)
+        keys = {"memory_analysis", "peak_hbm_bytes", "live_buffers",
+                "written_unix", "pid"}
+        live = mem.get("live_buffers", {})
+        if (set(mem) != keys or mem["memory_analysis"] != report.memory
+                or set(live) != {"count", "total_bytes", "top"}
+                or not live["total_bytes"] > 0):
+            raise RuntimeError(f"obs train: memory sidecar {mem}")
+        log(f"obs train: memory sidecar {mem_path}: keys {sorted(mem)}; "
+            f"{live['count']} live allocations, "
+            f"{live['total_bytes'] / 2**30:.2f} GiB, the largest "
+            f"{live['top'][0]['bytes'] / 2**30:.3f} GiB")
+    finally:
+        if saved_env is None:
+            os.environ.pop("M2KT_FLIGHT_PATH", None)
+        else:
+            os.environ["M2KT_FLIGHT_PATH"] = saved_env
+    launches = {k.name: k.launches for k in KERNELS}
+    kernel_steps = 4 * block + 2  # timed, the cost model's, the planted
+    want = {"flash_fwd": 2 * layers * kernel_steps,
+            "flash_bwd_dq": layers * kernel_steps,
+            "flash_bwd_dkv": layers * kernel_steps, "paged_decode": 0,
+            "paged_decode_int8": 0}
+    if launches != want:
+        raise RuntimeError(f"obs train: launches {launches}, expected {want}")
+    del state, model, opt, telem, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"obs train: launches {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _http(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def obs_serve_phase(torch, model) -> tuple[dict, dict]:
+    """The pod-side hooks around the full-depth Llama-8B bf16 engine (the
+    serving slice's model): a TelemetryServer on port 0 over the engine's
+    registry, its tracer and a UsageLedger fed by ``engine_source``; four
+    requests with ``cost_report()`` called between two decode steps
+    (streams, passes and launches held to a run without it); the
+    endpoints scraped over HTTP; one ``/profile`` capture. Then
+    ``cost_report()`` on an int8-kv engine at 2 layers of the same
+    widths. Returns the launches of the bf16 run and of the int8 one."""
+    import glob
+    import tempfile
+
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        init_llama,
+        llama_8b,
+        reset_launch_counts,
+    )
+    from move2kube_tpu_torch.obs import (
+        SpanRecorder,
+        TelemetryServer,
+        UsageLedger,
+        engine_source,
+    )
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16)
+    rng = np.random.default_rng(SEED + 12)
+    reqs = [Request(f"o{i}", rng.integers(1, cfg.vocab_size,
+                                          size=int(n)).tolist(), 24)
+            for i, n in enumerate(rng.integers(64, 513, size=4))]
+    base = ServingEngine(model, econf, device="cuda", tracer=SpanRecorder())
+    want_tokens = {c.rid: c.tokens for c in base.run(reqs)}
+    want_passes = base.stats()["passes"]
+    del base
+    tracer = SpanRecorder()
+    eng = ServingEngine(model, econf, device="cuda", tracer=tracer)
+    ledger = UsageLedger(registry=eng.registry, role="decode")
+    ledger.add_source(engine_source(eng), "engine")
+    profile_dir = tempfile.mkdtemp(prefix="m2kt-profile-")
+    srv = TelemetryServer(
+        port=0, registry=eng.registry, profile_dir=profile_dir,
+        readiness=lambda: "draining" if eng.draining else "serving",
+        tracer=tracer, ledger=ledger).start()
+    try:
+        reset_launch_counts()
+        for r in reqs:
+            eng.submit(r)
+        done, steps, report = [], 0, None
+        while eng.has_work():
+            done += eng.step()
+            steps += 1
+            if steps == 3:
+                running = sum(1 for s in eng._slots if s is not None)
+                t0 = time.perf_counter()
+                report = eng.cost_report()
+                cost_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in KERNELS}
+        ledger.snapshot()
+        got_tokens = {c.rid: c.tokens for c in done}
+        passes = eng.stats()["passes"]
+        layers, buckets = cfg.num_layers, len(eng.buckets)
+        want = {k.name: 0 for k in KERNELS}
+        want["flash_fwd"] = layers * (passes["prefill"] + buckets)
+        want["paged_decode"] = layers * (passes["decode"] + 1)
+        if (report is None or got_tokens != want_tokens
+                or passes != want_passes or launches != want):
+            raise RuntimeError(
+                f"obs serve: cost_report mid-run: streams equal "
+                f"{got_tokens == want_tokens}, passes {passes} vs "
+                f"{want_passes}, launches {launches} vs {want} (the "
+                f"requests' passes plus one flash forward a layer a bucket "
+                f"and one paged decode a layer)")
+        log(f"obs serve: llama_8b, {layers} layers, bf16 ({CARD}): 4 "
+            f"requests; cost_report() between decode steps 3 and 4 with "
+            f"{running} streams running took {cost_s:.3f} s; the streams "
+            f"equal a run without it, passes {passes} are the requests' "
+            f"own, launches {launches} are theirs plus the report's "
+            f"{buckets} prefill buckets and one decode pass a layer")
+        for name, entry in report.items():
+            log(f"  {name}: {entry['flops']:.4e} FLOPs, "
+                f"{entry['bytes_accessed']:.4e} bytes (unfused bound), "
+                f"intensity {entry['arithmetic_intensity']:.2f}, roofline "
+                f"{entry['roofline']}, peak "
+                f"{entry['peak_hbm_bytes'] / 2**30:.2f} GiB"
+                + (f", decode MFU {100 * entry['achieved_mfu']:.3f}%"
+                   if "achieved_mfu" in entry else ""))
+        base_url = f"http://127.0.0.1:{srv.port}"
+        code, metrics = _http(base_url + "/metrics")
+        families = ("m2kt_serve_roofline_bound", "m2kt_serve_step_flops",
+                    "m2kt_serve_hbm_peak_bytes", "m2kt_serve_mfu")
+        missing = [f for f in families if f"# TYPE {f} gauge" not in metrics]
+        bounds = {name: _metric(metrics, "m2kt_serve_roofline_bound"
+                                f'{{executable="{name}"}}')
+                  for name in report}
+        classes = {1.0: "compute", 0.0: "bandwidth", -1.0: "unknown"}
+        traces = json.loads(_http(base_url + "/traces")[1])
+        usage = json.loads(_http(base_url + "/usage")[1])
+        ready = _http(base_url + "/readyz")
+        if (code != 200 or missing or any(
+                classes[bounds[n]] != e["roofline"]
+                for n, e in report.items())
+                or not traces["spans"] or not usage["snapshots"]
+                or ready != (200, "serving\n")):
+            raise RuntimeError(
+                f"obs serve: scrape: /metrics {code}, missing {missing}, "
+                f"bounds {bounds}, {len(traces['spans'])} spans, "
+                f"{len(usage['snapshots'])} usage snapshots, /readyz "
+                f"{ready}")
+        log(f"obs serve: /metrics carries {list(families)}; roofline by "
+            f"executable {[(n, classes[v]) for n, v in bounds.items()]}; "
+            f"/traces {len(traces['spans'])} spans; /usage "
+            f"{len(usage['snapshots'])} snapshot(s), tenants "
+            f"{sorted(usage['snapshots'][-1]['tenants'])}; /readyz "
+            f"{ready[1].strip()}")
+        t0 = time.perf_counter()
+        code, body = _http(base_url + "/profile?seconds=1")
+        written = glob.glob(os.path.join(profile_dir, "*.json"))
+        if code != 200 or len(written) != 1:
+            raise RuntimeError(f"obs serve: /profile {code} {body} wrote "
+                               f"{written}")
+        log(f"obs serve: /profile?seconds=1 answered in "
+            f"{time.perf_counter() - t0:.2f} s and wrote "
+            f"{os.path.basename(written[0])} "
+            f"({os.path.getsize(written[0])} bytes)")
+    finally:
+        srv.close()
+        srv._thread.join(30)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg8 = dataclasses.replace(llama_8b(), num_layers=2, attn_impl="flash")
+    small = init_llama(cfg8, seed=SEED, device="cuda").eval()
+    eng = ServingEngine(small, dataclasses.replace(econf, quant="int8-kv"),
+                        device="cuda", tracer=SpanRecorder())
+    del small
+    reset_launch_counts()
+    report8 = eng.cost_report()
+    torch.cuda.synchronize()
+    int8_launches = {k.name: k.launches for k in KERNELS}
+    want = {k.name: 0 for k in KERNELS}
+    want["flash_fwd"] = cfg8.num_layers * len(eng.buckets)
+    want["paged_decode_int8"] = cfg8.num_layers
+    if int8_launches != want or not report8["decode"]["flops"]:
+        raise RuntimeError(f"obs serve: int8-kv cost_report launches "
+                           f"{int8_launches}, expected {want}")
+    dec = report8["decode"]
+    log(f"obs serve: int8-kv engine, llama_8b widths, 2 layers: "
+        f"cost_report() launched {int8_launches}; decode "
+        f"{dec['flops']:.4e} FLOPs, {dec['bytes_accessed']:.4e} bytes, "
+        f"roofline {dec['roofline']} (no decode ran: no MFU); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, int8_launches
+
+
 @contextlib.contextmanager
 def _attention_impl(cfg, impl: str):
     """``cfg`` with its attention on the kernels (``"flash"``) or on the
@@ -3325,7 +3808,12 @@ def main() -> int:
     gpt2_kernels = gpt2_kernels_phase(torch)
     parity_phase(torch)
     launches, model = slice_phase(torch)
+    obs_serve, obs_int8 = obs_serve_phase(torch, model)
     int8_launches = int8_slice_phase(torch)
+    for name in ("flash_fwd", "paged_decode"):
+        launches[name] += obs_serve[name]
+    launches["flash_fwd"] += obs_int8["flash_fwd"]
+    int8_launches["paged_decode_int8"] += obs_int8["paged_decode_int8"]
     t_fleet = time.perf_counter()
     fleet_parity_phase(torch)
     fleet_paged = fleet_slice_phase(torch, model)
@@ -3359,6 +3847,10 @@ def main() -> int:
     int8_launches["paged_decode_int8"] += gpt2_serve8["paged_decode_int8"]
     train_parity_phase(torch)
     train_launches = train_slice_phase(torch)
+    obs_train = obs_train_phase(torch)
+    launches["flash_fwd"] += obs_train["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        train_launches[name] += obs_train[name]
     for part in (gpt2_train_phase(torch), moe_train_phase(torch)):
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
             train_launches[name] += part[name]

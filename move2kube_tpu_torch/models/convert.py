@@ -25,6 +25,12 @@ ones for the norms; :func:`init_gpt2` does the same for GPT-2 and
 weights on the host in fp32 would take 32 GB and minutes; on the card it
 takes seconds. The draws differ from ``jax.random``'s for the same seed.
 
+The top-level names of both trees are one table, :data:`FLAX_TOP` (the
+port's ``layers.3`` is flax's ``layer_3``): :func:`params_from_jax`
+reads the flax tree through it, and :func:`flax_group` gives the flax
+name of any port parameter, which the tensor-health plane
+(:mod:`move2kube_tpu_torch.obs.numerics`) names its layer groups by.
+
 Training keeps fp32 master weights: from the JAX package,
 ``params_from_jax(p, dataclasses.replace(cfg, dtype=torch.float32))``;
 drawn on the card, ``init_llama(cfg, seed, dtype=torch.float32)``. The
@@ -56,6 +62,42 @@ _LINEARS = ("qkv", "attn_out", "gate_up", "down")
 _MOE_EXPERTS = ("w_in", "w_gate", "w_out")
 _NORMS = ("attn_norm", "mlp_norm")
 _GPT2_LINEARS = ("c_attn", "attn_out", "c_fc", "mlp_out")
+
+# each family's top-level parameter names, the port's -> flax's ("{}"
+# takes the index that follows the port's name). The UNet's port names
+# are its flax paths, so it has no entries.
+FLAX_TOP = {
+    LlamaConfig: {"embed": "embed", "layers": "layer_{}",
+                  "final_norm": "final_norm", "lm_head": "lm_head"},
+    GPT2Config: {"wte": "wte", "wpe": "wpe", "h": "h_{}", "ln_f": "ln_f"},
+    BertConfig: {"tok_embed": "tok_embed", "pos_embed": "pos_embed",
+                 "seg_embed": "seg_embed", "embed_norm": "LayerNorm_0",
+                 "layers": "BertLayer_{}", "pooler": "pooler",
+                 "classifier": "classifier"},
+    ResNetConfig: {"stem_conv": "Conv_0", "stem_norm": "BatchNorm_0",
+                   "blocks": "BottleneckBlock_{}", "head": "Dense_0"},
+    UNetConfig: {},
+}
+
+
+def _top(kind, port: str, index: int | None = None) -> str:
+    """Flax's top-level name for the port's ``port`` (block ``index``)."""
+    name = FLAX_TOP[kind][port]
+    return name.format(index) if "{}" in name else name
+
+
+def flax_group(cfg, name: str) -> str:
+    """The flax tree's top-level name of the port's parameter ``name`` in
+    a model of config ``cfg`` (``layers.3.qkv.weight`` -> ``layer_3`` for
+    Llama, ``h.0.c_fc.bias`` -> ``h_0`` for GPT-2); a name the table does
+    not know keeps its first component."""
+    table = next((t for kind, t in FLAX_TOP.items()
+                  if isinstance(cfg, kind)), {})
+    head, _, rest = name.partition(".")
+    flax = table.get(head)
+    if flax is None:
+        return head
+    return flax.format(rest.partition(".")[0]) if "{}" in flax else flax
 
 
 def _np32(x):
@@ -116,9 +158,11 @@ def params_from_jax(params: dict, cfg) -> dict:
 
 
 def _llama_sd(p, cfg: LlamaConfig) -> dict:
-    sd = {"embed.weight": _tensor(p["embed"]["embedding"], cfg.dtype)}
+    L = LlamaConfig
+    sd = {"embed.weight": _tensor(p[_top(L, "embed")]["embedding"],
+                                  cfg.dtype)}
     for i in range(cfg.num_layers):
-        layer = p[f"layer_{i}"]
+        layer = p[_top(L, "layers", i)]
         names = _LINEARS[:2] if cfg.moe_experts else _LINEARS
         for name in names:
             _dense_into(sd, f"layers.{i}.{name}", layer[name], cfg.dtype)
@@ -130,30 +174,32 @@ def _llama_sd(p, cfg: LlamaConfig) -> dict:
                 sd[f"layers.{i}.moe.{name}"] = _tensor(moe[name], cfg.dtype)
         for name in _NORMS:
             sd[f"layers.{i}.{name}.scale"] = _tensor(layer[name]["scale"])
-    sd["final_norm.scale"] = _tensor(p["final_norm"]["scale"])
-    _dense_into(sd, "lm_head", p["lm_head"], torch.float32)
+    sd["final_norm.scale"] = _tensor(p[_top(L, "final_norm")]["scale"])
+    _dense_into(sd, "lm_head", p[_top(L, "lm_head")], torch.float32)
     return sd
 
 
 def _gpt2_sd(p, cfg: GPT2Config) -> dict:
-    sd = {f"{name}.weight": _tensor(p[name]["embedding"], cfg.dtype)
+    G = GPT2Config
+    sd = {f"{name}.weight": _tensor(p[_top(G, name)]["embedding"], cfg.dtype)
           for name in ("wte", "wpe")}
     for i in range(cfg.num_layers):
-        block = p[f"h_{i}"]
+        block = p[_top(G, "h", i)]
         for name in _GPT2_LINEARS:
             _dense_into(sd, f"h.{i}.{name}", block[name], cfg.dtype)
         for name in ("ln_1", "ln_2"):
             _norm_into(sd, f"h.{i}.{name}", block[name])
-    _norm_into(sd, "ln_f", p["ln_f"])
+    _norm_into(sd, "ln_f", p[_top(G, "ln_f")])
     return sd
 
 
 def _bert_sd(p, cfg: BertConfig) -> dict:
-    sd = {f"{name}.weight": _tensor(p[name]["embedding"])
+    B = BertConfig
+    sd = {f"{name}.weight": _tensor(p[_top(B, name)]["embedding"])
           for name in ("tok_embed", "pos_embed", "seg_embed")}
-    _norm_into(sd, "embed_norm", p["LayerNorm_0"])
+    _norm_into(sd, "embed_norm", p[_top(B, "embed_norm")])
     for i in range(cfg.num_layers):
-        layer, pre = p[f"BertLayer_{i}"], f"layers.{i}"
+        layer, pre = p[_top(B, "layers", i)], f"layers.{i}"
         attn = layer["BertSelfAttention_0"]
         for name in ("qkv", "out"):
             _dense_into(sd, f"{pre}.attn.{name}", attn[name], torch.float32)
@@ -162,7 +208,7 @@ def _bert_sd(p, cfg: BertConfig) -> dict:
         _dense_into(sd, f"{pre}.mlp_out", layer["Dense_1"], torch.float32)
         _norm_into(sd, f"{pre}.mlp_norm", layer["LayerNorm_1"])
     for name in ("pooler", "classifier"):
-        _dense_into(sd, name, p[name], torch.float32)
+        _dense_into(sd, name, p[_top(B, name)], torch.float32)
     return sd
 
 
@@ -174,12 +220,14 @@ def _bn_into(sd, prefix, leaf, stats):
 
 
 def _resnet_sd(p, stats, cfg: ResNetConfig) -> dict:
+    R = ResNetConfig
     stats = stats or {}
     sd = {}
-    _conv_into(sd, "stem_conv", p["Conv_0"])
-    _bn_into(sd, "stem_norm", p["BatchNorm_0"], stats.get("BatchNorm_0"))
+    _conv_into(sd, "stem_conv", p[_top(R, "stem_conv")])
+    _bn_into(sd, "stem_norm", p[_top(R, "stem_norm")],
+             stats.get(_top(R, "stem_norm")))
     for i in range(sum(cfg.stage_sizes)):
-        name = f"BottleneckBlock_{i}"
+        name = _top(R, "blocks", i)
         block, bstats = p[name], stats.get(name, {})
         pairs = [("conv1", "norm1", 0), ("conv2", "norm2", 1),
                  ("conv3", "norm3", 2)]
@@ -189,7 +237,7 @@ def _resnet_sd(p, stats, cfg: ResNetConfig) -> dict:
             _conv_into(sd, f"blocks.{i}.{conv}", block[f"Conv_{j}"])
             _bn_into(sd, f"blocks.{i}.{norm}", block[f"BatchNorm_{j}"],
                      bstats.get(f"BatchNorm_{j}"))
-    _dense_into(sd, "head", p["Dense_0"], torch.float32)
+    _dense_into(sd, "head", p[_top(R, "head")], torch.float32)
     return sd
 
 

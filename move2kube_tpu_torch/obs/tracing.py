@@ -1,6 +1,5 @@
-"""Runtime request tracing: a bounded span ring, the part of
-``move2kube_tpu/obs/tracing.py`` the serving engine uses (the port's own
-copy; the flight-recorder flush to disk is not ported yet).
+"""Runtime tracing: a bounded span ring and its flight-recorder dump, the
+port's own copy of ``move2kube_tpu/obs/tracing.py``.
 
 Every span carries a 32-hex trace id and a 16-hex span id (W3C-sized),
 so a replica's ``serve.request`` root can adopt the trace of the caller's
@@ -13,20 +12,37 @@ The ring is bounded twice: completed spans older than ``ring_seconds``
 (``M2KT_TRACE_RING_SECONDS``, default 120) and any past ``max_spans`` are
 evicted on append. Recording is a dict append under a lock. Tracing is on
 unless ``M2KT_TRACE`` is ``0``, ``false`` or ``off``.
+
+Every span also carries ``M2KT_SLICE_ID``/hostname/role resource tags,
+so rings flushed by different processes can be merged and still
+attributed. Exports:
+
+- :meth:`SpanRecorder.chrome_trace`: Chrome trace-event JSON (``ph: "X"``
+  complete events, µs timestamps), loadable in Perfetto;
+- :meth:`SpanRecorder.otlp_lines`: OTLP/JSON-shaped lines, one
+  ``resourceSpans`` object per line;
+- :meth:`SpanRecorder.ring_doc`: the document ``/traces`` serves and
+  :meth:`SpanRecorder.flush_ring` dumps atomically to ``<flight>.ring``
+  for the supervisor's flight recorder (:func:`install_ring_flush` does
+  it on every exit path that runs interpreter teardown).
 """
 
 from __future__ import annotations
 
 import contextvars
+import json
 import os
+import socket
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 
 TRACE_ENV = "M2KT_TRACE"
 # the W3C header a span's identity rides between processes
 TRACEPARENT_HEADER = "traceparent"
 RING_SECONDS_ENV = "M2KT_TRACE_RING_SECONDS"
+FLIGHT_PATH_ENV = "M2KT_FLIGHT_PATH"
 ROLE_ENV = "M2KT_FLEET_ROLE"
 
 DEFAULT_RING_SECONDS = 120.0
@@ -47,6 +63,24 @@ def ring_seconds() -> float:
     except ValueError:
         return DEFAULT_RING_SECONDS
     return val if val > 0 else DEFAULT_RING_SECONDS
+
+
+def flight_path() -> str:
+    """Where the supervisor writes ``m2kt-flight.json`` (and, derived,
+    where a dying process flushes its span ring for the supervisor to
+    pick up): ``M2KT_FLIGHT_PATH``, else ``m2kt-flight.json`` under
+    ``M2KT_METRICS_DIR`` (or the working directory)."""
+    p = os.environ.get(FLIGHT_PATH_ENV, "")
+    if p:
+        return p
+    return os.path.join(os.environ.get("M2KT_METRICS_DIR", "") or ".",
+                        "m2kt-flight.json")
+
+
+def ring_path() -> str:
+    """The ring dump's path: the supervisor and the supervised process
+    compute the same name from the same env, no handshake."""
+    return flight_path() + ".ring"
 
 
 def fleet_role() -> str:
@@ -121,6 +155,7 @@ class SpanRecorder:
 
     def __init__(self, ring_seconds: float | None = None,
                  max_spans: int = DEFAULT_MAX_SPANS,
+                 host: str | None = None, slice_id: int | None = None,
                  role: str | None = None):
         self._lock = threading.Lock()
         self._ring: deque[Span] = deque()
@@ -131,6 +166,13 @@ class SpanRecorder:
         # wall-clock anchor for export; all span math stays monotonic
         self._t0_perf = time.perf_counter()
         self._t0_unix = time.time()
+        self.host = host or socket.gethostname()
+        if slice_id is None:
+            try:
+                slice_id = int(os.environ.get("M2KT_SLICE_ID", "0") or 0)
+            except ValueError:
+                slice_id = 0
+        self.slice_id = slice_id
         self.role = (role or fleet_role()).strip().lower()
         self.dropped = 0
         # per-recorder context: nested start() calls parent automatically
@@ -186,6 +228,15 @@ class SpanRecorder:
             self._append_locked(span)
         return span
 
+    @contextmanager
+    def span(self, name: str, attrs: dict | None = None,
+             parent: Span | None = None, trace_id: str | None = None):
+        s = self.start(name, attrs, parent=parent, trace_id=trace_id)
+        try:
+            yield s
+        finally:
+            self.end(s)
+
     def record(self, name: str, t0: float, t1: float,
                attrs: dict | None = None, trace_id: str | None = None,
                parent_id: str = "") -> Span:
@@ -198,6 +249,10 @@ class SpanRecorder:
         with self._lock:
             self._append_locked(span)
         return span
+
+    @staticmethod
+    def annotate(span: Span, **attrs) -> None:
+        span.attrs.update(attrs)
 
     def current(self) -> Span | None:
         return self._current.get()
@@ -244,6 +299,116 @@ class SpanRecorder:
             })
         return out
 
+    def chrome_trace(self) -> dict:
+        """Chrome trace-event JSON: ``ph: "X"`` complete events with µs
+        timestamps, pid = this process, tid = the slice id."""
+        pid = os.getpid()
+        events = []
+        for s in self.snapshot():
+            events.append({
+                "name": s["name"],
+                "ph": "X",
+                "ts": round((s["ts_unix"] - self._t0_unix) * 1e6, 3),
+                "dur": round(s["dur_s"] * 1e6, 3),
+                "pid": pid,
+                "tid": self.slice_id,
+                "cat": "m2kt",
+                "args": {**s["attrs"], "trace_id": s["trace_id"],
+                         "span_id": s["span_id"],
+                         "parent_id": s["parent_id"],
+                         "role": s["role"]},
+            })
+        return {
+            "traceEvents": events,
+            "displayTimeUnit": "ms",
+            "otherData": {"host": self.host, "slice_id": self.slice_id,
+                          "role": self.role,
+                          "anchor_unix": self._t0_unix},
+        }
+
+    def otlp_lines(self) -> list[str]:
+        """OTLP/JSON-shaped lines: one ``resourceSpans`` object per line
+        (filelog-receiver friendly), string/int attributes only."""
+        resource_attrs = [
+            {"key": "host.name", "value": {"stringValue": self.host}},
+            {"key": "m2kt.slice_id",
+             "value": {"intValue": str(self.slice_id)}},
+            {"key": "m2kt.role", "value": {"stringValue": self.role}},
+            {"key": "service.name", "value": {"stringValue": "move2kube-tpu"}},
+        ]
+        lines = []
+        for s in self.snapshot():
+            attrs = []
+            for k, v in s["attrs"].items():
+                if isinstance(v, bool):
+                    attrs.append({"key": k, "value": {"boolValue": v}})
+                elif isinstance(v, int):
+                    attrs.append({"key": k, "value": {"intValue": str(v)}})
+                elif isinstance(v, float):
+                    attrs.append({"key": k, "value": {"doubleValue": v}})
+                else:
+                    attrs.append({"key": k,
+                                  "value": {"stringValue": str(v)}})
+            start_ns = int(s["ts_unix"] * 1e9)
+            lines.append(json.dumps({"resourceSpans": [{
+                "resource": {"attributes": resource_attrs},
+                "scopeSpans": [{
+                    "scope": {"name": "m2kt.obs.tracing"},
+                    "spans": [{
+                        "traceId": s["trace_id"],
+                        "spanId": s["span_id"],
+                        "parentSpanId": s["parent_id"],
+                        "name": s["name"],
+                        "kind": 1,
+                        "startTimeUnixNano": str(start_ns),
+                        "endTimeUnixNano": str(
+                            start_ns + int(s["dur_s"] * 1e9)),
+                        "attributes": attrs,
+                    }],
+                }],
+            }]}, separators=(",", ":")))
+        return lines
+
+    def ring_doc(self, limit: int | None = None) -> dict:
+        """The ring as one self-describing JSON document: what the flight
+        recorder dumps and ``/traces`` serves. ``limit`` keeps the NEWEST
+        ``limit`` spans; ``truncated`` counts what it cut and ``dropped``
+        what ring eviction already lost."""
+        spans = self.snapshot()
+        truncated = 0
+        if limit is not None and limit >= 0 and len(spans) > limit:
+            truncated = len(spans) - limit
+            spans = spans[len(spans) - limit:]
+        return {
+            "host": self.host,
+            "slice_id": self.slice_id,
+            "role": self.role,
+            "pid": os.getpid(),
+            "written_unix": time.time(),
+            "ring_seconds": self.ring_seconds,
+            "dropped": self.dropped,
+            "truncated": truncated,
+            "spans": spans,
+        }
+
+    def flush_ring(self, path: str | None = None) -> str | None:
+        """Atomically dump :meth:`ring_doc` (``ring_path()`` by default).
+        Best-effort: this runs on dying-process paths and must never mask
+        the original exit code; None when the write failed."""
+        path = path or ring_path()
+        doc = self.ring_doc()
+        try:
+            d = os.path.dirname(os.path.abspath(path))
+            os.makedirs(d, exist_ok=True)
+            tmp = path + f".tmp.{os.getpid()}"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(doc, f)
+                f.write("\n")
+            os.replace(tmp, path)
+            return path
+        except OSError:
+            return None
+
 
 _recorder: SpanRecorder | None = None
 _recorder_lock = threading.Lock()
@@ -263,3 +428,34 @@ def reset() -> None:
     global _recorder
     with _recorder_lock:
         _recorder = None
+
+
+_flush_installed = False
+
+
+def install_ring_flush(path: str | None = None) -> None:
+    """Flush the process-wide span ring on every interpreter exit path
+    that runs teardown. ``threading._register_atexit`` hooks run before
+    the interpreter joins non-daemon threads, where plain ``atexit`` runs
+    after them, too late for a process that exits from a worker thread
+    or with ``sys.exit(83)`` mid-run. SIGKILL skips teardown. Once per
+    process; a no-op while tracing is off."""
+    global _flush_installed
+    if _flush_installed or not enabled():
+        return
+    _flush_installed = True
+
+    def _flush() -> None:
+        try:
+            if _recorder is not None:
+                _recorder.flush_ring(path)
+        except Exception:  # noqa: BLE001 - dying process, best effort
+            pass
+
+    register = getattr(threading, "_register_atexit", None)
+    if register is None:
+        import atexit
+
+        atexit.register(_flush)
+    else:
+        register(_flush)

@@ -19,7 +19,9 @@ TPU kernels broadcast it over 128 lanes; that is a TPU tiling artefact).
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import torch
 
@@ -57,6 +59,67 @@ _HEAD_DIMS = (64, 128)
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+# the cost model's view of the kernels (obs/costmodel.py). torch's
+# FlopCounterMode sees the plain versions' einsums on the CPU but nothing
+# of a ctypes launch, so each wrapper that launches adds its plain
+# version's FLOPs, and the bytes it moves (each input read once, each
+# output written once), to every count open in the process: the autograd
+# engine launches the backward kernels from its own thread
+_COST_SINKS: list[dict] = []
+_COST_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def count_kernel_cost():
+    """Open a count of the kernels' work: yields ``{"flops", "bytes"}``,
+    which every kernel launched while it is open adds to."""
+    sink = {"flops": 0, "bytes": 0}
+    with _COST_LOCK:
+        _COST_SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        with _COST_LOCK:
+            _COST_SINKS.remove(sink)
+
+
+def _note_cost(flops: int, *tensors) -> None:
+    if not _COST_SINKS:
+        return
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    with _COST_LOCK:
+        for sink in _COST_SINKS:
+            sink["flops"] += flops
+            sink["bytes"] += nbytes
+
+
+def flash_fwd_flops(b: int, s: int, sk: int, h: int, d: int) -> int:
+    """FLOPs of the flash forward as its plain version counts them: the
+    scores and the P.V products over every (query, key) pair of each
+    head, masked or not (with or without the logsumexp)."""
+    return 4 * b * h * s * sk * d
+
+
+def flash_bwd_flops(b: int, s: int, sk: int, h: int, d: int
+                    ) -> tuple[int, int]:
+    """FLOPs of the flash backward's two kernels as the plain version
+    counts them: its five products over every (query, key) pair of each
+    head (P recomputed, dO.V^T, dq, dk, dv). P and dO.V^T, which the plain
+    version computes once for both gradients, are put with dq; ``(dq's,
+    dk and dv's)``."""
+    unit = 2 * b * h * s * sk * d
+    return 3 * unit, 2 * unit
+
+
+def paged_decode_flops(b: int, h: int, max_blocks: int, block_size: int,
+                       d: int) -> int:
+    """FLOPs of a paged decode call as its plain version counts them (fp
+    or int8 pages): the scores and the P.V products over every position
+    the block tables span, ``max_blocks * block_size``, valid or not."""
+    return 4 * b * h * max_blocks * block_size * d
 
 
 def _kernel_args_ok(name: str, tensors: dict, dtype, d: int) -> None:
@@ -232,6 +295,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, want_lse: bool):
                      out.data_ptr(), lse.data_ptr() if want_lse else None,
                      b, s, sk, h, kvh, d, int(causal), float(scale),
                      _DTYPE_CODES[q.dtype], dev, stream)
+    _note_cost(flash_fwd_flops(b, s, sk, h, d), q, k, v, out, lse)
     return out, lse
 
 
@@ -271,6 +335,9 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool, scale: float):
         FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                             dq.data_ptr(), *_bwd_common(q, k, causal, scale))
+        b, s, h, d = q.shape
+        _note_cost(flash_bwd_flops(b, s, k.shape[1], h, d)[0],
+                   q, k, v, g, lse, delta, dq)
     return dq
 
 
@@ -288,6 +355,9 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal: bool, scale: float):
                              g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                              dk.data_ptr(), dv.data_ptr(),
                              *_bwd_common(q, k, causal, scale))
+        b, s, h, d = q.shape
+        _note_cost(flash_bwd_flops(b, s, k.shape[1], h, d)[1],
+                   q, k, v, g, lse, delta, dk, dv)
     return dk, dv
 
 
@@ -522,6 +592,13 @@ def _paged_launch(kernel, q, pools, block_tables, seq_lens, block_size: int,
                   out.data_ptr(), None if ws is None else ws.data_ptr(), b, h,
                   kvh, d, block_size, mb, pps, n_split, float(scale),
                   _DTYPE_CODES[q.dtype], dev, stream)
+    if _COST_SINKS:
+        # the rows of every page the block tables name, as the plain
+        # version gathers them (an upper bound: the kernel stops at
+        # seq_lens)
+        rows = [t[:1].expand(b * mb, *t.shape[1:]) for t in pools]
+        _note_cost(paged_decode_flops(b, h, mb, block_size, d), q, *rows,
+                   block_tables, seq_lens, out)
     return out
 
 

@@ -70,6 +70,11 @@ The paths below add no kernel; each is a sequence of those passes:
 - **Disaggregated prefill** (:meth:`ServingEngine.install_prefilled`):
   a slot is seated from K/V prefilled elsewhere
   (:mod:`move2kube_tpu_torch.serving.fleet.disagg`).
+- **Cost model** (:meth:`ServingEngine.cost_report`): FLOPs, bytes,
+  roofline class and decode MFU of every bucketed pass, counted on one
+  run each (:mod:`move2kube_tpu_torch.obs.costmodel`) that touches no
+  live page; the usage ledger reads the engine through
+  :func:`move2kube_tpu_torch.obs.ledger.engine_source`.
 
 Low-precision serving (``quant``, :mod:`.quant`): the engine quantizes
 the model's weights once, at construction (per-output-channel int8,
@@ -1746,6 +1751,84 @@ class ServingEngine:
         if done:
             return True, [self._release(slot_idx, done)]
         return True, []
+
+    @torch.inference_mode()
+    def _cost_prefill(self, ids: torch.Tensor):
+        """The prefill's model pass of :meth:`_prefill` (the base adapter
+        row under LoRA), without the scatter into the slot's pages."""
+        return self.model(ids, return_kv=True,
+                          lora=self._lora_args(rows=[0]))
+
+    @torch.inference_mode()
+    def _cost_passes(self, cache: dict, n: int):
+        """``n`` single-token passes of every row at positions ``0..n-1``
+        over ``cache`` (one decode step, or a verify window's passes)."""
+        B = self.config.max_batch
+        tokens = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        lora = self._lora_args(rows=[0] * B)
+        for j in range(n):
+            self._pass(self.model, cache, tokens, pos + j,
+                       cache["block_tables"], lora)
+
+    def cost_report(self, accelerator: str = "") -> dict:
+        """Roofline/MFU cost model of every bucketed pass
+        (:mod:`move2kube_tpu_torch.obs.costmodel`): each prefill bucket,
+        the decode step and, with spec on, the verify window are each run
+        once under the counters on zero-filled inputs, and the serving
+        gauges (``m2kt_serve_roofline_bound{executable=...}`` etc.) are set
+        on this engine's registry. Decode MFU uses the engine's own
+        measured per-step decode time when any decode has run.
+
+        The reference lowers its executables without running them; the
+        port has to run a pass to count it, so the passes leave the engine
+        as they found it: the prefills write no page, and the single-token
+        passes write into scratch pools of one page with the live cache's
+        geometry. The live pools (the null page included), ``seq_lens``,
+        the page allocator, ``stats()["passes"]``, the streams in flight
+        and every metric but the cost gauges are untouched. The passes do
+        launch the kernels (one flash forward a layer a bucket, one paged
+        decode a layer a single-token pass), and on the card they reset
+        the device's peak-memory statistics."""
+        from move2kube_tpu_torch.obs import costmodel
+
+        reports: dict = {}
+        for bucket in self.buckets:
+            ids = torch.zeros((1, bucket), dtype=torch.long,
+                              device=self.device)
+            _, reports[f"prefill_{bucket}"] = costmodel.count_cost(
+                self._cost_prefill, ids, device=self.device)
+        scratch = init_cache(dataclasses.replace(self.cache_cfg, num_pages=1),
+                             self.device)
+        _, decode = costmodel.count_cost(self._cost_passes, scratch, 1,
+                                         device=self.device)
+        reports["decode"] = decode
+        # decode is the steady-state resident: its memory is what the OOM
+        # flight sidecar should carry for a serving pod
+        costmodel.note_memory_report(decode)
+        if self.spec_k:
+            _, verify = costmodel.count_cost(
+                self._cost_passes, scratch, self.spec_k + 1,
+                device=self.device)
+            reports["verify"] = verify
+            costmodel.note_memory_report(verify)
+        spec, _ = costmodel.chip_spec(accelerator)
+        decode_step = (self._decode_time / self._lat_hist.count
+                       if self._lat_hist.count else None)
+        costmodel.export_serving_gauges(
+            reports, self.registry, accelerator=accelerator,
+            decode_step_seconds=decode_step, quant=self.quant.name)
+        out = {}
+        for name, rep in reports.items():
+            entry = rep.to_dict()
+            entry["roofline"] = rep.roofline(spec)
+            out[name] = entry
+        int8 = self.quant.name != "off"
+        for name in ("decode", "verify"):
+            if name in out:
+                out[name]["achieved_mfu"] = reports[name].mfu(
+                    decode_step, spec, int8=int8)
+        return out
 
     def stats(self) -> dict:
         """Counters of this engine's work so far. Host-clock times end in
