@@ -92,6 +92,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    peak bytes; an Inf planted in a middle layer's gradient, named by
    ``first_bad_group`` in the ``<flight>.numerics`` sidecar and moving
    the non-finite counters by one; the ``<flight>.mem`` sidecar read back
+12c. resilience: a cold bake of the kernels into a prewarm artifact and
+   an empty build cache seeded from it, loaded with no nvcc; meanwhile a
+   2-layer Llama-8B-width trainer (``--resilience-child``, deterministic
+   algorithms) under ``python -m move2kube_tpu_torch.resilience.
+   supervisor``, SIGKILLed at step 5 and resumed from its step-4
+   checkpoint, beside an uninterrupted run of the same 8 steps: the final
+   parameters and Adam moments equal by SHA-256; the final checkpoint
+   through ``restore_variables`` served to 4 requests with the streams of
+   the trainer's final state dict; each save's seconds and GB/s, the
+   restore, each attempt's goodput, the exit file and the flight doc
 13. the model families. GPT-2: the five kernels at GPT-2 small's
    attention (h = kvh = 12, d = 64; with the other kernel checks, after
    phase 3); parity at GPT-2 small's widths, 2 layers, fp32 (the flash
@@ -3784,6 +3794,509 @@ def families_phase(torch) -> None:
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# the resilience phase: build cache, a killed trainer resumed under the
+# port's supervisor, bit-for-bit against an uninterrupted run, and the
+# checkpoint served
+
+# the trainer of the killed run: Llama-8B widths cut to 2 layers (about
+# 0.70 B parameters), fp32 masters, the bf16 policy, AdamW, flash and remat
+RES_LAYERS, RES_BATCH, RES_SEQ, RES_ROWS = 2, 4, 2048, 64
+RES_STEPS, RES_EVERY, RES_FAULT_STEP, RES_KEEP = 8, 2, 5, 2
+RES_LR, RES_WD = 1e-4, 0.1
+RES_CHILD_TIMEOUT_S = 420
+
+
+def _res_cfg(layers: int = RES_LAYERS):
+    from move2kube_tpu_torch import llama_8b
+
+    return dataclasses.replace(llama_8b(), num_layers=layers,
+                               attn_impl="flash")
+
+
+def _res_bytes_estimate(cfg) -> int:
+    """A checkpoint's bytes: every parameter in fp32 and its two Adam
+    moments (12 bytes a parameter)."""
+    hd = cfg.d_model // cfg.num_heads
+    layer = (2 * cfg.d_model * cfg.num_heads * hd
+             + 2 * cfg.d_model * cfg.num_kv_heads * hd
+             + 3 * cfg.d_model * cfg.mlp_dim + 2 * cfg.d_model)
+    n = 2 * cfg.vocab_size * cfg.d_model + cfg.num_layers * layer \
+        + cfg.d_model
+    return 12 * n
+
+
+def _digest_state(state) -> dict:
+    """SHA-256 of every parameter's and Adam moment's bytes, by name (the
+    tensors are copied to the host and hashed on 8 threads: hashlib
+    releases the GIL)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    named = {}
+    inner = state.optimizer.inner
+    for name, p in state.model.named_parameters():
+        named[f"param/{name}"] = p
+        for key in ("exp_avg", "exp_avg_sq"):
+            named[f"{key}/{name}"] = inner.state[p][key]
+
+    def sha(t):
+        host = t.detach().contiguous().cpu().view(torch.uint8).numpy()
+        return hashlib.sha256(memoryview(host)).hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(named, pool.map(sha, named.values())))
+
+
+def resilience_child() -> int:
+    """The trainer the resilience phase runs (``--resilience-child``), in
+    the emitted trainer's order (``train_tpu.py:545-713``): the loader,
+    the checkpoint manager and its exit flush, ``restore_or_init`` and
+    the loader's skip, then each step's fault check, step, save and
+    preemption check, then the goodput flush. Deterministic algorithms
+    (``CUBLAS_WORKSPACE_CONFIG`` comes from the parent). Prints each
+    step's loss bits and kernel launches, each save's seconds; with
+    ``M2KT_DIGEST_FILE`` it writes the final parameters' and moments'
+    SHA-256, with ``M2KT_FINAL_MODEL`` the final model's state dict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("resilience child: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        init_llama,
+        make_lm_train_step,
+        make_loader,
+        policy,
+        reset_launch_counts,
+        setup_compilation_cache,
+    )
+    from move2kube_tpu_torch.models import checkpoint as m2kt_ckpt
+    from move2kube_tpu_torch.obs import tracing
+    from move2kube_tpu_torch.ops import _build
+    from move2kube_tpu_torch.ops.attention import KERNELS
+    from move2kube_tpu_torch.resilience import faults, goodput, preemption
+
+    cache = setup_compilation_cache()
+    if tracing.enabled():
+        tracing.install_ring_flush()
+    gp = goodput.GoodputTracker()
+    watcher = preemption.from_env()
+    if watcher is not None:
+        watcher.install()
+    steps = int(os.environ.get("M2KT_STEPS", str(RES_STEPS)))
+    cfg = _res_cfg()
+    pol = policy("bf16")
+    model = init_llama(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    state = TrainState(model, pol.wrap_optimizer(adamw(
+        model.parameters(), RES_LR, weight_decay=RES_WD)))
+    step_fn = make_lm_train_step(remat=True, precision=pol)
+    loader = make_loader(os.environ["M2KT_DATA"], RES_BATCH, device="cuda",
+                         seed=SEED)
+    ckpt = m2kt_ckpt.from_env()
+    start = 0
+    if ckpt is not None:
+        ckpt.max_to_keep = RES_KEEP
+        ckpt.install_exit_flush()
+        t0 = time.perf_counter()
+        with gp.phase("restore"):
+            state, start = ckpt.restore_or_init(state)
+            torch.cuda.synchronize()
+        if start:
+            gp.note_resume(start)
+            gp.note_saved(start)
+            print(f"[m2kt] resumed from step {start}", flush=True)
+            print(f"[m2kt] restore {time.perf_counter() - t0:.3f} s "
+                  f"({ckpt.restored['bytes'] / 1e9:.3f} GB)", flush=True)
+    if start:
+        loader.skip(start)
+        cursor = ckpt.restored["loader"]
+        if loader.position() != cursor:
+            raise RuntimeError(f"the loader skipped to {loader.position()}"
+                               f", the checkpoint's cursor is {cursor}")
+        print(f"[m2kt] skipped {start} batches (the checkpoint's cursor "
+              f"{cursor})", flush=True)
+    print(f"[m2kt] build dir {cache}; nvcc runs {_build.nvcc_runs}",
+          flush=True)
+    reset_launch_counts()
+    preempted_at = None
+    with loader:
+        for i in range(start + 1, steps + 1):
+            faults.maybe_inject(i)
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, next(loader))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            gp.add("compile" if i == start + 1 else "productive", dt,
+                   steps=1)
+            launches = {k.name: k.launches for k in KERNELS}
+            print(f"[m2kt] step {i} loss {float(loss).hex()} "
+                  f"{dt * 1e3:.1f} ms launches {json.dumps(launches)}",
+                  flush=True)
+            if ckpt is not None and ckpt.maybe_save(i, state, loader=loader):
+                ckpt.wait()  # M2KT_CKPT_SYNC=1 already waited
+                gp.note_saved(i)
+                gp.write()
+                done = ckpt.last_save
+                print(f"[m2kt] save step {i}: {done['bytes'] / 1e9:.3f} GB, "
+                      f"host copy {done['snapshot_seconds']:.3f} s, write "
+                      f"{done['seconds']:.3f} s "
+                      f"({done['bytes'] / 1e9 / done['seconds']:.3f} GB/s)",
+                      flush=True)
+            if watcher is not None and watcher.should_stop(i):
+                preempted_at = i
+                break
+    last = preempted_at if preempted_at is not None else steps
+    if ckpt is not None:
+        with gp.phase("save"):
+            ckpt.maybe_save(last, state, force=True, loader=loader)
+            ckpt.close()
+        gp.note_saved(last)
+    gp.write()
+    if os.environ.get("M2KT_DIGEST_FILE"):
+        with open(os.environ["M2KT_DIGEST_FILE"], "w",
+                  encoding="utf-8") as f:
+            json.dump(_digest_state(state), f)
+    if os.environ.get("M2KT_FINAL_MODEL"):
+        torch.save(state.model.state_dict(), os.environ["M2KT_FINAL_MODEL"])
+    rep = gp.report()
+    print(f"[m2kt] done steps={last} goodput={rep['goodput_fraction']:.4f}",
+          flush=True)
+    return 143 if preempted_at is not None else 0
+
+
+def _child_steps(out: str) -> list:
+    """Each ``[m2kt] step`` line of a child's output: (step, loss bits,
+    ms, launches), in order."""
+    rows = []
+    for line in out.splitlines():
+        if line.startswith("[m2kt] step ") and " launches " in line:
+            head, launches = line.split(" launches ", 1)
+            parts = head.split()
+            rows.append((int(parts[2]), parts[4], float(parts[5]),
+                         json.loads(launches)))
+    return rows
+
+
+def _attempts(out: str) -> list:
+    """A supervised run's output cut into its attempts' step rows (each
+    child prints its build directory before its first step)."""
+    runs = []
+    for line in out.splitlines():
+        if line.startswith("[m2kt] build dir "):
+            runs.append([])
+        elif runs:
+            runs[-1].extend(_child_steps(line))
+    return runs
+
+
+def _want_train_launches(n_steps: int, layers: int = RES_LAYERS) -> dict:
+    return {"flash_fwd": 2 * layers * n_steps,
+            "flash_bwd_dq": layers * n_steps,
+            "flash_bwd_dkv": layers * n_steps,
+            "paged_decode": 0, "paged_decode_int8": 0}
+
+
+def _res_workdir(need: int) -> str:
+    """A directory for the checkpoints: the temporary directory, or the
+    checkout's ignored ``build/`` when that has more room; fails loudly
+    when neither holds ``need`` bytes."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cands = [tempfile.gettempdir(), os.path.join(here, "build")]
+    os.makedirs(cands[1], exist_ok=True)
+    free = {c: shutil.disk_usage(c).free for c in cands}
+    for c, f in free.items():
+        log(f"resilience: {f / 1e9:.1f} GB free under {c}")
+    best = max(cands, key=free.get)
+    if free[best] < need:
+        raise RuntimeError(
+            f"resilience: the checkpoints need {need / 1e9:.1f} GB of disk;"
+            f" the most free is {free[best] / 1e9:.1f} GB under {best}")
+    return tempfile.mkdtemp(prefix="m2kt-resilience-", dir=best)
+
+
+def _build_cache_check(work: str) -> None:
+    """The resilience phase's build cache: ``bake_prewarm`` builds every
+    kernel cold (one nvcc each) into a prewarm artifact under ``work``;
+    then ``setup_compilation_cache`` on an empty directory seeded from it
+    (``M2KT_PREWARM_DIR``) and fresh kernel objects load all five with no
+    nvcc. The build directory and the env are put back."""
+    from move2kube_tpu_torch import bake_prewarm, setup_compilation_cache
+    from move2kube_tpu_torch.ops import _build
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    prev_dir = _build.set_build_dir(None)
+    env_prev = os.environ.get("M2KT_PREWARM_DIR")
+    try:
+        runs0 = _build.nvcc_runs
+        t0 = time.perf_counter()
+        baked = bake_prewarm(os.path.join(work, "prewarm"))
+        cold = time.perf_counter() - t0
+        if baked != 2 * len(KERNELS) or \
+                _build.nvcc_runs - runs0 != len(KERNELS):
+            raise RuntimeError(
+                f"resilience: the cold bake left {baked} files after "
+                f"{_build.nvcc_runs - runs0} nvcc runs")
+        os.environ["M2KT_PREWARM_DIR"] = os.path.join(work, "prewarm")
+        t0 = time.perf_counter()
+        cache = setup_compilation_cache(os.path.join(work, "cache"))
+        fresh = [_build.CudaKernel(k.name, k.symbol, k.argtypes)
+                 for k in KERNELS]
+        runs1 = _build.nvcc_runs
+        _build.build_all(fresh)
+        seeded = time.perf_counter() - t0
+    finally:
+        _build.set_build_dir(prev_dir)
+        if env_prev is None:
+            os.environ.pop("M2KT_PREWARM_DIR", None)
+        else:
+            os.environ["M2KT_PREWARM_DIR"] = env_prev
+    if _build.nvcc_runs != runs1:
+        raise RuntimeError("resilience: the seeded build ran nvcc")
+    log(f"resilience: build cache: cold bake of {len(KERNELS)} kernels "
+        f"({len(KERNELS)} nvcc runs) {cold:.3f} s; an empty cache seeded "
+        f"from it loaded all {len(fresh)} in {seeded:.3f} s with 0 nvcc "
+        f"runs ({cache}) ({CARD})")
+
+
+def resilience_phase(torch) -> dict:
+    """(a) the build cache (:func:`_build_cache_check`), while (b) the
+    killed trainer: ``python -m move2kube_tpu_torch.resilience.
+    supervisor -- python chip_smoke.py --resilience-child`` over an npz of
+    token ids, SIGKILLed at step 5, resumed from step 4; (c) beside it an
+    uninterrupted child of the same 8 steps; the final parameters and
+    Adam moments equal bit for bit (SHA-256 of each tensor's bytes);
+    (d) the final checkpoint through ``restore_variables`` into a bf16
+    Llama served to 4 requests, streams equal to the uninterrupted
+    trainer's final state dict served the same way; (e) the numbers.
+    Returns the main-path launches of the children and the engines."""
+    import shutil
+
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Llama,
+        Request,
+        restore_variables,
+    )
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _res_cfg()
+    need = _res_bytes_estimate(cfg)
+    work = _res_workdir((RES_KEEP + 1) * need + (4 << 30))
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        # the data: token ids from SEED
+        rng = np.random.default_rng(SEED + 11)
+        data = os.path.join(work, "tokens.npz")
+        np.savez(data, input_ids=rng.integers(
+            0, cfg.vocab_size, (RES_ROWS, RES_SEQ), dtype=np.int64))
+        base = {k: v for k, v in os.environ.items()
+                if not k.startswith("M2KT_")}
+        base.update({
+            "PYTHONPATH": here, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+            "M2KT_DATA": data, "M2KT_STEPS": str(RES_STEPS),
+            "M2KT_COMPILE_CACHE": "0",
+            "M2KT_PREEMPT_FILE": os.path.join(work, "preempt")})
+        child = [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--resilience-child"]
+        killed = dict(
+            base, M2KT_CKPT_DIR=os.path.join(work, "ckpt"),
+            M2KT_CKPT_EVERY=str(RES_EVERY), M2KT_CKPT_SYNC="1",
+            M2KT_FAULT_STEP=str(RES_FAULT_STEP), M2KT_FAULT_KIND="sigkill",
+            M2KT_FAULT_MARKER=os.path.join(work, "fault-fired"),
+            M2KT_RETRY_MAX="1", M2KT_RETRY_BACKOFF_S="0.1",
+            M2KT_EXIT_FILE=os.path.join(work, "exit.json"),
+            M2KT_GOODPUT_FILE=os.path.join(work, "goodput.json"),
+            M2KT_FLIGHT_PATH=os.path.join(work, "flight.json"),
+            M2KT_DIGEST_FILE=os.path.join(work, "digest-resumed.json"))
+        straight = dict(
+            base, M2KT_GOODPUT_FILE=os.path.join(work, "goodput-u.json"),
+            M2KT_FLIGHT_PATH=os.path.join(work, "flight-u.json"),
+            M2KT_DIGEST_FILE=os.path.join(work, "digest-straight.json"),
+            M2KT_FINAL_MODEL=os.path.join(work, "final-model.pt"))
+        log(f"resilience: llama_8b widths, {RES_LAYERS} layers, fp32 "
+            f"masters, bf16 policy, AdamW, flash, remat, batch {RES_BATCH} x"
+            f" {RES_SEQ}, {RES_STEPS} steps, checkpoint every {RES_EVERY} "
+            f"(sync, {RES_KEEP} kept, about {need / 1e9:.2f} GB each), "
+            f"SIGKILL at step {RES_FAULT_STEP}; deterministic algorithms")
+
+        # (b) the killed run under the supervisor and (c) the
+        # uninterrupted run, side by side on the card (each child holds
+        # about 15 GB; both load the kernels the build phase built), and
+        # (a) the build cache in this process meanwhile
+        lengths = np.random.default_rng(SEED + 12).integers(64, 513, 4)
+        reqs = [Request(f"c{i}", np.random.default_rng(SEED + 13 + i)
+                        .integers(1, cfg.vocab_size, int(n)).tolist(), 16)
+                for i, n in enumerate(lengths)]
+        runs, streams, launches = {}, {}, {k.name: 0 for k in KERNELS}
+
+        def serve(label, load):
+            """(d): a bf16 Llama of the trainer's widths loaded by
+            ``load(state dict)``, serving ``reqs`` on a fresh engine."""
+            model = Llama(cfg, device="cuda").eval()
+            t0 = time.perf_counter()
+            model.load_state_dict(load(model.state_dict()))
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            eng, comps, got, wall = _engine_run(
+                torch, model, EngineConfig(max_batch=4, max_seq=1024,
+                                           block_size=16),
+                reqs, f"resilience {label}")
+            streams[label] = {rid: c.tokens for rid, c in comps.items()}
+            for name, n in got.items():
+                launches[name] += n
+            log(f"resilience: served {label} ({t_load:.3f} s to load): 4 "
+                f"requests, prompts {sorted(lengths.tolist())}, 16 new tokens"
+                f", wall {wall:.3f} s, launches {got} ({CARD})")
+            del eng, model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        def direct(variables):
+            final = torch.load(straight["M2KT_FINAL_MODEL"],
+                               map_location="cpu", weights_only=True,
+                               mmap=True)
+            return {k: final[k].to(device=v.device, dtype=v.dtype)
+                    for k, v in variables.items()}
+
+        def finish(name, proc):
+            out, err = proc.communicate(timeout=2 * RES_CHILD_TIMEOUT_S)
+            runs[name] = (out, time.perf_counter() - t0)
+            for line in out.splitlines():
+                log(f"  {name}| {line}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"resilience: the {name} run exited "
+                                   f"{proc.returncode}:\n{err[-4000:]}")
+
+        # (b) the killed run under the supervisor and (c) the
+        # uninterrupted run, side by side on the card (each child holds
+        # about 15 GB; both load the kernels the build phase built); here
+        # meanwhile (a) the build cache, then (d)'s direct model once the
+        # uninterrupted run is done
+        procs = {
+            "supervised": subprocess.Popen(
+                [sys.executable, "-m",
+                 "move2kube_tpu_torch.resilience.supervisor", "--", *child],
+                env=killed, cwd=work, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True),
+            "uninterrupted": subprocess.Popen(
+                child, env=straight, cwd=work, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)}
+        t0 = time.perf_counter()
+        try:
+            _build_cache_check(work)
+            finish("uninterrupted", procs["uninterrupted"])
+            serve("direct", direct)
+            finish("supervised", procs["supervised"])
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        (out, t_sup), (one_out, _) = runs["supervised"], runs["uninterrupted"]
+        if f"FAULT: injected sigkill at step {RES_FAULT_STEP}" not in out \
+                or f"resumed from step {RES_FAULT_STEP - 1}" not in out:
+            raise RuntimeError("resilience: no kill at step "
+                               f"{RES_FAULT_STEP} and resume from "
+                               f"{RES_FAULT_STEP - 1}")
+        summary = json.load(open(os.path.join(work, "exit.json")))
+        classes = [a["class"] for a in summary["attempts"]]
+        if summary["exit_class"] != "ok" or classes != ["retryable", "ok"]:
+            raise RuntimeError(f"resilience: exit {summary['exit_class']}, "
+                               f"attempts {classes}")
+        attempts = _attempts(out)
+        straight_rows = _child_steps(one_out)
+        want_steps = [list(range(1, RES_FAULT_STEP)),
+                      list(range(RES_FAULT_STEP, RES_STEPS + 1))]
+        if [[r[0] for r in a] for a in attempts] != want_steps or \
+                [r[0] for r in straight_rows] != list(
+                    range(1, RES_STEPS + 1)):
+            raise RuntimeError("resilience: the steps each run took differ "
+                               "from the plan")
+        for rows in (*attempts, straight_rows):
+            got = rows[-1][3]
+            want = _want_train_launches(len(rows))
+            _check_launches(f"resilience child, steps {rows[0][0]}-"
+                            f"{rows[-1][0]}", got, want)
+            for name, n in got.items():
+                launches[name] += n
+        if out.count("nvcc runs 0") != 2 or "nvcc runs 0" not in one_out:
+            raise RuntimeError("resilience: a child ran nvcc")
+
+        # (c) the bits
+        bits_killed = [r[1] for a in attempts for r in a]
+        bits_one = [r[1] for r in straight_rows]
+        if bits_killed != bits_one:
+            raise RuntimeError(f"resilience: losses {bits_killed} against "
+                               f"the uninterrupted run's {bits_one}")
+        da = json.load(open(killed["M2KT_DIGEST_FILE"]))
+        db = json.load(open(straight["M2KT_DIGEST_FILE"]))
+        differ = sorted(k for k in db if da.get(k) != db[k])
+        if set(da) != set(db) or differ:
+            raise RuntimeError(f"resilience: {len(differ)} of {len(db)} "
+                               f"tensors differ from the uninterrupted run's"
+                               f": {differ[:6]}")
+        log(f"resilience: bit for bit: the resumed run's {len(db)} final "
+            f"tensors (parameters, Adam's exp_avg and exp_avg_sq) have the"
+            f" SHA-256 of the uninterrupted run's, and its 8 losses the "
+            f"same bits ({bits_one[-1]} at step {RES_STEPS})")
+
+        # (e) the numbers
+        for a in summary["attempts"]:
+            rep = a.get("report") or {}
+            log(f"resilience: attempt {a['attempt']}: rc {a['returncode']} "
+                f"class {a['class']}, wall {a['wall_seconds']} s, goodput "
+                f"fraction {rep.get('goodput_fraction')}, seconds "
+                f"{rep.get('seconds')} ({CARD})")
+        merged = summary["goodput"]
+        log(f"resilience: supervised run {t_sup:.1f} s (the uninterrupted "
+            f"run beside it); merged goodput fraction "
+            f"{merged['goodput_fraction']} over {merged['wall_seconds']} s, "
+            f"seconds {merged['seconds']} ({CARD})")
+        log("resilience: exit file " + json.dumps(
+            {k: summary[k] for k in ("exit_class", "returncode")}
+            | {"attempts": [{k: a[k] for k in ("attempt", "returncode",
+                                               "class", "wall_seconds")}
+                            for a in summary["attempts"]]}))
+        flight = json.load(open(killed["M2KT_FLIGHT_PATH"]))
+        log(f"resilience: flight doc keys {sorted(flight)}; exit_class "
+            f"{flight['exit_class']}, returncode {flight['returncode']}, "
+            f"{len(flight['spans'])} spans, numerics {flight['numerics']}")
+        if flight["exit_class"] != "retryable" or flight["numerics"]:
+            raise RuntimeError(f"resilience: flight doc {flight['exit_class']}"
+                               f" numerics {flight['numerics']}")
+
+        # (d) served from the checkpoint
+        serve("restored", lambda variables: restore_variables(
+            killed["M2KT_CKPT_DIR"], variables))
+        if streams["restored"] != streams["direct"]:
+            raise RuntimeError(f"resilience: restored streams "
+                               f"{streams['restored']} != direct "
+                               f"{streams['direct']}")
+        log(f"resilience: the checkpoint's streams equal the trainer's "
+            f"final state dict's: {streams['restored']['c0']}")
+        log(f"resilience: phase {time.perf_counter() - t_phase:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3851,6 +4364,13 @@ def main() -> int:
     launches["flash_fwd"] += obs_train["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         train_launches[name] += obs_train[name]
+    # the killed and resumed trainer, the uninterrupted one, and the
+    # checkpoint served
+    res = resilience_phase(torch)
+    for name in ("flash_fwd", "paged_decode"):
+        launches[name] += res[name]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        train_launches[name] += res[name]
     for part in (gpt2_train_phase(torch), moe_train_phase(torch)):
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
             train_launches[name] += part[name]
@@ -3910,4 +4430,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--resilience-child"]:
+        sys.exit(resilience_child())
     sys.exit(main())

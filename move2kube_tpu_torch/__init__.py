@@ -24,8 +24,13 @@ master weights, the family steps, the precision policies
 (:mod:`.ops.crossentropy`). Attention
 runs in hand-written CUDA kernels (:mod:`.ops.attention`): the flash
 forward, its two backward kernels, and paged decode over fp/bf16 and over
-int8 pages. Entry points run on the card unless the caller passes
-``device="cpu"``.
+int8 pages. Data, checkpoints and resilience: the host-sharded loader
+with its pinned, side-stream prefetch (:mod:`.models.data`), step
+checkpoints with the corrupt-latest fallback
+(:mod:`.models.checkpoint`), the kernel build cache
+(:mod:`.models.compile_cache`), and the supervisor, fault injection,
+goodput ledger and preemption watcher (:mod:`.resilience`). Entry points
+run on the card unless the caller passes ``device="cpu"``.
 """
 
 from move2kube_tpu_torch.models.bert import (
@@ -34,11 +39,28 @@ from move2kube_tpu_torch.models.bert import (
     bert_base,
     bert_tiny,
 )
+from move2kube_tpu_torch.models.checkpoint import (
+    CheckpointManager,
+    restore_variables,
+)
+from move2kube_tpu_torch.models.compile_cache import (
+    bake_prewarm,
+    seed_from_prewarm,
+    setup_compilation_cache,
+    topology_fingerprint,
+)
 from move2kube_tpu_torch.models.convert import (
     init_family,
     init_gpt2,
     init_llama,
     params_from_jax,
+)
+from move2kube_tpu_torch.models.data import (
+    AccumLoader,
+    HostShardedLoader,
+    PrefetchLoader,
+    load_arrays,
+    make_loader,
 )
 from move2kube_tpu_torch.models.gpt2 import (
     GPT2,
@@ -102,6 +124,11 @@ from move2kube_tpu_torch.ops.crossentropy import (
     fused_linear_cross_entropy,
     pick_chunk,
 )
+from move2kube_tpu_torch.resilience import (
+    GoodputTracker,
+    PreemptionWatcher,
+    maybe_inject,
+)
 from move2kube_tpu_torch.serving.engine import (
     Completion,
     DeadlineExceeded,
@@ -144,10 +171,12 @@ from move2kube_tpu_torch.serving.sched import (
 )
 
 __all__ = [
+    "AccumLoader",
     "AdapterStore",
     "AdmissionController",
     "BertConfig",
     "BertEncoder",
+    "CheckpointManager",
     "Completion",
     "DeadlineExceeded",
     "DisaggPair",
@@ -156,6 +185,8 @@ __all__ = [
     "FlashAttention",
     "GPT2",
     "GPT2Config",
+    "GoodputTracker",
+    "HostShardedLoader",
     "InProcessReplica",
     "KERNELS",
     "KVHandoff",
@@ -164,6 +195,8 @@ __all__ = [
     "MoEMlp",
     "Optimizer",
     "PrecisionPolicy",
+    "PreemptionWatcher",
+    "PrefetchLoader",
     "PrefillReplica",
     "PrefixCache",
     "PrefixHit",
@@ -188,6 +221,7 @@ __all__ = [
     "WeightPlane",
     "adam",
     "adamw",
+    "bake_prewarm",
     "bert_base",
     "bert_tiny",
     "build_fleet",
@@ -210,11 +244,14 @@ __all__ = [
     "instrument_optimizer",
     "llama_8b",
     "llama_tiny",
+    "load_arrays",
     "logit_gate",
     "make_bert_train_step",
     "make_classifier_train_step",
     "make_diffusion_train_step",
     "make_lm_train_step",
+    "make_loader",
+    "maybe_inject",
     "notfinite_streak",
     "paged_decode_attention",
     "param_bytes",
@@ -227,8 +264,12 @@ __all__ = [
     "reset_launch_counts",
     "resnet18_ish",
     "resnet50",
+    "restore_variables",
+    "seed_from_prewarm",
+    "setup_compilation_cache",
     "skipped_updates",
     "top_k_routing",
+    "topology_fingerprint",
     "unet_small",
     "unet_tiny",
 ]

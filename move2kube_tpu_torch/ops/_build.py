@@ -2,14 +2,20 @@
 
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface
-(``build/torch_kernels/<name>-<digest>.so`` inside the package, beside
-``csrc``; the digest covers the sources and flags, so an edit rebuilds and
-an unchanged tree reuses its build). The compiler's output, which
+(``<build dir>/<name>-<digest>.so``; the digest covers the sources and
+flags, so an edit rebuilds and an unchanged tree reuses its build). The
+build directory is :func:`build_dir`: ``build/torch_kernels`` inside the
+package, beside ``csrc``, unless :func:`set_build_dir` (the compile
+cache, :mod:`move2kube_tpu_torch.models.compile_cache`) points it
+elsewhere. The compiler's output, which
 ``-Xptxas -v`` makes list each kernel's registers, shared memory and
 spills, is kept beside the library as ``<name>-<digest>.log``. Nothing is
 compiled when a module is imported:
 the first launch builds, or :func:`build_all` builds every kernel at once,
 one ``nvcc`` process per source, all started together.
+
+``nvcc_runs`` counts the compiler processes this process started, so a
+caller can show that a seeded build directory compiled nothing.
 
 A :class:`CudaKernel` also counts its launches: ``launches`` goes up by one
 each time the kernel is launched, and nowhere else, so a run can show that
@@ -28,10 +34,14 @@ from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
-BUILD_DIR = PACKAGE / "build" / "torch_kernels"
+BUILD_DIR = PACKAGE / "build" / "torch_kernels"  # the default build dir
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
+
+_build_dir: Path | None = None  # set_build_dir's override of BUILD_DIR
+# nvcc processes started by this process (every build, any directory)
+nvcc_runs = 0
 
 # C types of the kernels' exported arguments
 # launches are counted from every thread that runs a pass (one engine per
@@ -41,6 +51,23 @@ _COUNT_LOCK = threading.Lock()
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+
+
+def build_dir() -> Path:
+    """Where kernel libraries are built and looked for: the directory
+    :func:`set_build_dir` set, else ``BUILD_DIR``."""
+    return BUILD_DIR if _build_dir is None else _build_dir
+
+
+def set_build_dir(path) -> Path | None:
+    """Build and look for kernel libraries under ``path`` from now on (None:
+    back to ``BUILD_DIR``); returns the override it replaced (None when
+    there was none), which restores it when passed back. Kernels already
+    loaded stay loaded."""
+    global _build_dir
+    prev = _build_dir
+    _build_dir = None if path is None else Path(path)
+    return prev
 
 
 def find_nvcc() -> str:
@@ -75,18 +102,21 @@ class CudaKernel:
             h.update(src.name.encode())
             h.update(src.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+        return build_dir() / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def _start_build(self):
         """Start ``nvcc`` on this source into a temporary file; returns
         ``(process, temporary path)``, or ``None`` when already built."""
+        global nvcc_runs
         out = self.library_path()
         if out.is_file():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
                "-o", str(tmp), str(self.source)]
+        with _COUNT_LOCK:
+            nvcc_runs += 1
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True), tmp
 

@@ -1,0 +1,194 @@
+"""Tiny real trainer wired through the whole resilience stack: the port's
+counterpart of ``move2kube_tpu/resilience/minitrain.py``.
+
+The fault-injection harness needs a *runnable* training child (real
+steps, real checkpoints, real resume) that finishes in seconds. This
+module is that child. It mirrors the emitted trainer's loop: restore,
+then step, fault and save, then the preemption check, then the goodput
+flush, so what a test proves here is the control flow the trainers run.
+
+Run under the supervisor::
+
+    M2KT_DEVICE=cpu python -m move2kube_tpu_torch.resilience.supervisor \\
+        -- python -m move2kube_tpu_torch.resilience.minitrain
+
+It runs on the card unless ``M2KT_DEVICE=cpu``; with no card and no such
+knob it raises rather than moving to the CPU. The model (8 -> 8 -> 4,
+ReLU, SGD at 1e-2, loss ``mean(out**2)``) draws its weights from a numpy
+seed. Each step's batch is seeded by the step number alone, so two runs
+see identical data. Every step prints its loss with ``float.hex`` (its
+bits), so a resumed run can be held to an uninterrupted one exactly.
+
+Knobs: ``M2KT_STEPS`` (default 8), ``M2KT_BATCH_PER_DEVICE`` (default 4),
+``M2KT_CKPT_DIR``/``M2KT_CKPT_EVERY`` (checkpointing off when unset, like
+the emitted trainers), ``M2KT_STEP_SLEEP_S`` (default 0: pad steps so
+goodput numbers have visible magnitude), plus every ``M2KT_FAULT_*`` /
+``M2KT_PREEMPT_*`` knob of :mod:`.faults` and :mod:`.preemption`.
+``M2KT_NUM_SLICES`` above 1 and ``M2KT_FORCE_DEVICES`` (the reference's
+multislice drill) raise ``NotImplementedError``: the mesh paths come with
+ROADMAP Queue 1 item 9. Unlike the reference, this harness runs no cost
+model and no straggler detector.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+DIM = 8
+
+
+def _device():
+    from move2kube_tpu_torch._device import resolve_device
+
+    return resolve_device(os.environ.get("M2KT_DEVICE") or None)
+
+
+def _refuse_multislice() -> None:
+    raw = os.environ.get("M2KT_NUM_SLICES", "") or "1"
+    if (raw.isdigit() and int(raw) > 1) or os.environ.get(
+            "M2KT_FORCE_DEVICES", ""):
+        raise NotImplementedError(
+            "the multislice drill (M2KT_NUM_SLICES > 1, M2KT_FORCE_DEVICES) "
+            "needs the mesh paths of ROADMAP Queue 1 item 9")
+
+
+def build_state(device):
+    """The tiny model on ``device`` with weights drawn from numpy seed 0,
+    in a ``TrainState`` with SGD at 1e-2."""
+    import numpy as np
+    import torch
+
+    from move2kube_tpu_torch.models.train import Optimizer, TrainState
+
+    rng = np.random.default_rng(0)
+    model = torch.nn.Sequential(torch.nn.Linear(DIM, 8), torch.nn.ReLU(),
+                                torch.nn.Linear(8, 4))
+    with torch.no_grad():
+        for p in model.parameters():
+            fan_in = p.shape[-1]
+            p.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(p.shape), np.float32) / np.float32(np.sqrt(fan_in))))
+    model.to(device)
+    opt = Optimizer(torch.optim.SGD(model.parameters(), lr=1e-2))
+    return TrainState(model, opt)
+
+
+def make_batch(i: int, batch: int, device):
+    """Step ``i``'s batch, seeded by the step alone."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(
+        np.random.default_rng(i).random((batch, DIM), np.float32)).to(device)
+
+
+def train_step(state, x):
+    state.optimizer.zero_grad()
+    out = state.model(x)
+    loss = (out * out).mean()
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    return state, loss.detach()
+
+
+def main() -> None:
+    _refuse_multislice()
+    device = _device()
+
+    from move2kube_tpu_torch.models import checkpoint as m2kt_ckpt
+    from move2kube_tpu_torch.obs import tracing
+    from move2kube_tpu_torch.resilience import faults, goodput, preemption
+
+    # per-step spans into the bounded ring, flushed to <flight>.ring on
+    # every teardown-running exit path so the supervisor's flight
+    # recorder can reconstruct the final seconds of a dead attempt
+    tracer = tracing.get() if tracing.enabled() else None
+    if tracer is not None:
+        tracing.install_ring_flush()
+
+    steps = int(os.environ.get("M2KT_STEPS", "8"))
+    step_sleep = float(os.environ.get("M2KT_STEP_SLEEP_S", "0"))
+    batch = int(os.environ.get("M2KT_BATCH_PER_DEVICE", "4") or 4)
+
+    gp = goodput.GoodputTracker()
+    watcher = preemption.from_env()
+    if watcher is not None:
+        watcher.install()
+    print(f"[m2kt] device={device} global_batch={batch}", flush=True)
+    state = build_state(device)
+
+    ckpt = m2kt_ckpt.from_env(default_every=1)
+    start = 0
+    if ckpt is not None:
+        ckpt.install_exit_flush()
+        with gp.phase("restore"):
+            state, start = ckpt.restore_or_init(state)
+        if start:
+            gp.note_resume(start)
+            gp.note_saved(start)
+            print(f"[m2kt] resumed from step {start}", flush=True)
+
+    preempted_at = None
+    loss = None
+    try:
+        for i in range(start + 1, steps + 1):
+            faults.maybe_inject(i)
+            t0 = time.perf_counter()
+            state, loss = train_step(state, make_batch(i, batch, device))
+            print(f"[m2kt] step {i} loss {float(loss).hex()}", flush=True)
+            if step_sleep:
+                time.sleep(step_sleep)
+            t1 = time.perf_counter()
+            if tracer is not None:
+                tracer.record(
+                    "train.compile" if i == start + 1 else "train.step",
+                    t0, t1, attrs={"step": i})
+            gp.add("compile" if i == start + 1 else "productive",
+                   t1 - t0, steps=1)
+            if ckpt is not None and ckpt.maybe_save(i, state):
+                # synchronous commit: the fault tests assert resume-from-N,
+                # so a save the loop reports must be durable before a kill
+                # can land
+                ckpt.wait()
+                gp.note_saved(i)
+                gp.write()
+            if watcher is not None and watcher.should_stop(i):
+                preempted_at = i
+                break
+    except SystemExit:
+        # injected fault (slice_loss exits 83, exit kind exits N): a save
+        # still in flight must land before the process dies. The goodput
+        # report is deliberately NOT re-flushed here: post-checkpoint
+        # work is the supervisor's "lost" span.
+        if ckpt is not None:
+            ckpt.wait()
+        raise
+    finally:
+        if watcher is not None:
+            watcher.uninstall()
+    if ckpt is not None:
+        last = preempted_at if preempted_at is not None else steps
+        with gp.phase("save"):
+            if last >= start + 1:
+                ckpt.maybe_save(last, state, force=True)
+            ckpt.close()  # block: the last save must land before exit
+        gp.note_saved(last)
+    if loss is not None:
+        print(f"[m2kt] step={gp.steps_done} loss={float(loss):.6f}",
+              flush=True)
+    gp.write()
+    rep = gp.report()
+    if preempted_at is not None:
+        print(f"[m2kt] preempted: last-chance checkpoint at step "
+              f"{preempted_at}; goodput={rep['goodput_fraction']:.2%}",
+              flush=True)
+        sys.exit(143)
+    print(f"[m2kt] done steps={steps} "
+          f"goodput={rep['goodput_fraction']:.2%}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

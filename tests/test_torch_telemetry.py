@@ -191,10 +191,11 @@ def test_nonfinite_step_writes_the_same_forensics(flax_init, monkeypatch,
         _parse(jreg.render())[1][(counter, "")]) == 2.0
 
 
-def test_skipped_updates_and_loss_scale(flax_init):
+def test_skipped_updates_and_loss_scale(flax_init, monkeypatch, tmp_path):
     """Under ``bf16-scaled`` a guard-skipped update counts in
     ``m2kt_train_skipped_steps_total`` and the loss scale is exported, as
     the reference does (the loss scale gauge, then one skip)."""
+    monkeypatch.setenv("M2KT_FLIGHT_PATH", str(tmp_path / "flight.json"))
     params, ids = flax_init
     cfg = dataclasses.replace(tllama.llama_tiny(), dtype=torch.float32,
                               attn_impl="flash")
