@@ -117,7 +117,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    checked in the loss. BERT-base, ResNet-50 and the DDPM UNet, each
    through its own train step at its full config (no kernel of the port
    runs there; the loss must fall on a repeated batch)
-14. one JSON line with every kernel's numbers, then the result line
+14. emission: the port's emitter renders the Llama training and serving
+   payloads (stand-ins of the JAX planner's ``llama3-8b`` and
+   ``llama-serve`` services); the emitted ``port_weights.py`` ports an
+   HF Llama of Llama-8B widths cut to 2 layers (numpy seed 13); the
+   emitted trainer runs 10 steps of it under the port's supervisor in a
+   child (deterministic algorithms) and ends with the parameters and
+   Adam moments of the same 10 steps run here, by SHA-256; the emitted
+   server at full-depth Llama-8B (seed-0 init) serves 4 requests (one
+   over SSE) with the in-process engine's streams, sheds an unmeetable
+   deadline with a 504, and its passes are what the requests imply; the
+   emitted server on the trainer's checkpoint gives the streams of an
+   engine on ``restore_variables`` of it
+15. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -3049,11 +3061,20 @@ def obs_train_phase(torch) -> dict:
     return launches
 
 
-def _http(url: str):
+def _http(url: str, doc=None, headers=None, timeout=120):
+    """(status, body) of a GET (``doc`` None) or a JSON POST; an HTTP
+    error's status and body are returned, not raised."""
+    import urllib.error
     import urllib.request
 
-    with urllib.request.urlopen(url, timeout=60) as r:
-        return r.status, r.read().decode()
+    req = urllib.request.Request(
+        url, data=None if doc is None else json.dumps(doc).encode(),
+        headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
 
 
 def obs_serve_phase(torch, model) -> tuple[dict, dict]:
@@ -4297,6 +4318,573 @@ def resilience_phase(torch) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# the emission phase: the port's emitter renders a Llama trainer's and a
+# Llama server's payload; the emitted programs run from them as an image
+# would run them
+
+# the trainer: Llama-8B widths cut to 2 layers (a full-depth training
+# state does not fit one card), the bf16 policy, batch 4 x 2048, 10 steps,
+# a checkpoint every 5; the HF weights it starts from are drawn from
+# numpy seed 13
+EMIT_LAYERS, EMIT_BATCH, EMIT_SEQ, EMIT_STEPS, EMIT_EVERY = 2, 4, 2048, 10, 5
+EMIT_HF_SEED, EMIT_HF_STD = 13, 0.02
+EMIT_LR, EMIT_WD = 3e-4, 0.1
+EMIT_CHILD_TIMEOUT_S = 420
+# the served requests: 4 prompts from seed 2, 64..512 tokens, 16 new
+# tokens each (the second streamed), and one whose deadline cannot be met
+EMIT_PROMPT_SEED, EMIT_NEW = 2, 16
+DETERMINISTIC_PRELUDE = (
+    "import runpy, torch; torch.use_deterministic_algorithms(True); "
+    "torch.backends.cuda.matmul.allow_tf32 = False; "
+    "torch.backends.cudnn.allow_tf32 = False; "
+    "runpy.run_path('train_gpu.py', run_name='__main__')")
+
+
+def emit_services(root: str) -> dict:
+    """Stand-ins for the JAX planner's services of
+    ``samples/gpu-training/llama3-8b`` (training) and ``llama-serve``
+    (serving), with the attributes the port's emitter reads; ``root`` is
+    the checkout (the planner's paths are absolute)."""
+    from types import SimpleNamespace
+
+    def service(name, entry, **acc):
+        src = os.path.join(root, "samples", "gpu-training", name)
+        return SimpleNamespace(
+            service_name=name, image="",
+            containerization_target_options=["llama"],
+            source_artifacts={"SourceDirectories": [src]},
+            accelerator=SimpleNamespace(
+                gpu_vendor="nvidia.com/gpu", model_family="llama",
+                entrypoint=os.path.join(src, entry), **acc))
+
+    return {
+        "train": service(
+            "llama3-8b", "train_llama3.py", gpu_count=64,
+            frameworks=["deepspeed", "torch"], distributed_backend="nccl",
+            parallelism={"zero_stage": 3, "dp": 64}, num_hosts=16,
+            num_slices=1, serving=False, serving_port=0),
+        "serve": service(
+            "llama-serve", "serve.py", gpu_count=1, frameworks=["torch"],
+            distributed_backend="", parallelism={}, num_hosts=1,
+            num_slices=1, serving=True, serving_port=8000)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _hf_llama(cfg, path: str) -> None:
+    """An HF-layout ``LlamaForCausalLM`` state dict of ``cfg``'s widths,
+    drawn from numpy seed EMIT_HF_SEED, saved as ``path``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(EMIT_HF_SEED)
+    hd = cfg.d_model // cfg.num_heads
+
+    def draw(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, np.float32) * np.float32(EMIT_HF_STD))
+
+    sd = {"model.embed_tokens.weight": draw(cfg.vocab_size, cfg.d_model),
+          "model.norm.weight": torch.ones(cfg.d_model),
+          "lm_head.weight": draw(cfg.vocab_size, cfg.d_model)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        for name, shape in (
+                ("self_attn.q_proj", (cfg.num_heads * hd, cfg.d_model)),
+                ("self_attn.k_proj", (cfg.num_kv_heads * hd, cfg.d_model)),
+                ("self_attn.v_proj", (cfg.num_kv_heads * hd, cfg.d_model)),
+                ("self_attn.o_proj", (cfg.d_model, cfg.num_heads * hd)),
+                ("mlp.gate_proj", (cfg.mlp_dim, cfg.d_model)),
+                ("mlp.up_proj", (cfg.mlp_dim, cfg.d_model)),
+                ("mlp.down_proj", (cfg.d_model, cfg.mlp_dim))):
+            sd[p + name + ".weight"] = draw(*shape)
+        sd[p + "input_layernorm.weight"] = torch.ones(cfg.d_model)
+        sd[p + "post_attention_layernorm.weight"] = torch.ones(cfg.d_model)
+    torch.save(sd, path)
+
+
+def _digest_tree(model_sd: dict, opt_sd: dict, names: list) -> dict:
+    """SHA-256 of every parameter's and Adam moment's bytes, by name:
+    ``model_sd`` a state dict, ``opt_sd`` a torch optimizer's state dict
+    whose parameter indices follow ``names``."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    named = {f"param/{n}": model_sd[n] for n in names}
+    for idx, n in enumerate(names):
+        for key in ("exp_avg", "exp_avg_sq"):
+            named[f"{key}/{n}"] = opt_sd["state"][idx][key]
+
+    def sha(t):
+        host = t.detach().contiguous().cpu().view(torch.uint8).numpy()
+        return hashlib.sha256(memoryview(host)).hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(named, pool.map(sha, named.values())))
+
+
+class _Child:
+    """An emitted program in a child process, its output collected line by
+    line (each echoed with ``label``)."""
+
+    def __init__(self, label, argv, env, cwd):
+        import threading
+
+        self.label, self.lines = label, []
+        self.proc = subprocess.Popen(argv, env=env, cwd=cwd,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            log(f"  {self.label}| {line.rstrip()}")
+
+    def wait_for(self, prefix: str, timeout: float) -> str:
+        t_end = time.monotonic() + timeout
+        while time.monotonic() < t_end:
+            hit = next((x for x in self.lines if x.startswith(prefix)), None)
+            if hit is not None:
+                return hit
+            if self.proc.poll() is not None:
+                self._reader.join(5)
+                raise RuntimeError(f"emit: {self.label} exited "
+                                   f"{self.proc.returncode} before {prefix!r}")
+            time.sleep(0.2)
+        raise RuntimeError(f"emit: {self.label}: no {prefix!r} in {timeout} s")
+
+    def finish(self, timeout: float) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        self._reader.join(10)
+        return rc
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _emit_requests(vocab: int):
+    import numpy as np
+
+    rng = np.random.default_rng(EMIT_PROMPT_SEED)
+    lengths = rng.integers(64, 513, 4)
+    return [rng.integers(1, vocab, int(n)).tolist() for n in lengths]
+
+
+def _serve_child(label, payload, env, prompts, stream_index, deadline):
+    """The emitted server in a child: wait for its listener, send the
+    prompts one after another (``stream_index`` over SSE) and, with
+    ``deadline``, one more request under an X-M2KT-Deadline it cannot
+    meet; read ``/stats`` and the metrics port's ``/metrics``, POST
+    ``/drain``, SIGTERM it, and require exit 0. Returns (streams, stats,
+    metrics text, seconds to /healthz, the prompts' seconds on the
+    client's clock)."""
+    import signal
+
+    t0 = time.perf_counter()
+    child = _Child(label, [sys.executable, "serve_gpu.py"], env, payload)
+    try:
+        line = child.wait_for("[m2kt] serving on :", EMIT_CHILD_TIMEOUT_S)
+        base = f"http://127.0.0.1:{int(line.split(':')[1].split()[0])}"
+        code, _ = _http(base + "/healthz")
+        t_ready = time.perf_counter() - t0
+        if code != 200:
+            raise RuntimeError(f"emit: {label} /healthz {code}")
+        streams = []
+        t_req = time.perf_counter()
+        for i, prompt in enumerate(prompts):
+            doc = {"prompt": prompt, "max_new_tokens": EMIT_NEW}
+            if i == stream_index:
+                code, body = _http(base + "/generate",
+                                   dict(doc, stream=True))
+                events = [json.loads(x[len("data: "):])
+                          for x in body.split("\n\n") if x.strip()]
+                if events[-1] != {"finish_reason": "length"}:
+                    raise RuntimeError(f"emit: {label} SSE ended "
+                                       f"{events[-1]}")
+                streams.append([e["token"] for e in events[:-1]])
+            else:
+                code, body = _http(base + "/generate", doc)
+                streams.append(json.loads(body)["tokens"])
+            if code != 200:
+                raise RuntimeError(f"emit: {label} request {i}: {code} "
+                                   f"{body[:300]}")
+        t_req = time.perf_counter() - t_req
+        if deadline:
+            code, body = _http(
+                base + "/generate", {"prompt": prompts[0],
+                                     "max_new_tokens": EMIT_NEW},
+                headers={"X-M2KT-Deadline": "0.001"})
+            if code != 504:
+                raise RuntimeError(f"emit: {label}: an unmeetable deadline "
+                                   f"got {code}, not 504: {body[:300]}")
+            log(f"emit: {label}: unmeetable deadline -> 504 ({body})")
+        stats = json.loads(_http(base + "/stats")[1])
+        metrics = _http(
+            f"http://127.0.0.1:{env['M2KT_METRICS_PORT']}/metrics")[1]
+        code, body = _http(base + "/drain", {})
+        if code != 200 or not json.loads(body)["drained"]:
+            raise RuntimeError(f"emit: {label} /drain {code} {body}")
+        child.proc.send_signal(signal.SIGTERM)
+        rc = child.finish(120)
+        if rc != 0:
+            raise RuntimeError(f"emit: {label} exited {rc}")
+        return streams, stats, metrics, t_ready, t_req
+    finally:
+        child.stop()
+
+
+def _traffic(label, stats, layers) -> dict:
+    """What a server child's (or an in-process replay's) traffic did, its
+    warm request taken out: ``stats`` is the engine's ``stats()`` with
+    ``warm``, the same counters after the warm request, and
+    ``launches``, the counts measured from then on, which must equal
+    what the traffic's passes imply. Returns the passes, the launches,
+    the decode ms a step and tokens/s, and the mean TTFT of the
+    traffic's requests."""
+    warm = stats["warm"]
+    passes = {k: n - warm["passes"].get(k, 0)
+              for k, n in stats["passes"].items()}
+    exp = _expected_launches({"passes": passes}, layers, 0)
+    want = dict.fromkeys(stats["launches"], 0)
+    want.update(flash_fwd=exp["flash_fwd"], paged_decode=exp["paged"])
+    _check_launches(f"{label} (traffic passes {passes})", stats["launches"],
+                    want)
+    steps = stats["decode_steps"] - warm["decode_steps"]
+    secs = stats["decode_time_s"] - warm["decode_time_s"]
+    n = stats["prefills"] - warm["prefills"]
+    return {"passes": passes, "launches": stats["launches"],
+            "decode_ms": 1e3 * secs / steps,
+            "tokens_s": (stats["decode_tokens"] - warm["decode_tokens"])
+            / secs,
+            "ttft_mean_ms": (stats["ttft_mean_ms"] * stats["prefills"]
+                             - warm["ttft_mean_ms"] * warm["prefills"]) / n}
+
+
+def _engine_streams(torch, model, prompts, label, profile=False):
+    """The same prompts one after another on a fresh engine after a warm
+    request, as the server child served them: launch counts set to 0
+    after the warm request and held to the replay's passes. With
+    ``profile``, one more request's 4 decode steps at 1 of 8 slots run
+    under the profiler after the replay. Returns (streams,
+    :func:`_traffic` of the replay, its seconds, profiled busy ms a
+    decode step or None)."""
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        reset_launch_counts,
+    )
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    eng = ServingEngine(model, EngineConfig(max_batch=8, max_seq=2048,
+                                            block_size=16), device="cuda")
+    eng.run([Request("_warm", [1], 2)])
+    warm = eng.stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = [eng.run([Request(f"r{i}", p, EMIT_NEW)])[0].tokens
+           for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    traffic = _traffic(label, dict(
+        eng.stats(), warm=warm,
+        launches={k.name: k.launches for k in KERNELS}),
+        model.cfg.num_layers)
+    busy = None
+    if profile:
+        eng.submit(Request("_prof", prompts[0], EMIT_NEW))
+        eng.step()  # its prefill and first decode step
+        busy = _profiled(torch, f"{label}: 4 decode steps at 1 of 8 slots",
+                         lambda: [eng.step() for _ in range(4)]) / 4
+        while eng.has_work():
+            eng.step()
+    return out, traffic, wall, busy
+
+
+def emit_phase(torch) -> dict:
+    """(1) the port's emitter renders the Llama training and serving
+    payloads from :func:`emit_services`; (2) the emitted
+    ``port_weights.py`` converts an HF Llama state dict (Llama-8B widths,
+    2 layers) into the trainer's step-0 checkpoint; (3) the emitted
+    trainer runs 10 steps under the port's supervisor (deterministic
+    algorithms), and the same 10 steps in this process from the same
+    weights and batches end with parameters and Adam moments equal by
+    SHA-256; (4) the emitted server at full Llama-8B depth (seed-0 init)
+    serves 4 requests (one streamed) and sheds one with a 504, its streams
+    equal to an in-process engine's and its passes what the requests
+    imply; (5) the emitted server on the trainer's checkpoint, streams
+    equal to an engine on ``restore_variables`` of it. Returns the
+    launches of this phase's main path: the emitted trainer's and the
+    servers' own counts, each measured in its process and held exactly
+    to its steps or passes (the in-process runs are held to theirs too,
+    and not added)."""
+    import shutil
+
+    import numpy as np
+
+    from move2kube_tpu_torch import (
+        Llama,
+        TrainState,
+        adamw,
+        init_llama,
+        instrument_optimizer,
+        llama_8b,
+        make_lm_train_step,
+        policy,
+        reset_launch_counts,
+        restore_variables,
+    )
+    from move2kube_tpu_torch.containerizer.cuda_emit import (
+        emit_container,
+        write_payload,
+    )
+    from move2kube_tpu_torch.models.convert import (
+        infer_num_layers,
+        llama_params_from_torch,
+    )
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = dataclasses.replace(llama_8b(), num_layers=EMIT_LAYERS,
+                              max_len=EMIT_SEQ, attn_impl="flash")
+    # the HF file and the ported step 0 (4 bytes a parameter each), and
+    # the trainer's steps 5 and 10 (12 each)
+    need = _res_bytes_estimate(cfg) * 8 // 3 + (4 << 30)
+    work = _res_workdir(need)
+    launches = {k.name: 0 for k in KERNELS}
+    try:
+        # (1) the payloads
+        services = emit_services(here)
+        payload = {kind: write_payload(emit_container(svc),
+                                       os.path.join(work, kind))
+                   for kind, svc in services.items()}
+        for kind, path in payload.items():
+            n = sum(len(f) for _, _, f in os.walk(path))
+            log(f"emit: {kind} payload {n} files under {path}")
+        base = {k: v for k, v in os.environ.items()
+                if not k.startswith("M2KT_") and k != "PYTHONPATH"}
+        base.update({
+            "CUBLAS_WORKSPACE_CONFIG": os.environ["CUBLAS_WORKSPACE_CONFIG"],
+            "M2KT_COMPILE_CACHE_DIR": os.path.join(work, "kernels"),
+            "M2KT_PREEMPT_FILE": os.path.join(work, "preempt"),
+            "M2KT_FLIGHT_PATH": os.path.join(work, "flight.json"),
+            "M2KT_USAGE_PATH": os.path.join(work, "usage.jsonl"),
+            "M2KT_PROFILE_DIR": os.path.join(work, "profile"),
+            "M2KT_DIAG_DIR": os.path.join(work, "diag")})
+
+        # (2) weights in
+        hf = os.path.join(work, "hf")
+        os.makedirs(hf)
+        t0 = time.perf_counter()
+        _hf_llama(cfg, os.path.join(hf, "pytorch_model.bin"))
+        t_draw = time.perf_counter() - t0
+        ckpt = os.path.join(work, "ckpt")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "port_weights.py", hf, ckpt], env=base,
+            cwd=payload["train"], capture_output=True, text=True,
+            timeout=EMIT_CHILD_TIMEOUT_S)
+        t_port = time.perf_counter() - t0
+        log(f"emit: port_weights| {res.stdout.strip()}")
+        if res.returncode != 0 or "[m2kt] ported 15 arrays" not in res.stdout:
+            raise RuntimeError(f"emit: port_weights exited {res.returncode}:"
+                               f"\n{res.stderr[-3000:]}")
+        log(f"emit: HF state dict drawn in {t_draw:.1f} s; port_weights.py "
+            f"{t_port:.1f} s")
+
+        # (3) the emitted trainer under the supervisor
+        env = dict(base, **{f"M2KT_MESH_{a}": "1" for a in (
+            "DATA", "FSDP", "PIPE", "TENSOR", "SEQ", "EXPERT")})
+        env.update({
+            "M2KT_LAYERS": str(EMIT_LAYERS), "M2KT_SEQ_LEN": str(EMIT_SEQ),
+            "M2KT_BATCH_PER_DEVICE": str(EMIT_BATCH),
+            "M2KT_STEPS": str(EMIT_STEPS), "M2KT_PRECISION": "bf16",
+            "M2KT_CKPT_DIR": ckpt, "M2KT_CKPT_EVERY": str(EMIT_EVERY),
+            "M2KT_METRICS_PORT": str(_free_port()),
+            "M2KT_EXIT_FILE": os.path.join(work, "exit.json"),
+            "M2KT_GOODPUT_FILE": os.path.join(work, "goodput.json")})
+        t0 = time.perf_counter()
+        trainer = _Child("trainer", [
+            sys.executable, "-m", "move2kube_tpu_torch.resilience.supervisor",
+            "--", sys.executable, "-c", DETERMINISTIC_PRELUDE], env,
+            payload["train"])
+        rc = trainer.finish(2 * EMIT_CHILD_TIMEOUT_S)
+        t_train = time.perf_counter() - t0
+        if rc != 0 or not any(x.startswith("[m2kt] done steps=10")
+                              for x in trainer.lines):
+            raise RuntimeError(f"emit: the emitted trainer exited {rc}")
+        if "[m2kt] loaded ported weights from checkpoint step 0" \
+                not in trainer.lines:
+            raise RuntimeError("emit: the trainer did not start from the "
+                               "ported weights")
+        summary = json.load(open(env["M2KT_EXIT_FILE"]))
+        rate = next(x for x in trainer.lines if x.startswith("[m2kt] done"))
+        # the child's own counts: its 10 steps and the cost model's held
+        # step, which runs the forward and backward once more
+        got = json.loads(next(
+            x for x in trainer.lines
+            if x.startswith("[m2kt] kernel launches ")).split(" ", 3)[3])
+        _check_launches("emit: the emitted trainer", got,
+                        _want_train_launches(EMIT_STEPS + 1, EMIT_LAYERS))
+        for name, n in got.items():
+            launches[name] += n
+        log(f"emit: trainer under the supervisor: {t_train:.1f} s wall, "
+            f"exit class {summary['exit_class']}; under deterministic "
+            f"algorithms with TF32 off: {rate}; launches {got} ({CARD})")
+
+        # the same 10 steps here, from the same weights and batches
+        pol = policy("bf16")
+        model = init_llama(pol.apply_to_model_config(cfg), seed=SEED,
+                           device="cuda", dtype=torch.float32)
+        sd = torch.load(os.path.join(hf, "pytorch_model.bin"),
+                        map_location="cpu", weights_only=True)
+        model.load_state_dict(llama_params_from_torch(
+            sd, infer_num_layers(sd, "llama")))
+        del sd
+        state = TrainState(model, instrument_optimizer(pol.wrap_optimizer(
+            adamw(model.parameters(), EMIT_LR, weight_decay=EMIT_WD))))
+        step_fn = make_lm_train_step(precision=pol)
+        torch.use_deterministic_algorithms(True)
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for i in range(EMIT_STEPS):
+                ids = torch.from_numpy(np.random.default_rng(i).integers(
+                    0, cfg.vocab_size, (EMIT_BATCH, EMIT_SEQ))).to("cuda")
+                state, loss = step_fn(state, {"input_ids": ids})
+            torch.cuda.synchronize()
+            t_here = time.perf_counter() - t0
+            got = {k.name: k.launches for k in KERNELS}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        _check_launches("emit: in-process training", got,
+                        _want_train_launches(EMIT_STEPS, EMIT_LAYERS))
+        names = [n for n, _ in model.named_parameters()]
+        mine = _digest_tree(model.state_dict(),
+                            state.optimizer.inner.state_dict(), names)
+        saved = torch.load(os.path.join(ckpt, str(EMIT_STEPS), "state.pt"),
+                           map_location="cpu", weights_only=True, mmap=True)
+        theirs = _digest_tree(saved["model"], saved["optimizer"]["inner"],
+                              names)
+        differ = sorted(k for k in mine if theirs.get(k) != mine[k])
+        if set(mine) != set(theirs) or differ:
+            raise RuntimeError(f"emit: {len(differ)} of {len(mine)} tensors "
+                               f"of the emitted trainer differ from the "
+                               f"in-process run's: {differ[:6]}")
+        log(f"emit: bit for bit: the emitted trainer's {len(mine)} final "
+            f"tensors (parameters, exp_avg, exp_avg_sq) have the SHA-256 of "
+            f"the in-process run's (loss {float(loss):.4f} at step "
+            f"{EMIT_STEPS}; {t_here:.1f} s for the 10 steps here)")
+        del state, model, saved, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (4) the emitted server at full depth
+        prompts = _emit_requests(llama_8b().vocab_size)
+        senv = dict(base, M2KT_SERVE_PORT="0", M2KT_WEIGHTS_PORT="0",
+                    M2KT_METRICS_PORT=str(_free_port()))
+        streams, stats, metrics, t_ready, t_req = _serve_child(
+            "server", payload["serve"], senv, prompts, 1, True)
+        full = llama_8b()
+        want_passes = dict.fromkeys(stats["passes"], 0)
+        want_passes.update(prefill=1 + len(prompts),
+                           decode=1 + len(prompts) * (EMIT_NEW - 1))
+        if stats["passes"] != want_passes or stats["warm"]["passes"] != dict(
+                want_passes, prefill=1, decode=1):
+            raise RuntimeError(f"emit: server passes {stats['passes']} "
+                               f"(warm {stats['warm']['passes']}), the "
+                               f"requests imply {want_passes}")
+        served = _traffic("emit: full-depth server", stats, full.num_layers)
+        for name, n in served["launches"].items():
+            launches[name] += n
+        # the warm request's TTFT holds the kernels' load and counts in
+        # the SLO tracker, so the anomaly watchdog captures a bundle at
+        # start (ROADMAP Queue 3)
+        diag = os.path.join(work, "diag")
+        log(f"emit: diag bundles: "
+            f"{sorted(os.listdir(diag)) if os.path.isdir(diag) else []}")
+        resident, peak = (_metric(
+            metrics, 'm2kt_serve_hbm_peak_bytes{executable="decode",'
+            f'category="{cat}"}}') for cat in ("args", "total"))
+        log(f"emit: full-depth server: /healthz after {t_ready:.1f} s; the "
+            f"4 prompts {t_req:.3f} s on the client's clock; without the "
+            f"warm request: TTFT mean {served['ttft_mean_ms']:.2f} ms, "
+            f"decode {served['decode_ms']:.2f} ms a step "
+            f"({served['tokens_s']:.2f} tokens/s, one stream at a time); "
+            f"with it (/stats as it reads): TTFT p50 "
+            f"{stats['ttft_p50_ms']:.2f} ms, decode "
+            f"{stats['decode_throughput_tokens_s']:.2f} tokens/s; resident "
+            f"{resident / 1e9:.3f} GB at a decode pass's start, its peak "
+            f"{peak / 1e9:.3f} GB; passes {stats['passes']}, launches after "
+            f"the warm request {served['launches']} ({CARD})")
+        model = init_llama(dataclasses.replace(full, max_len=2048,
+                                               attn_impl="flash"),
+                           seed=0, device="cuda").eval()
+        here_streams, here, wall, busy = _engine_streams(
+            torch, model, prompts, "emit: in-process replay", profile=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if here_streams != streams:
+            raise RuntimeError(f"emit: server streams {streams} != the "
+                               f"in-process engine's {here_streams}")
+        log(f"emit: the server's streams (one over SSE) equal the "
+            f"in-process engine's: {streams[0]}")
+        log(f"emit: the same 4 prompts in process: {wall:.3f} s (the "
+            f"server's {t_req:.3f} s); without the warm request: TTFT mean "
+            f"{here['ttft_mean_ms']:.2f} ms (the server's "
+            f"{served['ttft_mean_ms']:.2f}), decode {here['decode_ms']:.2f} "
+            f"ms a step (the server's {served['decode_ms']:.2f}); a "
+            f"profiled decode step at 1 of 8 slots is {busy:.3f} ms of "
+            f"device busy time ({CARD})")
+
+        # (5) train -> serve
+        tenv = dict(senv, M2KT_LAYERS=str(EMIT_LAYERS), M2KT_CKPT_DIR=ckpt,
+                    M2KT_METRICS_PORT=str(_free_port()))
+        streams, stats, _, _, _ = _serve_child(
+            "server-ckpt", payload["serve"], tenv, prompts[:2], -1, False)
+        for name, n in _traffic("emit: checkpoint server", stats,
+                                EMIT_LAYERS)["launches"].items():
+            launches[name] += n
+        model = Llama(dataclasses.replace(cfg, max_len=2048),
+                      device="cuda").eval()
+        model.load_state_dict(restore_variables(ckpt, model.state_dict()))
+        here_streams = _engine_streams(torch, model, prompts[:2],
+                                       "emit: in-process replay (ckpt)")[0]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if here_streams != streams:
+            raise RuntimeError(f"emit: train -> serve streams {streams} != "
+                               f"the in-process engine's {here_streams}")
+        log(f"emit: train -> serve: the server on the trainer's step-"
+            f"{EMIT_STEPS} checkpoint gives the in-process engine's streams "
+            f"on restore_variables of it: {streams[0]}")
+        log(f"emit: phase {time.perf_counter() - t_phase:.1f} s ({CARD})")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -4310,6 +4898,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # one cuBLAS workspace setting for this process and its children, set
+    # before the first product: the emission phase holds a child's
+    # deterministic training run to this process's bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_all = time.perf_counter()
     card_phase(torch)
     build_phase()
@@ -4376,6 +4968,12 @@ def main() -> int:
             train_launches[name] += part[name]
     families_phase(torch)
     log(f"model family phases: {time.perf_counter() - t_families:.1f} s")
+    # the emitted programs: trainer, full-depth server, train -> serve
+    emitted = emit_phase(torch)
+    for name in ("flash_fwd", "paged_decode"):
+        launches[name] += emitted[name]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        train_launches[name] += emitted[name]
     main_flash = flash_rows[-1]  # s=2048, the longest prefill bucket
     kernels = [
         {"name": "flash_fwd", "route": "cuda",

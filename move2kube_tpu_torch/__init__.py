@@ -29,8 +29,15 @@ with its pinned, side-stream prefetch (:mod:`.models.data`), step
 checkpoints with the corrupt-latest fallback
 (:mod:`.models.checkpoint`), the kernel build cache
 (:mod:`.models.compile_cache`), and the supervisor, fault injection,
-goodput ledger and preemption watcher (:mod:`.resilience`). Entry points
-run on the card unless the caller passes ``device="cpu"``.
+goodput ledger and preemption watcher (:mod:`.resilience`). Emission:
+the HuggingFace and torchvision weight converters (:mod:`.models.convert`),
+the emitter of an image's payload for a planned GPU workload
+(:func:`emit_container`, :mod:`.containerizer.cuda_emit`) with the
+one-GPU trainer and server programs and weight porter it renders
+(``assets/cuda``), the fleet's demand forecast, predictive autoscaler,
+simulator and usage capture (:mod:`.serving.fleet`), and the
+numerics-diff harness (:func:`validate_translation`). Entry points run
+on the card unless the caller passes ``device="cpu"``.
 """
 
 from move2kube_tpu_torch.models.bert import (
@@ -50,10 +57,15 @@ from move2kube_tpu_torch.models.compile_cache import (
     topology_fingerprint,
 )
 from move2kube_tpu_torch.models.convert import (
+    bert_params_from_torch,
+    gpt2_params_from_torch,
+    infer_num_layers,
     init_family,
     init_gpt2,
     init_llama,
+    llama_params_from_torch,
     params_from_jax,
+    resnet_params_from_torch,
 )
 from move2kube_tpu_torch.models.data import (
     AccumLoader,
@@ -170,6 +182,20 @@ from move2kube_tpu_torch.serving.sched import (
     SchedThrottled,
 )
 
+# the translate-time layers above the runtime: loaded on first use, so
+# the programs an image runs do not import what rendered them
+_LAZY = {"emit_container": "move2kube_tpu_torch.containerizer.cuda_emit",
+         "validate_translation": "move2kube_tpu_torch.validate"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "AccumLoader",
     "AdapterStore",
@@ -223,6 +249,7 @@ __all__ = [
     "adamw",
     "bake_prewarm",
     "bert_base",
+    "bert_params_from_torch",
     "bert_tiny",
     "build_fleet",
     "ddpm_alpha_bars",
@@ -230,19 +257,23 @@ __all__ = [
     "default_registry",
     "draft_config",
     "draft_model_from",
+    "emit_container",
     "fetch_from_peers",
     "flash_attention",
     "from_env",
     "fused_cross_entropy",
     "fused_linear_cross_entropy",
+    "gpt2_params_from_torch",
     "gpt2_small",
     "gpt2_tiny",
     "grad_norm_from_state",
+    "infer_num_layers",
     "init_family",
     "init_gpt2",
     "init_llama",
     "instrument_optimizer",
     "llama_8b",
+    "llama_params_from_torch",
     "llama_tiny",
     "load_arrays",
     "logit_gate",
@@ -264,6 +295,7 @@ __all__ = [
     "reset_launch_counts",
     "resnet18_ish",
     "resnet50",
+    "resnet_params_from_torch",
     "restore_variables",
     "seed_from_prewarm",
     "setup_compilation_cache",
@@ -272,4 +304,5 @@ __all__ = [
     "topology_fingerprint",
     "unet_small",
     "unet_tiny",
+    "validate_translation",
 ]

@@ -1,0 +1,542 @@
+#!/usr/bin/env python
+"""One-GPU training program generated by move2kube-tpu (cuda emitter).
+
+The workload this program replaces, what was detected in it and the mesh
+its parallelism maps onto are baked into the constants below
+(``SOURCE_ENTRYPOINT``, ``FRAMEWORKS``, ``BACKEND``, ``GPU_COUNT``,
+``FAMILY``, ``MESH``). This program trains on one CUDA card; a mesh of
+more than one device (or ``M2KT_NUM_SLICES``/``M2KT_NUM_HOSTS`` above 1)
+exits 2: the mesh paths of the PyTorch port are ROADMAP Queue 1 item 9.
+``M2KT_MESH_DATA``/``_FSDP``/``_PIPE``/``_TENSOR``/``_SEQ``/``_EXPERT``
+in the environment win over the baked mesh (a missing axis is 1).
+
+The model comes from the vendored ``move2kube_tpu_torch`` package
+alongside this file; attention runs in its hand-written CUDA kernels.
+Swap ``make_batch`` for your real input pipeline (or point ``M2KT_DATA``
+at npy/npz/jsonl); the synthetic generator keeps shapes and dtypes
+identical, so the program trains end to end out of the box. It runs on
+the card unless ``M2KT_DEVICE=cpu``; with no card and no such knob it
+exits non-zero rather than moving to the CPU.
+
+Knobs the JAX trainer reads that this one does not: ``M2KT_FUSED_CE``
+(the loss folds the head into the chunked cross-entropy whenever the
+vocab spans more than one chunk, with no ladder); ``M2KT_VERIFY_DONATION``
+(eager PyTorch donates nothing; ``1`` prints one line saying so);
+``M2KT_PLAN_REPORT`` (the memory plan is ``parallel/memory.py``, ROADMAP
+Queue 1 item 9; set, it prints one advisory line). Besides the JAX
+program's lines it prints ``[m2kt] kernel launches {...}`` before
+``[m2kt] done``: each attention kernel's launches in this run.
+"""
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from move2kube_tpu_torch import obs as m2kt_obs
+from move2kube_tpu_torch._device import resolve_device
+from move2kube_tpu_torch.models import checkpoint as m2kt_ckpt
+from move2kube_tpu_torch.models import convert as m2kt_convert
+from move2kube_tpu_torch.models import data as m2kt_data
+from move2kube_tpu_torch.models import precision as m2kt_precision
+from move2kube_tpu_torch.models import train as m2kt_train
+from move2kube_tpu_torch.models.compile_cache import setup_compilation_cache
+from move2kube_tpu_torch.ops.attention import KERNELS, reset_launch_counts
+from move2kube_tpu_torch.resilience import faults as m2kt_faults
+from move2kube_tpu_torch.resilience import goodput as m2kt_goodput
+from move2kube_tpu_torch.resilience import preemption as m2kt_preempt
+
+# m2kt:baked-begin (the emitter rewrites these lines)
+SOURCE_ENTRYPOINT = "(unknown)"
+FRAMEWORKS = "unknown"
+BACKEND = ""
+GPU_COUNT = 1
+FAMILY = "llama"
+MESH = {"data": 1, "fsdp": 1, "pipe": 1, "tensor": 1, "seq": 1, "expert": 1}
+NUM_SLICES_DEFAULT = 1
+PRECISION_DEFAULT = "bf16"
+GRAD_ACCUM_DEFAULT = 1
+MOE_EXPERTS = 0
+NUMERICS = "1"
+COMPILE_CACHE_DIR = "/app/.m2kt-cache"
+METRICS_PORT_DEFAULT = 9090
+STEPS_DEFAULT = 100
+LR_DEFAULT = 0.0003
+# m2kt:baked-end
+
+ITEM_9 = "ROADMAP Queue 1 item 9 (multi-GPU)"
+LM_FAMILIES = ("llama", "gpt", "gpt2")
+BATCH_DEFAULTS = {"resnet": 64, "bert": 16, "gpt2": 8, "llama": 1, "gpt": 1,
+                  "unet": 16}
+BATCH_PER_DEVICE = int(os.environ.get(
+    "M2KT_BATCH_PER_DEVICE", str(BATCH_DEFAULTS.get(FAMILY, 32))))
+if FAMILY == "resnet":
+    IMAGE_SIZE = int(os.environ.get("M2KT_IMAGE_SIZE", "224"))
+    NUM_CLASSES = int(os.environ.get("M2KT_NUM_CLASSES", "1000"))
+elif FAMILY == "bert":
+    SEQ_LEN = int(os.environ.get("M2KT_SEQ_LEN", "128"))
+    NUM_CLASSES = int(os.environ.get("M2KT_NUM_CLASSES", "2"))
+elif FAMILY == "gpt2":
+    SEQ_LEN = int(os.environ.get("M2KT_SEQ_LEN", "1024"))
+elif FAMILY in ("llama", "gpt"):
+    SEQ_LEN = int(os.environ.get("M2KT_SEQ_LEN", "2048"))
+elif FAMILY == "unet":
+    IMAGE_SIZE = int(os.environ.get("M2KT_IMAGE_SIZE", "32"))
+    DIFFUSION_STEPS = int(os.environ.get("M2KT_DIFFUSION_STEPS", "1000"))
+else:
+    FEATURE_DIM = int(os.environ.get("M2KT_FEATURE_DIM", "256"))
+    NUM_CLASSES = int(os.environ.get("M2KT_NUM_CLASSES", "10"))
+
+STEPS = int(os.environ.get("M2KT_STEPS", str(STEPS_DEFAULT)))
+LEARNING_RATE = float(os.environ.get("M2KT_LR", str(LR_DEFAULT)))
+# mixed-precision policy: bf16 compute + fp32 master weights by default
+# on transformer families; M2KT_PRECISION overrides (bf16 / fp32 /
+# bf16-scaled), M2KT_LOSS_SCALE tunes the static loss scale
+PRECISION = m2kt_precision.from_env(default=PRECISION_DEFAULT)
+# k>1 folds k microbatches into ONE optimizer update
+GRAD_ACCUM = max(1, int(os.environ.get("M2KT_GRAD_ACCUM",
+                                       str(GRAD_ACCUM_DEFAULT))))
+try:
+    NUM_SLICES = max(1, int(os.environ.get("M2KT_NUM_SLICES",
+                                           str(NUM_SLICES_DEFAULT)) or 1))
+except ValueError:
+    NUM_SLICES = NUM_SLICES_DEFAULT
+# telemetry plane: /metrics, /healthz, /profile. The env wins over the
+# baked-in default; 0 disables.
+METRICS_PORT = int(os.environ.get("M2KT_METRICS_PORT",
+                                  str(METRICS_PORT_DEFAULT)))
+# numerics plane (obs/numerics.py): read when the optimizer is
+# instrumented below, so it must resolve before that
+os.environ.setdefault("M2KT_NUMERICS", NUMERICS)
+
+
+def resolve_mesh() -> dict:
+    """The baked mesh, or ``M2KT_MESH_*`` when any is set (missing axes
+    1), as the JAX trainer's ``resolve_mesh_plan`` takes its explicit
+    override."""
+    keys = {axis: f"M2KT_MESH_{axis.upper()}" for axis in MESH}
+    if not any(k in os.environ for k in keys.values()):
+        return dict(MESH)
+    try:
+        return {axis: int(os.environ.get(k, "1") or 1)
+                for axis, k in keys.items()}
+    except ValueError:
+        return dict(MESH)
+
+
+def refuse(msg: str) -> None:
+    print(f"[m2kt] {msg}; this trainer runs on one GPU, and the rest is "
+          f"{ITEM_9}", flush=True)
+    raise SystemExit(2)
+
+
+def check_one_device(mesh: dict) -> None:
+    n = 1
+    for d in mesh.values():
+        n *= d
+    hosts = int(os.environ.get("M2KT_NUM_HOSTS", "1") or 1)
+    if n != 1 or mesh["pipe"] != 1:
+        refuse("mesh " + " ".join(f"{a}={d}" for a, d in mesh.items())
+               + f" needs {n} devices")
+    if NUM_SLICES > 1 or hosts > 1:
+        refuse(f"M2KT_NUM_SLICES={NUM_SLICES} M2KT_NUM_HOSTS={hosts}")
+
+
+class GenericModel(torch.nn.Module):
+    """Scaffold for an unrecognised workload — replace with your model."""
+
+    def __init__(self, device):
+        super().__init__()
+        from move2kube_tpu_torch.models.layers import Dense
+
+        self.l1 = Dense(FEATURE_DIM, 512, torch.bfloat16)
+        self.l2 = Dense(512, 512, torch.bfloat16)
+        self.head = Dense(512, NUM_CLASSES, torch.float32)
+        self.to(device)
+
+    def forward(self, x):
+        x = torch.relu(self.l1(x))
+        x = torch.relu(self.l2(x))
+        return self.head(x).float()
+
+
+def build(device, global_batch: int):
+    """(state, step_fn, make_batch, accum, unit) for the baked family."""
+    attn_default = "ring" if MESH["seq"] > 1 else "flash"
+
+    def on_device(batch):
+        return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+    if FAMILY == "resnet":
+        from move2kube_tpu_torch.models.resnet import resnet50
+
+        model = m2kt_convert.init_family(
+            resnet50(num_classes=NUM_CLASSES), seed=0, device=device)
+        # instrument_optimizer is unconditional (not gated on
+        # METRICS_PORT): checkpoints must restore whether or not
+        # telemetry is on
+        opt = m2kt_train.instrument_optimizer(m2kt_train.Optimizer(
+            torch.optim.SGD(model.parameters(), lr=LEARNING_RATE,
+                            momentum=0.9)))
+        accum = GRAD_ACCUM
+        step_fn = m2kt_train.make_classifier_train_step(
+            has_batch_stats=True, grad_accum=accum)
+
+        def make_batch(i):
+            gen = np.random.default_rng(i)
+            return on_device({
+                "input": gen.random((global_batch, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                    np.float32),
+                "label": gen.integers(0, NUM_CLASSES, global_batch)})
+
+        unit = "img/s"
+    elif FAMILY == "bert":
+        from move2kube_tpu_torch.models.bert import BertConfig
+
+        # max_len is the positional-table size and must match ported HF
+        # checkpoints (bert-base: 512)
+        max_len = int(os.environ.get("M2KT_MAX_LEN", "512"))
+        if SEQ_LEN > max_len:
+            raise SystemExit(
+                f"[m2kt] M2KT_SEQ_LEN={SEQ_LEN} exceeds the BERT positional "
+                f"table (M2KT_MAX_LEN={max_len}); raise M2KT_MAX_LEN only for "
+                f"from-scratch training, not ported checkpoints")
+        cfg = BertConfig(
+            vocab_size=int(os.environ.get("M2KT_VOCAB", "30522")),
+            num_layers=int(os.environ.get("M2KT_LAYERS", "12")),
+            num_heads=int(os.environ.get("M2KT_HEADS", "12")),
+            d_model=int(os.environ.get("M2KT_DMODEL", "768")),
+            mlp_dim=int(os.environ.get("M2KT_MLP_DIM", "3072")),
+            max_len=max_len, num_classes=NUM_CLASSES)
+        model = m2kt_convert.init_family(cfg, seed=0, device=device)
+        opt = m2kt_train.instrument_optimizer(m2kt_train.adamw(
+            model.parameters(), LEARNING_RATE, weight_decay=0.01))
+        step_fn = m2kt_train.make_bert_train_step()
+        accum = 1  # fine-tune step has no accumulation path
+
+        def make_batch(i):
+            gen = np.random.default_rng(i)
+            return on_device({
+                "input_ids": gen.integers(0, cfg.vocab_size,
+                                          (global_batch, SEQ_LEN)),
+                "attention_mask": np.ones((global_batch, SEQ_LEN), bool),
+                "label": gen.integers(0, NUM_CLASSES, global_batch)})
+
+        unit = "samples/s"
+    elif FAMILY in LM_FAMILIES:
+        attn = os.environ.get("M2KT_ATTN_IMPL", attn_default)
+        if attn in ("ring", "ulysses"):
+            refuse(f"attn_impl={attn} shards attention over a seq axis")
+        if FAMILY == "gpt2":
+            from move2kube_tpu_torch.models.gpt2 import GPT2Config
+
+            # n_positions is the wpe table size and must match the ported
+            # checkpoint (1024 for every stock GPT-2)
+            n_positions = int(os.environ.get("M2KT_MAX_LEN", "1024"))
+            if SEQ_LEN > n_positions:
+                raise SystemExit(
+                    f"M2KT_SEQ_LEN={SEQ_LEN} exceeds the GPT-2 positional "
+                    f"table (M2KT_MAX_LEN={n_positions}); raise M2KT_MAX_LEN "
+                    "only for checkpoints that actually have a longer wpe "
+                    "table")
+            cfg = GPT2Config(
+                vocab_size=int(os.environ.get("M2KT_VOCAB", "50257")),
+                n_positions=n_positions,
+                d_model=int(os.environ.get("M2KT_DMODEL", "768")),
+                num_layers=int(os.environ.get("M2KT_LAYERS", "12")),
+                num_heads=int(os.environ.get("M2KT_HEADS", "12")),
+                attn_impl=attn)
+            init, weight_decay = m2kt_convert.init_gpt2, 0.01
+        else:
+            from move2kube_tpu_torch.models.llama import LlamaConfig
+
+            cfg = LlamaConfig(
+                vocab_size=int(os.environ.get("M2KT_VOCAB", "32000")),
+                d_model=int(os.environ.get("M2KT_DMODEL", "4096")),
+                num_layers=int(os.environ.get("M2KT_LAYERS", "32")),
+                num_heads=int(os.environ.get("M2KT_HEADS", "32")),
+                num_kv_heads=int(os.environ.get("M2KT_KV_HEADS", "8")),
+                mlp_dim=int(os.environ.get("M2KT_MLP_DIM", "14336")),
+                max_len=SEQ_LEN,
+                moe_experts=int(os.environ.get("M2KT_MOE_EXPERTS",
+                                               str(MOE_EXPERTS))),
+                attn_impl=attn)
+            init, weight_decay = m2kt_convert.init_llama, 0.1
+        cfg = PRECISION.apply_to_model_config(cfg)
+        # fp32 master weights; the step casts them to the policy's
+        # compute dtype inside the loss
+        model = init(cfg, seed=0, device=device, dtype=torch.float32)
+        opt = m2kt_train.instrument_optimizer(PRECISION.wrap_optimizer(
+            m2kt_train.adamw(model.parameters(), LEARNING_RATE,
+                             weight_decay=weight_decay)))
+        accum = GRAD_ACCUM
+        step_fn = m2kt_train.make_lm_train_step(grad_accum=accum,
+                                                precision=PRECISION)
+
+        def make_batch(i):
+            gen = np.random.default_rng(i)
+            return on_device({"input_ids": gen.integers(
+                0, cfg.vocab_size, (global_batch, SEQ_LEN))})
+
+        unit = "tokens/s"
+    elif FAMILY == "unet":
+        from move2kube_tpu_torch.models.unet import UNetConfig
+
+        # DDPM noise-prediction training: batches carry clean images,
+        # pre-drawn noise and timesteps; the step forms x_t on the device
+        cfg = UNetConfig(
+            in_channels=int(os.environ.get("M2KT_CHANNELS", "3")),
+            base_channels=int(os.environ.get("M2KT_BASE_CHANNELS", "128")),
+            channel_mults=tuple(int(m) for m in os.environ.get(
+                "M2KT_CHANNEL_MULTS", "1,2,2").split(",")),
+            num_res_blocks=int(os.environ.get("M2KT_RES_BLOCKS", "2")),
+            norm_groups=int(os.environ.get("M2KT_NORM_GROUPS", "32")))
+        model = m2kt_convert.init_family(cfg, seed=0, device=device)
+        opt = m2kt_train.instrument_optimizer(
+            m2kt_train.adamw(model.parameters(), LEARNING_RATE))
+        step_fn = m2kt_train.make_diffusion_train_step(
+            num_diffusion_steps=DIFFUSION_STEPS)
+        accum = 1  # diffusion step has no accumulation path
+
+        def make_batch(i):
+            gen = np.random.default_rng(i)
+            shape = (global_batch, IMAGE_SIZE, IMAGE_SIZE, cfg.in_channels)
+            batch = on_device({
+                "image": gen.random(shape, np.float32) * 2.0 - 1.0,
+                "noise": gen.standard_normal(shape, np.float32),
+                "t": gen.integers(0, DIFFUSION_STEPS, global_batch)
+                .astype(np.int32)})
+            batch["image"] = batch["image"].to(torch.bfloat16)
+            return batch
+
+        unit = "img/s"
+    else:
+        model = GenericModel(device)
+        with torch.no_grad():
+            m2kt_convert._init_linear_like(model, torch.Generator(
+                device=device).manual_seed(0))
+        opt = m2kt_train.instrument_optimizer(
+            m2kt_train.adam(model.parameters(), LEARNING_RATE))
+        accum = 1
+
+        def step_fn(state, batch):
+            state.optimizer.zero_grad()
+            loss = m2kt_train.cross_entropy_loss(
+                state.model(batch["input"]), batch["label"])
+            loss.backward()
+            state.optimizer.step()
+            state.step += 1
+            return state, loss.detach()
+
+        def make_batch(i):
+            gen = np.random.default_rng(i)
+            return on_device({
+                "input": gen.random((global_batch, FEATURE_DIM), np.float32),
+                "label": gen.integers(0, NUM_CLASSES, global_batch)})
+
+        unit = "samples/s"
+    return (m2kt_train.TrainState(model, opt), step_fn, make_batch, accum,
+            unit)
+
+
+def main():
+    mesh = resolve_mesh()
+    check_one_device(mesh)
+    device = resolve_device(os.environ.get("M2KT_DEVICE") or None)
+    # persistent kernel build cache: a restarted pod loads the previous
+    # run's kernels instead of running nvcc. M2KT_COMPILE_CACHE_DIR
+    # overrides (a mounted volume); M2KT_COMPILE_CACHE=0 disables.
+    setup_compilation_cache(COMPILE_CACHE_DIR)
+    # resilience: goodput/badput ledger + preemption watcher
+    gp = m2kt_goodput.GoodputTracker()
+    telem_srv = None
+    if METRICS_PORT > 0:
+        telem_srv = m2kt_obs.start_telemetry_server(METRICS_PORT)
+    m2kt_obs.install_goodput_hook(gp)
+    m2kt_obs.install_trace_hook()
+    # runtime tracing (M2KT_TRACE, default on): spans into a bounded
+    # ring, parked at M2KT_FLIGHT_PATH+".ring" on teardown for the
+    # supervisor's flight recorder
+    if m2kt_obs.tracing_enabled():
+        m2kt_obs.install_ring_flush()
+    # usage ledger (M2KT_USAGE, default on): served at GET /usage and
+    # exit-flushed to m2kt-usage.jsonl
+    usage_ledger = None
+    if m2kt_obs.usage_enabled():
+        usage_ledger = m2kt_obs.UsageLedger(
+            registry=m2kt_obs.default_registry())
+
+        def _train_usage():
+            rep = gp.report()
+            return {"counters": {
+                "steps_done": rep.get("steps_done", 0),
+                "goodput_fraction": rep.get("goodput_fraction") or 0.0}}
+
+        usage_ledger.add_source(_train_usage, "train")
+        usage_ledger.start()
+        m2kt_obs.install_usage_flush(usage_ledger)
+        if telem_srv is not None:
+            telem_srv.set_ledger(usage_ledger)
+    # anomaly watchdog (M2KT_DIAG, default on): StepTelemetry feeds it
+    diag_watchdog = None
+    if m2kt_obs.diag_enabled():
+        diag_watchdog = m2kt_obs.DiagWatchdog(
+            tracer=(m2kt_obs.get_tracer()
+                    if m2kt_obs.tracing_enabled() else None),
+            ledger=usage_ledger)
+    watcher = m2kt_preempt.from_env()
+    if watcher is not None:
+        watcher.install()
+    print(f"[m2kt] devices=1 device={device} mesh "
+          + " ".join(f"{a}={d}" for a, d in mesh.items())
+          + (f" telemetry=:{telem_srv.port}" if telem_srv else ""),
+          flush=True)
+
+    global_batch = BATCH_PER_DEVICE
+    state, step_fn, make_batch, accum, unit = build(device, global_batch)
+    lm = FAMILY in LM_FAMILIES
+    items_per_step = global_batch * accum * (SEQ_LEN if lm else 1)
+    telem = m2kt_train.StepTelemetry(
+        items_per_step=items_per_step, unit=unit.split("/")[0])
+    telem.watchdog = diag_watchdog
+    telem.record_precision(PRECISION)
+
+    # real data when M2KT_DATA points at npy/npz/jsonl; synthetic
+    # batches otherwise
+    loader = m2kt_data.make_loader(
+        os.environ.get("M2KT_DATA", ""), global_batch, device=device,
+        synthetic_fn=make_batch)
+    if accum > 1:
+        # the accumulating steps consume [k, ...] stacked microbatches;
+        # one next() == one optimizer update
+        loader = m2kt_data.AccumLoader(loader, accum)
+
+    # resume from the latest checkpoint when M2KT_CKPT_DIR is set (a
+    # params-only tree from port_weights.py starts at step 0)
+    ckpt_mngr = m2kt_ckpt.from_env()
+    start_step = 0
+    if ckpt_mngr is not None:
+        # any exit that runs interpreter teardown flushes the save in
+        # flight first
+        ckpt_mngr.install_exit_flush()
+        with gp.phase("restore"):
+            state, start_step = ckpt_mngr.restore_or_init(state)
+        if start_step:
+            gp.note_resume(start_step)
+            gp.note_saved(start_step)
+            print(f"[m2kt] resumed from step {start_step}", flush=True)
+        elif ckpt_mngr.restored is not None:
+            print(f"[m2kt] loaded ported weights from checkpoint step "
+                  f"{ckpt_mngr.restored['step']}", flush=True)
+    # fast-forward the data stream: a resumed run continues from batch
+    # start_step instead of re-consuming the first batches
+    if start_step:
+        loader.skip(start_step)
+
+    if os.environ.get("M2KT_VERIFY_DONATION", "0") == "1":
+        print("[m2kt] M2KT_VERIFY_DONATION: nothing to verify; the eager "
+              "step updates the state in place and donates no buffer",
+              flush=True)
+
+    # the first step is counted (an uncounted warmup would apply one
+    # extra update per preemption); it builds or loads the kernels, so
+    # it goes to the compile ledger and timing starts after it
+    first = start_step + 1
+    loss = None
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    # the kernel launches line counts this run's steps and the cost
+    # model's held one
+    reset_launch_counts()
+    if first <= STEPS:
+        m2kt_faults.maybe_inject(first)
+        t_compile = time.perf_counter()
+        batch0 = next(loader)  # kept: the cost model runs with its shapes
+        state, loss = step_fn(state, batch0)
+        sync()
+        dt_compile = time.perf_counter() - t_compile
+        gp.add("compile", dt_compile, steps=1)
+        telem.record_compile(dt_compile)
+        # cost model (obs/costmodel.py): FLOPs, roofline class and peak
+        # memory of one step (run with the optimizer held); record_step
+        # keeps m2kt_train_mfu live from then on. Also arms the
+        # <flight>.mem OOM sidecar.
+        telem.record_cost_model(step_fn, state, batch0)
+        m2kt_obs.install_memory_snapshot()
+        if os.environ.get("M2KT_PLAN_REPORT", "").strip():
+            print(f"[m2kt] plan report failed: the memory plan "
+                  f"(parallel/memory.py) is {ITEM_9}", flush=True)
+        if ckpt_mngr is not None and ckpt_mngr.maybe_save(first, state,
+                                                          loader=loader):
+            gp.note_saved(first)
+            gp.write()
+    t0 = time.perf_counter()
+    mark = t0
+    acct = first  # last step whose wall time is already in the ledger
+    preempted_at = None
+    for i in range(first + 1, STEPS + 1):
+        m2kt_faults.maybe_inject(i)
+        at_sync = i % 10 == 0
+        t_step = time.perf_counter()
+        state, loss = step_fn(state, next(loader))
+        if at_sync:
+            sync()
+        # unsynced steps record launch time; syncs record true wall time
+        # and are the only points that read loss/grad-norm back
+        telem.record_step(i, time.perf_counter() - t_step,
+                          loss=float(loss) if at_sync else None,
+                          state=state if at_sync else None)
+        if ckpt_mngr is not None and ckpt_mngr.maybe_save(i, state,
+                                                          loader=loader):
+            gp.note_saved(i)
+            gp.write()  # flush so a later death can be costed precisely
+        if watcher is not None and watcher.should_stop(i):
+            preempted_at = i
+            break
+        if at_sync:
+            now = time.perf_counter()
+            gp.add("productive", now - mark, steps=i - acct)
+            mark, acct = now, i
+            dt = now - t0
+            rate = (i - first) * items_per_step / dt
+            print(f"[m2kt] step={i} loss={float(loss):.4f} {unit}={rate:.1f}",
+                  flush=True)
+    sync()
+    last_step = preempted_at if preempted_at is not None else STEPS
+    if last_step > acct:
+        gp.add("productive", time.perf_counter() - mark,
+               steps=last_step - acct)
+    if ckpt_mngr is not None:
+        if first <= STEPS:
+            # preempted: the last-chance synchronous save. Normal end:
+            # the final save.
+            with gp.phase("save"):
+                ckpt_mngr.maybe_save(last_step, state, force=True,
+                                     loader=loader)
+                ckpt_mngr.close()
+            gp.note_saved(last_step)
+        else:
+            ckpt_mngr.close()
+    gp.write()
+    if watcher is not None:
+        watcher.uninstall()
+    if preempted_at is not None:
+        rep = gp.report()
+        print(f"[m2kt] preempted: last-chance checkpoint at step "
+              f"{preempted_at}; goodput={rep['goodput_fraction']:.2%}",
+              flush=True)
+        raise SystemExit(143)
+    print(f"[m2kt] kernel launches "
+          f"{json.dumps({k.name: k.launches for k in KERNELS})}", flush=True)
+    total = time.perf_counter() - t0
+    rate = max(0, STEPS - first) * items_per_step / total
+    rep = gp.report()
+    print(f"[m2kt] done steps={STEPS} {unit}={rate:.1f} "
+          f"goodput={rep['goodput_fraction']:.2%}", flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,6 +31,18 @@ reads the flax tree through it, and :func:`flax_group` gives the flax
 name of any port parameter, which the tensor-health plane
 (:mod:`move2kube_tpu_torch.obs.numerics`) names its layer groups by.
 
+The HuggingFace and torchvision converters (:func:`llama_params_from_torch`,
+:func:`gpt2_params_from_torch`, :func:`bert_params_from_torch`,
+:func:`resnet_params_from_torch`, with :func:`infer_num_layers`) keep the
+JAX package's names and take the same ``state_dict``s (tensors or numpy
+arrays), but return the port's ``state_dict`` in fp32, which the port's
+model loads with ``load_state_dict(strict=True)``: a torch ``Linear``
+weight ``[out, in]`` is already an ``nn.Linear`` weight, q/k/v (k and v
+with ``kvh * d`` rows under GQA) and gate/up concatenate along the rows
+into the fused ``qkv``/``gate_up``, HF GPT-2's ``Conv1D`` weights
+``[in, out]`` are transposed, and torchvision's ``OIHW`` convolutions
+stay as they are.
+
 Training keeps fp32 master weights: from the JAX package,
 ``params_from_jax(p, dataclasses.replace(cfg, dtype=torch.float32))``;
 drawn on the card, ``init_llama(cfg, seed, dtype=torch.float32)``. The
@@ -41,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 
 import numpy as np
 import torch
@@ -258,6 +271,161 @@ def _unet_sd(p, cfg: UNetConfig) -> dict:
 
     walk("", p)
     return sd
+
+
+# -- HuggingFace / torchvision state dicts -> the port's state dict -------
+
+_LAYER_RES = {
+    # keys may be bare ('encoder.layer.0...', 'layers.0...') or prefixed
+    # ('bert.encoder.layer.0...', 'model.layers.0...'); family 'gpt'
+    # (Megatron-style, ported through the llama converter) must not match
+    # HF GPT-2's 'h.N' keys
+    "bert": re.compile(r"(?:^|\.)encoder\.layer\.(\d+)\."),
+    "llama": re.compile(r"(?:^|\.)layers\.(\d+)\."),
+    "gpt": re.compile(r"(?:^|\.)layers\.(\d+)\."),
+    "gpt2": re.compile(r"(?:^|\.)h\.(\d+)\."),
+}
+
+
+def infer_num_layers(state_dict: dict, family: str) -> int:
+    """Count transformer blocks in a torch/HF state_dict by key pattern."""
+    pat = _LAYER_RES.get(family)
+    if pat is None:
+        raise ValueError(f"no layer pattern for model family {family!r}")
+    ids = [int(m.group(1)) for k in state_dict if (m := pat.search(k))]
+    if not ids:
+        raise ValueError(
+            f"no {family!r} layer keys found in state_dict "
+            f"(looked for {pat.pattern!r})")
+    return 1 + max(ids)
+
+
+def _f32(t) -> torch.Tensor:
+    """A checkpoint entry (tensor or array) as a contiguous fp32 CPU
+    tensor."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", torch.float32).contiguous()
+    return torch.from_numpy(np.array(t, np.float32))
+
+
+def _cat_rows(sd: dict, names) -> torch.Tensor:
+    return torch.cat([_f32(sd[n]) for n in names], dim=0)
+
+
+def _copy(out: dict, dst: str, sd: dict, src: str, bias: bool = True):
+    """A torch ``Linear``/``LayerNorm`` (``weight``, optional ``bias``)
+    under the port's name ``dst``."""
+    out[f"{dst}.weight"] = _f32(sd[f"{src}.weight"])
+    if bias and f"{src}.bias" in sd:
+        out[f"{dst}.bias"] = _f32(sd[f"{src}.bias"])
+
+
+def llama_params_from_torch(state_dict: dict, num_layers: int) -> dict:
+    """HF ``LlamaForCausalLM`` (or bare ``LlamaModel``) state_dict -> the
+    port's ``Llama`` state dict (fp32)."""
+    sd = dict(state_dict)
+    pre = "model." if any(k.startswith("model.") for k in sd) else ""
+    out = {"embed.weight": _f32(sd[pre + "embed_tokens.weight"])}
+    for i in range(num_layers):
+        lp, dp = f"{pre}layers.{i}.", f"layers.{i}."
+        out[dp + "qkv.weight"] = _cat_rows(
+            sd, [f"{lp}self_attn.{x}_proj.weight" for x in "qkv"])
+        out[dp + "attn_out.weight"] = _f32(sd[lp + "self_attn.o_proj.weight"])
+        out[dp + "gate_up.weight"] = _cat_rows(
+            sd, [f"{lp}mlp.{x}_proj.weight" for x in ("gate", "up")])
+        out[dp + "down.weight"] = _f32(sd[lp + "mlp.down_proj.weight"])
+        out[dp + "attn_norm.scale"] = _f32(sd[lp + "input_layernorm.weight"])
+        out[dp + "mlp_norm.scale"] = _f32(
+            sd[lp + "post_attention_layernorm.weight"])
+    out["final_norm.scale"] = _f32(sd[pre + "norm.weight"])
+    # tied embeddings when the checkpoint has no separate head
+    out["lm_head.weight"] = _f32(sd.get("lm_head.weight",
+                                        sd[pre + "embed_tokens.weight"]))
+    return out
+
+
+def gpt2_params_from_torch(state_dict: dict, num_layers: int) -> dict:
+    """HF ``GPT2LMHeadModel`` (or bare ``GPT2Model``) state_dict -> the
+    port's ``GPT2`` state dict (fp32). HF's ``Conv1D`` stores ``[in,
+    out]``, so each becomes an ``nn.Linear`` weight by a transpose; the
+    head is tied to ``wte`` in both models."""
+    sd = dict(state_dict)
+    pre = ("transformer."
+           if any(k.startswith("transformer.") for k in sd) else "")
+    out = {"wte.weight": _f32(sd[pre + "wte.weight"]),
+           "wpe.weight": _f32(sd[pre + "wpe.weight"])}
+    for i in range(num_layers):
+        lp, dp = f"{pre}h.{i}.", f"h.{i}."
+        for dst, src in (("c_attn", "attn.c_attn"), ("attn_out", "attn.c_proj"),
+                         ("c_fc", "mlp.c_fc"), ("mlp_out", "mlp.c_proj")):
+            out[f"{dp}{dst}.weight"] = _f32(
+                sd[f"{lp}{src}.weight"]).t().contiguous()
+            out[f"{dp}{dst}.bias"] = _f32(sd[f"{lp}{src}.bias"])
+        _copy(out, dp + "ln_1", sd, lp + "ln_1")
+        _copy(out, dp + "ln_2", sd, lp + "ln_2")
+    _copy(out, "ln_f", sd, pre + "ln_f")
+    return out
+
+
+def bert_params_from_torch(state_dict: dict, num_layers: int) -> dict:
+    """HF ``BertForSequenceClassification`` (or bare ``BertModel``)
+    state_dict -> the port's ``BertEncoder`` state dict (fp32)."""
+    sd = dict(state_dict)
+    pre = "bert." if any(k.startswith("bert.") for k in sd) else ""
+    emb = pre + "embeddings."
+    out = {"tok_embed.weight": _f32(sd[emb + "word_embeddings.weight"]),
+           "pos_embed.weight": _f32(sd[emb + "position_embeddings.weight"]),
+           "seg_embed.weight": _f32(sd[emb + "token_type_embeddings.weight"])}
+    _copy(out, "embed_norm", sd, emb + "LayerNorm")
+    for i in range(num_layers):
+        lp, dp = f"{pre}encoder.layer.{i}.", f"layers.{i}."
+        qkv = [f"{lp}attention.self.{x}" for x in ("query", "key", "value")]
+        out[dp + "attn.qkv.weight"] = _cat_rows(sd, [n + ".weight"
+                                                     for n in qkv])
+        out[dp + "attn.qkv.bias"] = _cat_rows(sd, [n + ".bias" for n in qkv])
+        _copy(out, dp + "attn.out", sd, lp + "attention.output.dense")
+        _copy(out, dp + "attn_norm", sd, lp + "attention.output.LayerNorm")
+        _copy(out, dp + "mlp_in", sd, lp + "intermediate.dense")
+        _copy(out, dp + "mlp_out", sd, lp + "output.dense")
+        _copy(out, dp + "mlp_norm", sd, lp + "output.LayerNorm")
+    if pre + "pooler.dense.weight" in sd:
+        _copy(out, "pooler", sd, pre + "pooler.dense")
+    if "classifier.weight" in sd:
+        _copy(out, "classifier", sd, "classifier")
+    return out
+
+
+def resnet_params_from_torch(state_dict: dict) -> tuple[dict, dict]:
+    """torchvision ``resnet50`` state_dict -> ``(params, batch_stats)`` of
+    the port's ``ResNet``: the parameters, and the BatchNorms' running
+    ``mean``/``var`` buffers; together they are its state dict."""
+    sd = {k: v for k, v in state_dict.items()
+          if not k.endswith("num_batches_tracked")}
+    params: dict = {}
+    stats: dict = {}
+
+    def bn(dst: str, src: str) -> None:
+        _copy(params, dst, sd, src)
+        stats[f"{dst}.mean"] = _f32(sd[src + ".running_mean"])
+        stats[f"{dst}.var"] = _f32(sd[src + ".running_var"])
+
+    params["stem_conv.weight"] = _f32(sd["conv1.weight"])
+    bn("stem_norm", "bn1")
+    block = 0
+    for stage, units in enumerate((3, 4, 6, 3), start=1):  # resnet50
+        for unit in range(units):
+            tp, dp = f"layer{stage}.{unit}", f"blocks.{block}"
+            for j in (1, 2, 3):
+                params[f"{dp}.conv{j}.weight"] = _f32(sd[f"{tp}.conv{j}.weight"])
+                bn(f"{dp}.norm{j}", f"{tp}.bn{j}")
+            if f"{tp}.downsample.0.weight" in sd:
+                params[f"{dp}.proj_conv.weight"] = _f32(
+                    sd[f"{tp}.downsample.0.weight"])
+                bn(f"{dp}.proj_norm", f"{tp}.downsample.1")
+            block += 1
+    if "fc.weight" in sd:
+        _copy(params, "head", sd, "fc")
+    return params, stats
 
 
 def _init_linear_like(model, gen) -> None:

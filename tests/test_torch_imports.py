@@ -198,3 +198,37 @@ def test_family_entry_points_default_to_the_card():
                   lambda: init_family(unet_tiny())):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
+
+
+# emission: the emitter, the programs it renders, the weight converters,
+# the fleet's control plane and the numerics harness. Besides JAX they
+# must not need jinja2, which the card's machine does not have
+EMIT_MODULES = ("containerizer/__init__.py", "containerizer/cuda_emit.py",
+                "assets/cuda/train_gpu.py", "assets/cuda/serve_gpu.py",
+                "assets/cuda/port_weights.py", "models/convert.py",
+                "serving/fleet/forecast.py", "serving/fleet/autoscaler.py",
+                "serving/fleet/capture.py", "serving/fleet/sim.py",
+                "validate.py")
+EMIT_FORBIDDEN = FORBIDDEN + ("jinja2",)
+
+
+@pytest.mark.parametrize("module", EMIT_MODULES)
+def test_emission_modules_import_nothing_of_jax(module):
+    path = REPO / "move2kube_tpu_torch" / module
+    assert path in _port_files()
+    bad = [f"{line} imports {root}" for line, root in _imported_roots(path)
+           if root in EMIT_FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_emission_modules_loads_no_jax():
+    mods = ", ".join("move2kube_tpu_torch." + m[:-3].replace("/", ".")
+                     .removesuffix(".__init__") for m in EMIT_MODULES
+                     if not m.startswith("assets/"))
+    code = (f"import sys, {mods}; bad = [m for m in sys.modules if "
+            f"m.split('.')[0] in {EMIT_FORBIDDEN!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
