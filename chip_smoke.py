@@ -33,8 +33,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8-kv engine against the fp32 engine from the same weights, held by
    the quant logit gate
 5. the serving slice: full-depth Llama-8B in bf16 serving 16 requests on
-   the engine; the kernels' launch counts show every prefill and decode
-   step went through them
+   the engine (its default, the async pipeline with one pass a window);
+   the kernels' launch counts show every prefill and decode step went
+   through them
+5a. async: the serving slice's model and requests on the synchronous
+   loop, the async pipeline with one and with four passes a window: the
+   streams identical, the launches exactly each run's passes; each mode's
+   ms a decode pass at 8 of 8 slots (host clock, device busy, dispatch
+   gap) with no admission, and its dispatch gap and host_overhead_ratio
+   over the 16 requests; an EOS on an interior pass of a window stopping
+   every stream where the synchronous one stops, every page freed;
+   int8-kv at four passes against the synchronous int8-kv loop; GPT-2
+   small synchronous against four passes
 5b. obs serve: the serving slice's model behind a TelemetryServer (port
    0) over the engine's registry, tracer and a UsageLedger fed by
    ``engine_source``: 4 requests with ``cost_report()`` called between two
@@ -124,11 +134,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    emitted trainer runs 10 steps of it under the port's supervisor in a
    child (deterministic algorithms) and ends with the parameters and
    Adam moments of the same 10 steps run here, by SHA-256; the emitted
-   server at full-depth Llama-8B (seed-0 init) serves 4 requests (one
-   over SSE) with the in-process engine's streams, sheds an unmeetable
-   deadline with a 504, and its passes are what the requests imply; the
-   emitted server on the trainer's checkpoint gives the streams of an
-   engine on ``restore_variables`` of it
+   server at full-depth Llama-8B (seed-0 init), at its defaults (the
+   async pipeline) and with ``M2KT_DECODE_SUBSTEPS=4``, serves 4 requests
+   (one over SSE) with the in-process synchronous engine's streams, sheds
+   an unmeetable deadline with a 504, keeps its warm request out of
+   ``/stats`` and the SLO ledger (no diagnostic bundle), and its passes
+   are what the requests imply; the emitted server on the trainer's
+   checkpoint gives the streams of an engine on ``restore_variables`` of
+   it
 15. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
@@ -1096,6 +1109,17 @@ def quant_gate_phase(torch, model, prompts, n_new, ref) -> None:
         f"paged_decode_int8 launched {PAGED_DECODE_INT8.launches} times")
 
 
+def _slice_prompts(vocab: int, max_prompt: int):
+    """The serving slices' 16 prompts (lengths from seed 2 in
+    64..``max_prompt``), and the generator that drew them."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    lengths = rng.integers(64, max_prompt + 1, size=16)
+    return [rng.integers(1, vocab, size=int(n)).tolist()
+            for n in lengths], rng
+
+
 def _serve_slice(torch, model, econf, label: str, decode_kernel: str,
                  max_prompt: int = 1536, n_new: int = 64,
                  keep_logits: bool = False):
@@ -1125,11 +1149,9 @@ def _serve_slice(torch, model, econf, label: str, decode_kernel: str,
         [Request("warm", list(range(1, 65)), 4)])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(SEED + 2)
-    lengths = rng.integers(64, max_prompt + 1, size=16)
-    reqs = [Request(f"r{i}", rng.integers(1, cfg.vocab_size,
-                                          size=int(n)).tolist(), n_new)
-            for i, n in enumerate(lengths)]
+    prompts, rng = _slice_prompts(cfg.vocab_size, max_prompt)
+    lengths = np.array([len(p) for p in prompts])
+    reqs = [Request(f"r{i}", p, n_new) for i, p in enumerate(prompts)]
     eng = ServingEngine(model, econf, device="cuda")
     eng.capture_logits = True
     first: dict = {}
@@ -1288,6 +1310,219 @@ def _engine_run(torch, model, econf, reqs, label, tracer=None):
         raise RuntimeError(f"{label}: {len(comps)} of {len(reqs)} requests "
                            "completed")
     return eng, comps, launches, wall
+
+
+# the async decode pipeline's phase: decode passes timed and profiled at
+# 8 of 8 slots in each mode, and the modes it runs (the engine's own
+# config fields)
+ASYNC_NEW, ASYNC_TIMED, ASYNC_PROFILED = 64, 16, 4
+ASYNC_MODES = (("sync", {"async_decode": "off"}),
+               ("async N=1", {"async_decode": "on", "substeps": 1}),
+               ("async N=4", {"async_decode": "on", "substeps": 4}))
+
+
+def _slice_requests(vocab: int, max_prompt: int = 1536):
+    """The serving slice's 16 requests, as fresh ``Request`` objects."""
+    from move2kube_tpu_torch import Request
+
+    prompts, _ = _slice_prompts(vocab, max_prompt)
+    return lambda: [Request(f"r{i}", list(p), ASYNC_NEW)
+                    for i, p in enumerate(prompts)]
+
+
+def _steady(torch, model, econf, label: str, modes) -> dict:
+    """Each mode's engine with eight 512-token requests seated at once and
+    its pipeline filled (two engine steps); then ``ASYNC_TIMED`` decode
+    passes of each mode on the host's clock with the dispatch gap they
+    add, in two rounds, the second in the reverse order (host time drifts
+    between calls, so each mode is read twice, beside the others), each
+    after one untimed step; then
+    ``ASYNC_PROFILED`` passes of each under torch.profiler. No admission
+    happens. Returns ms a decode pass by mode: the two walls, device busy
+    and the dispatch gap."""
+    import numpy as np
+
+    from move2kube_tpu_torch import Request, ServingEngine
+
+    engines = {}
+    for mode, over in modes:
+        rng = np.random.default_rng(SEED + 3)
+        eng = ServingEngine(model, dataclasses.replace(
+            econf, admit_burst=0, **over), device="cuda")
+        for i in range(8):
+            eng.submit(Request(f"s{i}", rng.integers(
+                1, model.cfg.vocab_size, size=512).tolist(), ASYNC_NEW))
+        eng.step()
+        eng.step()
+        engines[mode] = eng
+    out = {mode: {"wall_ms": [], "gap_ms": 0.0} for mode in engines}
+    for order in (list(engines), list(engines)[::-1]):
+        for mode in order:
+            eng = engines[mode]
+            # one untimed step first: its dispatch gap would hold the
+            # other modes' rounds
+            eng.step()
+            torch.cuda.synchronize()
+            gap0 = eng.stats()["dispatch_gap_total_s"]
+            t0 = time.perf_counter()
+            for _ in range(ASYNC_TIMED // eng.substeps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[mode]["wall_ms"].append(1e3 * wall / ASYNC_TIMED)
+            out[mode]["gap_ms"] += 1e3 * (eng.stats()["dispatch_gap_total_s"]
+                                          - gap0) / (2 * ASYNC_TIMED)
+    for mode, eng in engines.items():
+        steps = ASYNC_PROFILED // eng.substeps
+        out[mode]["busy_ms"] = _profiled(
+            torch, f"async: {label} {mode}, {ASYNC_PROFILED} decode passes "
+            "at 8 of 8 slots",
+            lambda eng=eng: [eng.step() for _ in range(steps)]
+        ) / ASYNC_PROFILED
+    # the streams are left unfinished: the engines go with them
+    return out
+
+
+def _mode_runs(torch, model, econf, reqs, label, modes=ASYNC_MODES):
+    """The same requests on a fresh engine in each mode, launches held
+    exactly to each run's passes; the streams must be identical across the
+    modes. Returns (streams, {mode: stats}, summed launches)."""
+    from move2kube_tpu_torch.ops.attention import KERNELS
+
+    streams, stats, launches = None, {}, dict.fromkeys(
+        (k.name for k in KERNELS), 0)
+    for mode, over in modes:
+        t0 = time.perf_counter()
+        eng, comps, got, wall = _engine_run(
+            torch, model, dataclasses.replace(econf, **over), reqs(),
+            f"{label} {mode}")
+        for name, n in got.items():
+            launches[name] += n
+        mine = {rid: c.tokens for rid, c in comps.items()}
+        if streams is None:
+            streams = mine
+        elif mine != streams:
+            differ = sorted(r for r in mine if mine[r] != streams[r])
+            raise RuntimeError(f"{label} {mode}: streams of {differ} differ "
+                               f"from {modes[0][0]}'s")
+        s = eng.stats()
+        if eng._allocator.available != eng.cache_cfg.num_pages - 1:
+            raise RuntimeError(f"{label} {mode}: pages still held")
+        stats[mode] = s
+        log(f"{label} {mode}: wall {wall:.3f} s for the 16 requests, "
+            f"{s['passes']['decode']} decode passes in {s['decode_steps']} "
+            f"steps, decode_time_s {s['decode_time_s']:.3f} (sync: dispatch "
+            f"to read; async: consume to consume, admissions included), "
+            f"dispatch gap {s['dispatch_gap_total_s']:.4f} s, "
+            f"host_overhead_ratio {s['host_overhead_ratio']:.4f}; launches "
+            f"{got}; {time.perf_counter() - t0:.1f} s ({CARD})")
+        del eng, comps
+    return streams, stats, launches
+
+
+def async_phase(torch, model) -> dict:
+    """The async decode pipeline on the card. Full-depth Llama-8B (the
+    serving slice's model and requests, bf16, 8 x 2048 slots):
+    synchronous, async N=1 and async N=4 with identical streams and
+    launches exactly their passes; each mode's ms a decode pass at 8 of 8
+    slots on the host's clock and in device busy time, and its dispatch
+    gap with and without admissions;
+    an EOS landing on an interior pass of a window stops every stream
+    where the synchronous stream stops, and every page but the null page
+    comes back; int8-kv at N=4 against the synchronous int8-kv run; GPT-2
+    small synchronous against N=4. Returns the launches of the runs whose
+    counts were checked."""
+    from move2kube_tpu_torch import (
+        EngineConfig,
+        gpt2_small,
+        init_gpt2,
+        quantize_model,
+    )
+
+    t_phase = time.perf_counter()
+    econf = EngineConfig(max_batch=8, max_seq=2048, block_size=16)
+    reqs = _slice_requests(model.cfg.vocab_size)
+    streams, stats, launches = _mode_runs(torch, model, econf, reqs,
+                                          "async: llama_8b")
+    log(f"async: llama_8b: the 16 streams are identical in the three modes "
+        f"({sum(len(t) for t in streams.values())} tokens)")
+    steady = _steady(torch, model, econf, "llama_8b", ASYNC_MODES)
+    for mode, _ in ASYNC_MODES:
+        s, st = stats[mode], steady[mode]
+        log(f"async: llama_8b {mode}: at 8 of 8 slots, no admission: "
+            f"{' and '.join(f'{w:.3f}' for w in st['wall_ms'])} ms a decode "
+            f"pass (wall, two rounds), {st['busy_ms']:.3f} ms device busy, "
+            f"dispatch gap {st['gap_ms']:.4f} ms a pass; with the admissions"
+            f" of the 16 requests: gap {s['dispatch_gap_total_s']:.4f} s, "
+            f"host_overhead_ratio {s['host_overhead_ratio']:.4f}; phase at "
+            f"{time.perf_counter() - t_phase:.1f} s ({CARD})")
+
+    # EOS on an interior pass of a 4-pass window: token k of a stream
+    # comes from pass (k - 1) % 4 of its window
+    first = streams["r0"]
+    k = next(k for k in range(1, len(first)) if (k - 1) % 4 in (1, 2)
+             and first[k] not in first[:k])
+    eos = first[k]
+    want = {rid: (t[:t.index(eos) + 1] if eos in t else t)
+            for rid, t in streams.items()}
+    eng, comps, got, _ = _engine_run(
+        torch, model, dataclasses.replace(econf, eos_id=eos,
+                                          **ASYNC_MODES[2][1]),
+        reqs(), "async: llama_8b N=4 eos")
+    for name, n in got.items():
+        launches[name] += n
+    mine = {rid: c.tokens for rid, c in comps.items()}
+    if mine != want or comps["r0"].finish_reason != "eos":
+        raise RuntimeError(f"async: eos {eos}: the N=4 streams do not stop "
+                           "where the synchronous streams do")
+    if eng._allocator.available != eng.cache_cfg.num_pages - 1:
+        raise RuntimeError("async: eos: pages still held after the run")
+    stopped = sum(c.finish_reason == "eos" for c in comps.values())
+    log(f"async: eos {eos} at token {k} of r0 (pass {(k - 1) % 4} of its "
+        f"window): {stopped} of 16 streams stop at it, each where the "
+        f"synchronous stream does; every page but the null page is free; "
+        f"phase at {time.perf_counter() - t_phase:.1f} s")
+    del eng, comps
+
+    # int8-kv: the paged_decode_int8 path, synchronous against N=4
+    qmodel = quantize_model(model)
+    streams8, _, got = _mode_runs(
+        torch, qmodel, dataclasses.replace(econf, quant="int8-kv"), reqs,
+        "async: llama_8b int8-kv", (ASYNC_MODES[0], ASYNC_MODES[2]))
+    for name, n in got.items():
+        launches[name] += n
+    same = sum(a == b for r in streams
+               for a, b in zip(streams[r], streams8[r]))
+    log(f"async: llama_8b int8-kv: the 16 streams are identical at N=4 and "
+        f"in the synchronous loop; {same} of "
+        f"{sum(len(t) for t in streams.values())} tokens equal the bf16 "
+        "streams'")
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GPT-2 small: synchronous against N=4
+    g = init_gpt2(gpt2_small(), seed=SEED, device="cuda").eval()
+    gconf = EngineConfig(max_batch=8, max_seq=1024, block_size=16)
+    _, gstats, got = _mode_runs(
+        torch, g, gconf, _slice_requests(g.cfg.vocab_size, 768),
+        "async: gpt2_small", (ASYNC_MODES[0], ASYNC_MODES[2]))
+    for name, n in got.items():
+        launches[name] += n
+    steady = _steady(torch, g, gconf, "gpt2_small",
+                     (ASYNC_MODES[0], ASYNC_MODES[2]))
+    for mode, st in steady.items():
+        log(f"async: gpt2_small {mode}: at 8 of 8 slots "
+            f"{' and '.join(f'{w:.3f}' for w in st['wall_ms'])} ms a decode "
+            f"pass (wall, two rounds), {st['busy_ms']:.3f} ms busy, gap "
+            f"{st['gap_ms']:.4f} ms a pass; host_overhead_ratio over the 16 "
+            f"requests {gstats[mode]['host_overhead_ratio']:.4f}; phase at "
+            f"{time.perf_counter() - t_phase:.1f} s ({CARD})")
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"async: phase {time.perf_counter() - t_phase:.1f} s ({CARD})")
+    return launches
 
 
 def _greedy_prefix(a, b) -> int:
@@ -2007,7 +2242,7 @@ def fleet_router_parity_phase(torch) -> None:
         e.run([Request("warm", list(shared), 4)])
         e.submit(Request("s", shared[:144] + tail, 12))
         e.submit(Request("t", list(other), 12))
-        done, pages, swapped = [], e._prefix.total_pages, False
+        done, pages, swapped, old = [], e._prefix.total_pages, False, set()
         while e.has_work():
             done += e.step()
             slot = next((x for x in e._slots
@@ -2017,16 +2252,20 @@ def fleet_router_parity_phase(torch) -> None:
                     raise RuntimeError("fleet router parity (d): version")
                 swapped = True
                 pages = (pages, e._prefix.total_pages)
+                # streams that ended before the swap, or in the windows
+                # its flush consumed, ran under version 1 and say so
+                old = {c.rid for c in done + e._flush_backlog}
         _check_launches("fleet router parity (d)", _launch_counts(),
                         _want_launches([(e.stats(), layers, 0)]))
-        return {c.rid: c for c in done}, e.logit_log, pages, e.stats()
+        return {c.rid: c for c in done}, e.logit_log, pages, e.stats(), old
 
-    got, got_log, pages, st = swap_run(True)
-    want, want_log, _, _ = swap_run(False)
+    got, got_log, pages, st, old = swap_run(True)
+    want, want_log, _, _, _ = swap_run(False)
     same = all(np.array_equal(a, b) for rid in ("s", "t")
                for a, b in zip(got_log[rid], want_log[rid]))
     if (any(got[r].tokens != want[r].tokens for r in ("s", "t")) or not same
-            or {c.weights_version for c in got.values()} != {2}
+            or any(c.weights_version != (1 if r in old else 2)
+                   for r, c in got.items()) or "s" in old
             or pages[0] == 0 or pages[1] != 0 or st["prefix_hits"] < 1):
         raise RuntimeError(
             f"fleet router parity (d): streams "
@@ -2038,8 +2277,9 @@ def fleet_router_parity_phase(torch) -> None:
         f"prefix hit beside a second stream: streams and all "
         f"{sum(len(got_log[r]) for r in ('s', 't'))} logit rows bit-equal "
         f"to the "
-        f"unswapped run; Completions stamped version 2; prefix cache "
-        f"flushed ({pages[0]} pages before, {pages[1]} after)")
+        f"unswapped run; Completions stamped version 2 (version 1: "
+        f"{sorted(old)}, done by the swap's flush); prefix cache flushed "
+        f"({pages[0]} pages before, {pages[1]} after)")
     del model
     torch.cuda.empty_cache()
 
@@ -4363,7 +4603,8 @@ def emit_services(root: str) -> dict:
             "llama3-8b", "train_llama3.py", gpu_count=64,
             frameworks=["deepspeed", "torch"], distributed_backend="nccl",
             parallelism={"zero_stage": 3, "dp": 64}, num_hosts=16,
-            num_slices=1, serving=False, serving_port=0),
+            num_slices=1, serving=False, serving_port=0,
+            tpu_topology="4x4x4"),
         "serve": service(
             "llama-serve", "serve.py", gpu_count=1, frameworks=["torch"],
             distributed_backend="", parallelism={}, num_hosts=1,
@@ -4550,38 +4791,31 @@ def _serve_child(label, payload, env, prompts, stream_index, deadline):
 
 
 def _traffic(label, stats, layers) -> dict:
-    """What a server child's (or an in-process replay's) traffic did, its
-    warm request taken out: ``stats`` is the engine's ``stats()`` with
-    ``warm``, the same counters after the warm request, and
-    ``launches``, the counts measured from then on, which must equal
-    what the traffic's passes imply. Returns the passes, the launches,
-    the decode ms a step and tokens/s, and the mean TTFT of the
+    """What a server child's (or an in-process replay's) traffic did:
+    ``stats`` is the engine's ``stats()`` after its warm request, which
+    reaches none of its counters, with ``launches``, the counts measured
+    from then on, which must equal what the traffic's passes imply.
+    Returns the passes, the launches, the decode ms a pass (a window
+    divided by its passes) and tokens/s, and the mean TTFT of the
     traffic's requests."""
-    warm = stats["warm"]
-    passes = {k: n - warm["passes"].get(k, 0)
-              for k, n in stats["passes"].items()}
-    exp = _expected_launches({"passes": passes}, layers, 0)
+    passes = stats["passes"]
+    exp = _expected_launches(stats, layers, 0)
     want = dict.fromkeys(stats["launches"], 0)
     want.update(flash_fwd=exp["flash_fwd"], paged_decode=exp["paged"])
     _check_launches(f"{label} (traffic passes {passes})", stats["launches"],
                     want)
-    steps = stats["decode_steps"] - warm["decode_steps"]
-    secs = stats["decode_time_s"] - warm["decode_time_s"]
-    n = stats["prefills"] - warm["prefills"]
     return {"passes": passes, "launches": stats["launches"],
-            "decode_ms": 1e3 * secs / steps,
-            "tokens_s": (stats["decode_tokens"] - warm["decode_tokens"])
-            / secs,
-            "ttft_mean_ms": (stats["ttft_mean_ms"] * stats["prefills"]
-                             - warm["ttft_mean_ms"] * warm["prefills"]) / n}
+            "decode_ms": 1e3 * stats["decode_time_s"] / passes["decode"],
+            "tokens_s": stats["decode_throughput_tokens_s"],
+            "ttft_mean_ms": stats["ttft_mean_ms"]}
 
 
 def _engine_streams(torch, model, prompts, label, profile=False):
-    """The same prompts one after another on a fresh engine after a warm
-    request, as the server child served them: launch counts set to 0
-    after the warm request and held to the replay's passes. With
-    ``profile``, one more request's 4 decode steps at 1 of 8 slots run
-    under the profiler after the replay. Returns (streams,
+    """The same prompts one after another on a fresh synchronous engine
+    after its warm request, as the server child served them: launch
+    counts set to 0 after the warm request and held to the replay's
+    passes. With ``profile``, one more request's 4 decode steps at 1 of 8
+    slots run under the profiler after the replay. Returns (streams,
     :func:`_traffic` of the replay, its seconds, profiled busy ms a
     decode step or None)."""
     from move2kube_tpu_torch import (
@@ -4592,10 +4826,10 @@ def _engine_streams(torch, model, prompts, label, profile=False):
     )
     from move2kube_tpu_torch.ops.attention import KERNELS
 
-    eng = ServingEngine(model, EngineConfig(max_batch=8, max_seq=2048,
-                                            block_size=16), device="cuda")
-    eng.run([Request("_warm", [1], 2)])
-    warm = eng.stats()
+    eng = ServingEngine(model, EngineConfig(
+        max_batch=8, max_seq=2048, block_size=16, async_decode="off"),
+        device="cuda")
+    eng.warm(prompt=[1], max_new_tokens=2)
     reset_launch_counts()
     t0 = time.perf_counter()
     out = [eng.run([Request(f"r{i}", p, EMIT_NEW)])[0].tokens
@@ -4603,8 +4837,7 @@ def _engine_streams(torch, model, prompts, label, profile=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     traffic = _traffic(label, dict(
-        eng.stats(), warm=warm,
-        launches={k.name: k.launches for k in KERNELS}),
+        eng.stats(), launches={k.name: k.launches for k in KERNELS}),
         model.cfg.num_layers)
     busy = None
     if profile:
@@ -4625,11 +4858,13 @@ def emit_phase(torch) -> dict:
     trainer runs 10 steps under the port's supervisor (deterministic
     algorithms), and the same 10 steps in this process from the same
     weights and batches end with parameters and Adam moments equal by
-    SHA-256; (4) the emitted server at full Llama-8B depth (seed-0 init)
-    serves 4 requests (one streamed) and sheds one with a 504, its streams
-    equal to an in-process engine's and its passes what the requests
-    imply; (5) the emitted server on the trainer's checkpoint, streams
-    equal to an engine on ``restore_variables`` of it. Returns the
+    SHA-256; (4) the emitted server at full Llama-8B depth (seed-0 init),
+    at its defaults and with windows of 4 passes, serves 4 requests (one
+    streamed) and sheds one with a 504, its streams equal to an
+    in-process synchronous engine's, its passes what the requests imply
+    and no diagnostic bundle captured; (5) the emitted server on the
+    trainer's checkpoint, streams equal to an engine on
+    ``restore_variables`` of it. Returns the
     launches of this phase's main path: the emitted trainer's and the
     servers' own counts, each measured in its process and held exactly
     to its steps or passes (the in-process runs are held to theirs too,
@@ -4798,44 +5033,61 @@ def emit_phase(torch) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (4) the emitted server at full depth
+        # (4) the emitted server at full depth: at its defaults (the async
+        # pipeline, one pass a window), then with windows of 4 passes
         prompts = _emit_requests(llama_8b().vocab_size)
-        senv = dict(base, M2KT_SERVE_PORT="0", M2KT_WEIGHTS_PORT="0",
-                    M2KT_METRICS_PORT=str(_free_port()))
-        streams, stats, metrics, t_ready, t_req = _serve_child(
-            "server", payload["serve"], senv, prompts, 1, True)
         full = llama_8b()
-        want_passes = dict.fromkeys(stats["passes"], 0)
-        want_passes.update(prefill=1 + len(prompts),
-                           decode=1 + len(prompts) * (EMIT_NEW - 1))
-        if stats["passes"] != want_passes or stats["warm"]["passes"] != dict(
-                want_passes, prefill=1, decode=1):
-            raise RuntimeError(f"emit: server passes {stats['passes']} "
-                               f"(warm {stats['warm']['passes']}), the "
-                               f"requests imply {want_passes}")
-        served = _traffic("emit: full-depth server", stats, full.num_layers)
-        for name, n in served["launches"].items():
-            launches[name] += n
-        # the warm request's TTFT holds the kernels' load and counts in
-        # the SLO tracker, so the anomaly watchdog captures a bundle at
-        # start (ROADMAP Queue 3)
         diag = os.path.join(work, "diag")
-        log(f"emit: diag bundles: "
-            f"{sorted(os.listdir(diag)) if os.path.isdir(diag) else []}")
-        resident, peak = (_metric(
-            metrics, 'm2kt_serve_hbm_peak_bytes{executable="decode",'
-            f'category="{cat}"}}') for cat in ("args", "total"))
-        log(f"emit: full-depth server: /healthz after {t_ready:.1f} s; the "
-            f"4 prompts {t_req:.3f} s on the client's clock; without the "
-            f"warm request: TTFT mean {served['ttft_mean_ms']:.2f} ms, "
-            f"decode {served['decode_ms']:.2f} ms a step "
-            f"({served['tokens_s']:.2f} tokens/s, one stream at a time); "
-            f"with it (/stats as it reads): TTFT p50 "
-            f"{stats['ttft_p50_ms']:.2f} ms, decode "
-            f"{stats['decode_throughput_tokens_s']:.2f} tokens/s; resident "
-            f"{resident / 1e9:.3f} GB at a decode pass's start, its peak "
-            f"{peak / 1e9:.3f} GB; passes {stats['passes']}, launches after "
-            f"the warm request {served['launches']} ({CARD})")
+        servers = {}
+        for n_sub in (1, 4):
+            label = "server" if n_sub == 1 else f"server N={n_sub}"
+            senv = dict(base, M2KT_SERVE_PORT="0", M2KT_WEIGHTS_PORT="0",
+                        M2KT_METRICS_PORT=str(_free_port()))
+            if n_sub > 1:
+                senv["M2KT_DECODE_SUBSTEPS"] = str(n_sub)
+            streams, stats, metrics, t_ready, t_req = _serve_child(
+                label, payload["serve"], senv, prompts, 1, n_sub == 1)
+            # a request alone in the engine decodes its EMIT_NEW - 1
+            # tokens in whole windows; the warm request's one in one
+            want_passes = dict.fromkeys(stats["passes"], 0)
+            want_passes.update(prefill=len(prompts), decode=len(prompts)
+                               * -(-(EMIT_NEW - 1) // n_sub) * n_sub)
+            if (stats["passes"] != want_passes
+                    or stats["warm"]["passes"] != dict(
+                        want_passes, prefill=1, decode=n_sub)
+                    or not stats["async_decode"]
+                    or stats["decode_substeps"] != n_sub):
+                raise RuntimeError(
+                    f"emit: {label} passes {stats['passes']} (warm "
+                    f"{stats['warm']['passes']}, async "
+                    f"{stats['async_decode']}), the requests imply "
+                    f"{want_passes} at {n_sub} passes a window")
+            served = _traffic(f"emit: full-depth {label}", stats,
+                              full.num_layers)
+            for name, n in served["launches"].items():
+                launches[name] += n
+            # the warm request reaches no record, so the anomaly watchdog
+            # has no SLO burn to capture at start
+            bundles = sorted(os.listdir(diag)) if os.path.isdir(diag) else []
+            if bundles:
+                raise RuntimeError(f"emit: {label}: diagnostic bundles "
+                                   f"{bundles} after serving")
+            resident, peak = (_metric(
+                metrics, 'm2kt_serve_hbm_peak_bytes{executable="decode",'
+                f'category="{cat}"}}') for cat in ("args", "total"))
+            log(f"emit: full-depth {label}: /healthz after {t_ready:.1f} s; "
+                f"the 4 prompts {t_req:.3f} s on the client's clock; /stats "
+                f"(the warm request kept out): TTFT mean "
+                f"{served['ttft_mean_ms']:.2f} ms, p50 "
+                f"{stats['ttft_p50_ms']:.2f} ms, decode "
+                f"{served['decode_ms']:.2f} ms a pass "
+                f"({served['tokens_s']:.2f} tokens/s, one stream at a time),"
+                f" host_overhead_ratio {stats['host_overhead_ratio']:.4f}; "
+                f"resident {resident / 1e9:.3f} GB at a decode pass's start,"
+                f" its peak {peak / 1e9:.3f} GB; passes {stats['passes']}, "
+                f"launches {served['launches']}; no diagnostic bundle "
+                f"({CARD})")
+            servers[label] = (streams, served, t_req)
         model = init_llama(dataclasses.replace(full, max_len=2048,
                                                attn_impl="flash"),
                            seed=0, device="cuda").eval()
@@ -4844,21 +5096,24 @@ def emit_phase(torch) -> dict:
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        if here_streams != streams:
-            raise RuntimeError(f"emit: server streams {streams} != the "
-                               f"in-process engine's {here_streams}")
-        log(f"emit: the server's streams (one over SSE) equal the "
-            f"in-process engine's: {streams[0]}")
-        log(f"emit: the same 4 prompts in process: {wall:.3f} s (the "
-            f"server's {t_req:.3f} s); without the warm request: TTFT mean "
-            f"{here['ttft_mean_ms']:.2f} ms (the server's "
-            f"{served['ttft_mean_ms']:.2f}), decode {here['decode_ms']:.2f} "
-            f"ms a step (the server's {served['decode_ms']:.2f}); a "
-            f"profiled decode step at 1 of 8 slots is {busy:.3f} ms of "
-            f"device busy time ({CARD})")
+        for label, (streams, served, t_req) in servers.items():
+            if streams != here_streams:
+                raise RuntimeError(f"emit: {label} streams {streams} != the "
+                                   f"in-process engine's {here_streams}")
+        log(f"emit: both servers' streams (one over SSE) equal the "
+            f"in-process synchronous engine's: {here_streams[0]}")
+        log(f"emit: the same 4 prompts in process, synchronous: {wall:.3f} s"
+            f" (the servers' " + ", ".join(
+                f"{t:.3f}" for _, _, t in servers.values())
+            + f" s); TTFT mean {here['ttft_mean_ms']:.2f} ms, decode "
+            f"{here['decode_ms']:.2f} ms a step (the servers' " + ", ".join(
+                f"{v['decode_ms']:.2f}" for _, v, _ in servers.values())
+            + f"); a profiled decode step at 1 of 8 slots is {busy:.3f} ms "
+            f"of device busy time ({CARD})")
 
         # (5) train -> serve
-        tenv = dict(senv, M2KT_LAYERS=str(EMIT_LAYERS), M2KT_CKPT_DIR=ckpt,
+        tenv = dict(base, M2KT_SERVE_PORT="0", M2KT_WEIGHTS_PORT="0",
+                    M2KT_LAYERS=str(EMIT_LAYERS), M2KT_CKPT_DIR=ckpt,
                     M2KT_METRICS_PORT=str(_free_port()))
         streams, stats, _, _, _ = _serve_child(
             "server-ckpt", payload["serve"], tenv, prompts[:2], -1, False)
@@ -4913,12 +5168,16 @@ def main() -> int:
     gpt2_kernels = gpt2_kernels_phase(torch)
     parity_phase(torch)
     launches, model = slice_phase(torch)
+    async_launches = async_phase(torch, model)
+    for name in ("flash_fwd", "paged_decode"):
+        launches[name] += async_launches[name]
     obs_serve, obs_int8 = obs_serve_phase(torch, model)
     int8_launches = int8_slice_phase(torch)
     for name in ("flash_fwd", "paged_decode"):
         launches[name] += obs_serve[name]
     launches["flash_fwd"] += obs_int8["flash_fwd"]
-    int8_launches["paged_decode_int8"] += obs_int8["paged_decode_int8"]
+    for part in (obs_int8, async_launches):
+        int8_launches["paged_decode_int8"] += part["paged_decode_int8"]
     t_fleet = time.perf_counter()
     fleet_parity_phase(torch)
     fleet_paged = fleet_slice_phase(torch, model)

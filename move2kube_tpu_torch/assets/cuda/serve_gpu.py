@@ -26,12 +26,13 @@ HTTP API (stdlib server, no web-framework dependency):
                   work within M2KT_DRAIN_GRACE_S, flip /readyz (SIGTERM
                   runs the same path, then stops the listener)
     GET  /healthz -> 200 once the engine is warm
-    GET  /stats   -> decode throughput / latency percentiles (the warm
-                  request's among them) and the model passes by kind;
-                  ``warm``: the same counters as the engine went ready,
-                  so a client can take the warm request out;
+    GET  /stats   -> decode throughput / latency percentiles and the
+                  model passes by kind, of the traffic since the engine
+                  went ready (the warm request reaches no record: not
+                  these, not /metrics, not the SLO ledger); ``warm``:
+                  the warm request's own counters, a record;
                   ``launches``: each attention kernel's launches since
-                  then
+                  the engine went ready
 
 ``M2KT_SERVE_PORT=0`` binds a free port; the ``[m2kt] serving on :PORT``
 line names the bound one (and ``[m2kt] telemetry on :PORT`` the metrics
@@ -47,13 +48,13 @@ POST /prefill returning KV handoff bytes for disaggregated long prompts;
 ``autoscaler`` runs the predictive scaling controller; ``decode`` (and
 the default, single-pod mode) is the engine server above.
 
-Three server knobs of the JAX program are decided here, each with one
-printed line: ``M2KT_ASYNC_DECODE`` (``auto``/``off`` run the engine's
-synchronous loop, the only one the port has; ``on`` exits 2: ROADMAP
-Queue 1 item 4h), ``M2KT_DECODE_SUBSTEPS`` (above 1 exits 2: item 4h)
-and ``M2KT_SERVE_KERNELS`` (``auto``/``on`` are the hand-written kernels,
-the port's only mode on a card; ``off`` asks for a plain path the port
-does not have, and exits 2).
+``M2KT_ASYNC_DECODE`` (auto | on | off; auto runs the engine's async
+decode pipeline whenever spec decode is off) and
+``M2KT_DECODE_SUBSTEPS`` (decode passes a dispatched window) go to the
+engine as the JAX program passes them. ``M2KT_SERVE_KERNELS`` is decided
+here with one printed line: ``auto``/``on`` are the hand-written
+kernels, the port's only mode on a card; ``off`` asks for a plain path
+the port does not have, and exits 2.
 
 Swap the tokenizer-free token-id API for your real pre/post-processing;
 the engine interface (serving/engine.py) is the stable surface.
@@ -113,8 +114,6 @@ METRICS_PORT_DEFAULT = 9090
 WEIGHTS_PORT_DEFAULT = 8981
 # m2kt:baked-end
 
-ITEM_4H = "ROADMAP Queue 1 item 4h"
-
 PORT = int(os.environ.get("M2KT_SERVE_PORT", str(SERVE_PORT_DEFAULT)))
 MAX_BATCH = int(os.environ.get("M2KT_SERVE_MAX_BATCH",
                                str(SERVE_MAX_BATCH_DEFAULT)))
@@ -173,19 +172,8 @@ for _key, _value in (
 
 
 def decide_engine_knobs() -> None:
-    """The three knobs the port's engine does not read, each decided with
-    one printed line; a mode the port lacks exits 2."""
-    if ASYNC_DECODE == "on":
-        print(f"[m2kt] M2KT_ASYNC_DECODE=on: the port has no async decode "
-              f"pipeline ({ITEM_4H})", flush=True)
-        raise SystemExit(2)
-    print(f"[m2kt] M2KT_ASYNC_DECODE={ASYNC_DECODE}: the synchronous "
-          "decode loop (the port's only one)", flush=True)
-    if DECODE_SUBSTEPS > 1:
-        print(f"[m2kt] M2KT_DECODE_SUBSTEPS={DECODE_SUBSTEPS}: the port "
-              f"decodes one token a dispatch ({ITEM_4H})", flush=True)
-        raise SystemExit(2)
-    print("[m2kt] M2KT_DECODE_SUBSTEPS=1: one token a dispatch", flush=True)
+    """The knob the port's engine does not read, decided with one printed
+    line; the mode the port lacks exits 2."""
     if SERVE_KERNELS == "off":
         print("[m2kt] M2KT_SERVE_KERNELS=off: the port has no plain "
               "attention path on a card; its attention is the hand-written"
@@ -285,7 +273,8 @@ class _Server:
             model,
             EngineConfig.from_env(
                 max_batch=MAX_BATCH, max_seq=MAX_SEQ, block_size=KV_BLOCK,
-                quant=SERVE_QUANT, spec_k=SPEC_K),
+                quant=SERVE_QUANT, spec_k=SPEC_K,
+                async_decode=ASYNC_DECODE, substeps=DECODE_SUBSTEPS),
             device=dev, registry=m2kt_obs.default_registry())
         if peer_version is not None:
             # a P2P join inherits the fleet's resident weight generation
@@ -348,13 +337,11 @@ class _Server:
 
     def _loop(self) -> None:
         # warm the kernels before accepting traffic: one single-token
-        # request walks prefill (smallest bucket) + decode
-        warm = Request(rid="_warm", prompt=[1], max_new_tokens=2)
-        self.engine.submit(warm)
-        while self.engine.has_work():
-            self.engine.step()
+        # request walks prefill (smallest bucket) + decode, recorded
+        # nowhere a user reads (its TTFT holds the kernels' load)
+        self.warm_stats = self.engine.warm(prompt=[1], max_new_tokens=2)
         print(f"[m2kt] engine warm: passes "
-              f"{json.dumps(self.engine.stats()['passes'])}", flush=True)
+              f"{json.dumps(self.warm_stats['passes'])}", flush=True)
         # roofline/MFU cost model of every bucketed pass: sets the
         # m2kt_serve_* cost gauges and arms the OOM flight sidecar. Runs
         # once, before traffic is admitted.
@@ -369,9 +356,7 @@ class _Server:
                   f"peak_hbm={decode.get('peak_hbm_bytes')}", flush=True)
         except Exception as e:  # noqa: BLE001 - accounting is advisory
             print(f"[m2kt] costmodel failed: {e}", flush=True)
-        # /stats' launch counts cover the traffic from here on; the
-        # engine's counters so far (the warm request's) go beside them
-        self.warm_stats = self.engine.stats()
+        # /stats' launch counts cover the traffic from here on
         reset_launch_counts()
         self.ready.set()
         while True:
@@ -829,6 +814,16 @@ def main() -> None:
     server = _Server(dev)
     if server.weight_plane is not None:
         _start_weights_server(server)
+    draining = threading.Event()
+    if telem_srv is not None:
+        # /readyz: 503 while warming, 503 again once draining starts;
+        # /healthz stays alive-only
+        telem_srv.set_readiness(
+            lambda: "draining" if draining.is_set()
+            else ("serving" if server.ready.is_set() else "starting"))
+    # the usage ledger and the anomaly watchdog read the engine's records,
+    # which start once it is warm
+    server.ready.wait()
     # usage ledger (M2KT_USAGE, default on): per-tenant snapshots served
     # at /usage and flushed to m2kt-usage.jsonl on exit
     usage_ledger = None
@@ -860,13 +855,6 @@ def main() -> None:
 
         threading.Thread(target=_diag_loop, daemon=True,
                          name="m2kt-diag").start()
-    draining = threading.Event()
-    if telem_srv is not None:
-        # /readyz: 503 while warming, 503 again once draining starts;
-        # /healthz stays alive-only
-        telem_srv.set_readiness(
-            lambda: "draining" if draining.is_set()
-            else ("serving" if server.ready.is_set() else "starting"))
 
     def _begin_drain() -> bool:
         # shared by POST /drain and SIGTERM: flip /readyz, refuse new
@@ -929,6 +917,10 @@ def main() -> None:
             return True
 
         def do_POST(self) -> None:  # noqa: N802 (stdlib API)
+            # the body is read before any reply: a connection closed with
+            # unread bytes is reset, and the reset can beat the reply
+            n = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(n)
             if self.path == "/drain":
                 # synchronous: the preStop hook blocks on this reply; the
                 # listener stays up for probes until SIGTERM stops it
@@ -937,8 +929,6 @@ def main() -> None:
             if draining.is_set():
                 self._reply(503, {"error": "replica is draining"})
                 return
-            n = int(self.headers.get("Content-Length", 0))
-            body = self.rfile.read(n)
             if self.path == "/swap":
                 try:
                     doc = json.loads(body or b"{}")
@@ -1046,7 +1036,6 @@ def main() -> None:
         def log_message(self, *args) -> None:  # quiet per-request noise
             pass
 
-    server.ready.wait()
     httpd = ThreadingHTTPServer(("", PORT), Handler)
 
     def _on_term(signum, frame):

@@ -4,11 +4,19 @@
 The workload this program replaces, what was detected in it and the mesh
 its parallelism maps onto are baked into the constants below
 (``SOURCE_ENTRYPOINT``, ``FRAMEWORKS``, ``BACKEND``, ``GPU_COUNT``,
-``FAMILY``, ``MESH``). This program trains on one CUDA card; a mesh of
-more than one device (or ``M2KT_NUM_SLICES``/``M2KT_NUM_HOSTS`` above 1)
-exits 2: the mesh paths of the PyTorch port are ROADMAP Queue 1 item 9.
+``FAMILY``, ``MESH``, ``TOPOLOGY``). Like the JAX trainer, this program
+plans its mesh from the devices it sees: an explicit
 ``M2KT_MESH_DATA``/``_FSDP``/``_PIPE``/``_TENSOR``/``_SEQ``/``_EXPERT``
-in the environment win over the baked mesh (a missing axis is 1).
+(a missing axis is 1) is taken only when its product is that count, and
+one device gets the one-device plan, printed as the JAX trainer prints
+it (``[m2kt] devices=1 mesh=1x1x1x1x1x1 ... source=single-chip``). It
+trains on one CUDA card (or the CPU under ``M2KT_DEVICE=cpu``); more
+than one visible card, a world of more than one process (``WORLD_SIZE``,
+or ``M2KT_NUM_HOSTS`` x ``M2KT_NUM_SLICES`` above 1, where the JAX
+trainer starts a distributed world) and ring or Ulysses attention (the
+default where the baked mesh has a seq axis) exit 2: the mesh paths of
+the PyTorch port are ROADMAP Queue 1 item 9. A pipelined workload trains
+its plain model on one device, as the JAX trainer falls back to it.
 
 The model comes from the vendored ``move2kube_tpu_torch`` package
 alongside this file; attention runs in its hand-written CUDA kernels.
@@ -56,6 +64,7 @@ BACKEND = ""
 GPU_COUNT = 1
 FAMILY = "llama"
 MESH = {"data": 1, "fsdp": 1, "pipe": 1, "tensor": 1, "seq": 1, "expert": 1}
+TOPOLOGY = "1x1"
 NUM_SLICES_DEFAULT = 1
 PRECISION_DEFAULT = "bf16"
 GRAD_ACCUM_DEFAULT = 1
@@ -99,11 +108,6 @@ PRECISION = m2kt_precision.from_env(default=PRECISION_DEFAULT)
 # k>1 folds k microbatches into ONE optimizer update
 GRAD_ACCUM = max(1, int(os.environ.get("M2KT_GRAD_ACCUM",
                                        str(GRAD_ACCUM_DEFAULT))))
-try:
-    NUM_SLICES = max(1, int(os.environ.get("M2KT_NUM_SLICES",
-                                           str(NUM_SLICES_DEFAULT)) or 1))
-except ValueError:
-    NUM_SLICES = NUM_SLICES_DEFAULT
 # telemetry plane: /metrics, /healthz, /profile. The env wins over the
 # baked-in default; 0 disables.
 METRICS_PORT = int(os.environ.get("M2KT_METRICS_PORT",
@@ -113,36 +117,61 @@ METRICS_PORT = int(os.environ.get("M2KT_METRICS_PORT",
 os.environ.setdefault("M2KT_NUMERICS", NUMERICS)
 
 
-def resolve_mesh() -> dict:
-    """The baked mesh, or ``M2KT_MESH_*`` when any is set (missing axes
-    1), as the JAX trainer's ``resolve_mesh_plan`` takes its explicit
-    override."""
-    keys = {axis: f"M2KT_MESH_{axis.upper()}" for axis in MESH}
-    if not any(k in os.environ for k in keys.values()):
-        return dict(MESH)
-    try:
-        return {axis: int(os.environ.get(k, "1") or 1)
-                for axis, k in keys.items()}
-    except ValueError:
-        return dict(MESH)
-
-
 def refuse(msg: str) -> None:
     print(f"[m2kt] {msg}; this trainer runs on one GPU, and the rest is "
           f"{ITEM_9}", flush=True)
     raise SystemExit(2)
 
 
-def check_one_device(mesh: dict) -> None:
-    n = 1
-    for d in mesh.values():
-        n *= d
-    hosts = int(os.environ.get("M2KT_NUM_HOSTS", "1") or 1)
-    if n != 1 or mesh["pipe"] != 1:
-        refuse("mesh " + " ".join(f"{a}={d}" for a, d in mesh.items())
-               + f" needs {n} devices")
-    if NUM_SLICES > 1 or hosts > 1:
-        refuse(f"M2KT_NUM_SLICES={NUM_SLICES} M2KT_NUM_HOSTS={hosts}")
+def _int_env(name: str, default: int = 1) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def check_one_process(device) -> None:
+    """Exit 2 unless this is a world of one process on one device. The
+    JAX trainer starts a world of ``M2KT_NUM_HOSTS`` x ``M2KT_NUM_SLICES``
+    processes."""
+    world = _int_env("WORLD_SIZE")
+    hosts = _int_env("M2KT_NUM_HOSTS")
+    slices = _int_env("M2KT_NUM_SLICES", NUM_SLICES_DEFAULT)
+    if world > 1 or hosts * slices > 1:
+        refuse(f"a world of WORLD_SIZE={world} M2KT_NUM_HOSTS={hosts} "
+               f"M2KT_NUM_SLICES={slices}")
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n > 1:
+        refuse(f"{n} cards are visible (CUDA_VISIBLE_DEVICES names the "
+               f"one to use)")
+
+
+def plan_line() -> str:
+    """The plan line the JAX trainer prints for one device (its
+    ``resolve_mesh_plan``): source ``env-mesh`` when ``M2KT_MESH_*`` is
+    set and its product is 1, else ``single-chip`` on the baked topology
+    when that is one chip, on a chain of one otherwise."""
+    keys = [f"M2KT_MESH_{axis.upper()}" for axis in MESH]
+    dims = [1] * len(keys)
+    topology, source = None, "single-chip"
+    if any(k in os.environ for k in keys):
+        try:
+            explicit = [int(os.environ.get(k, "1")) for k in keys]
+        except ValueError:
+            explicit = []
+        if explicit and np.prod(explicit) == 1:
+            dims, topology, source = explicit, "-", "env-mesh"
+    if topology is None:
+        try:
+            topo = [int(d) for d in (os.environ.get("M2KT_TPU_TOPOLOGY", "")
+                                     or TOPOLOGY).split("x")]
+        except ValueError:
+            topo = []
+        if not topo or min(topo) <= 0 or np.prod(topo) != 1:
+            topo = [1]
+        topology = "x".join(str(d) for d in topo)
+    return (f"devices=1 mesh={'x'.join(str(d) for d in dims)} "
+            f"topology={topology} layout=[] source={source}")
 
 
 class GenericModel(torch.nn.Module):
@@ -273,6 +302,15 @@ def build(device, global_batch: int):
             m2kt_train.adamw(model.parameters(), LEARNING_RATE,
                              weight_decay=weight_decay)))
         accum = GRAD_ACCUM
+        if MESH["pipe"] > 1:
+            # the JAX trainer's pipeline path, which on one device trains
+            # the plain model: the schedule's microbatching stands in for
+            # accumulation there, so none is taken
+            accum = 1
+            if GRAD_ACCUM > 1:
+                print("[m2kt] M2KT_GRAD_ACCUM ignored on the pipeline path: "
+                      "the schedule's own microbatching is the "
+                      "accumulation", flush=True)
         step_fn = m2kt_train.make_lm_train_step(grad_accum=accum,
                                                 precision=PRECISION)
 
@@ -343,9 +381,8 @@ def build(device, global_batch: int):
 
 
 def main():
-    mesh = resolve_mesh()
-    check_one_device(mesh)
     device = resolve_device(os.environ.get("M2KT_DEVICE") or None)
+    check_one_process(device)
     # persistent kernel build cache: a restarted pod loads the previous
     # run's kernels instead of running nvcc. M2KT_COMPILE_CACHE_DIR
     # overrides (a mounted volume); M2KT_COMPILE_CACHE=0 disables.
@@ -390,8 +427,8 @@ def main():
     watcher = m2kt_preempt.from_env()
     if watcher is not None:
         watcher.install()
-    print(f"[m2kt] devices=1 device={device} mesh "
-          + " ".join(f"{a}={d}" for a, d in mesh.items())
+    print(f"[m2kt] {plan_line()}", flush=True)
+    print(f"[m2kt] device={device}"
           + (f" telemetry=:{telem_srv.port}" if telem_srv else ""),
           flush=True)
 

@@ -297,6 +297,9 @@ def emit_container(service, answers: dict | None = None) -> EmittedContainer:
             "FAMILY": emit_family,
             "MESH": dict(zip(("data", "fsdp", "pipe", "tensor", "seq",
                               "expert"), mesh.dims())),
+            # the JAX emitter's topology default, which its planner reads
+            # on one device
+            "TOPOLOGY": getattr(acc, "tpu_topology", "") or "1x1",
             "NUM_SLICES_DEFAULT": num_slices,
             "PRECISION_DEFAULT": knobs["precision"],
             "GRAD_ACCUM_DEFAULT": max(1, int(knobs["grad_accum"])),

@@ -81,8 +81,21 @@ the model's weights once, at construction (per-output-channel int8,
 dequantized inside each step), and keeps only the quantized copy (and
 the caller's fp model when it audits); ``int8-kv`` also stores the paged
 KV cache as int8 rows with per-row scales, which every page copy moves
-with the rows. Not ported yet (ROADMAP.md, Queue 1 item 4h): the async
-decode pipeline; its gauge is registered and stays at zero.
+with the rows.
+
+Async decode pipeline (``async_decode``, the reference's default:
+``"auto"`` runs it whenever spec decode is off): a step dispatches a
+*window* of ``substeps`` single-token passes of every row with no host
+read between them (the argmax of each pass feeds the next on the
+device, ``seq_lens`` advances on the device) and consumes the window
+dispatched one step earlier, so the host streams, journals and admits
+while the device computes. A prefix hit's owed suffix rides the window
+as forced inputs; a stream that ends mid-window has its over-generated
+tail trimmed at consume, its stale writes landing in its own released
+pages before any later prefill writes them (every launch goes to one
+stream, in host order). Every capacity check reserves ``2 * substeps -
+1`` positions for them. ``install_weights`` drains the windows in
+flight first.
 
 Env knobs (the JAX engine's names):
 
@@ -111,6 +124,10 @@ Env knobs (the JAX engine's names):
 - ``M2KT_LORA_RANK``        max adapter rank the stacks hold (default 8)
 - ``M2KT_QUANT_AUDIT_RATE`` share of cold prefills audited against the
   fp weights under a weight-quantizing policy (default 0)
+- ``M2KT_ASYNC_DECODE``     async decode pipeline auto|on|off (default
+  auto: on unless spec decode is)
+- ``M2KT_DECODE_SUBSTEPS``  decode passes a window; above 1 needs the
+  pipeline (default 1)
 """
 
 from __future__ import annotations
@@ -129,7 +146,12 @@ from move2kube_tpu_torch._device import resolve_device
 from move2kube_tpu_torch.obs import numerics as numericslib
 from move2kube_tpu_torch.obs import slo as slolib
 from move2kube_tpu_torch.obs import tracing
-from move2kube_tpu_torch.obs.metrics import Registry
+from move2kube_tpu_torch.obs.metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+)
 from move2kube_tpu_torch.serving import quant as quantlib
 from move2kube_tpu_torch.serving import sched as schedlib
 from move2kube_tpu_torch.serving.kvcache import (
@@ -212,6 +234,12 @@ class EngineConfig:
     # stacked A/B weights hold
     max_loras: int = 0
     lora_rank: int = 8
+    # async decode pipeline: "auto" runs it whenever spec decode is off,
+    # "on" insists (warns and runs the synchronous loop under spec
+    # decode), "off" keeps the synchronous loop. substeps is the number
+    # of single-token passes a dispatched window runs
+    async_decode: str = "auto"
+    substeps: int = 1
 
     def resolved_buckets(self) -> tuple[int, ...]:
         buckets = self.buckets or _default_buckets(self.max_seq)
@@ -261,6 +289,9 @@ class EngineConfig:
                                         cls.sched_quotas),
             max_loras=max(0, _int("M2KT_SCHED_MAX_LORAS", cls.max_loras)),
             lora_rank=max(1, _int("M2KT_LORA_RANK", cls.lora_rank)),
+            async_decode=(os.environ.get("M2KT_ASYNC_DECODE", "")
+                          or cls.async_decode),
+            substeps=max(1, _int("M2KT_DECODE_SUBSTEPS", cls.substeps)),
         )
         cfg.update(overrides)
         return cls(**cfg)
@@ -332,6 +363,14 @@ class _Slot:
     # a chunking slot is excluded from decode until its whole prompt
     # has landed
     chunking: bool = False
+    # async pipeline: True while the slot's next input token lives only
+    # on the device (the carry of the newest window), so a dispatch
+    # feeds the carry instead of ``last_token``
+    feedback: bool = False
+    # tokens this slot will append once its dispatched, unconsumed
+    # windows land: a slot whose length budget is already scheduled sits
+    # the next window out
+    inflight_scheduled: int = 0
 
 
 @dataclasses.dataclass
@@ -340,6 +379,22 @@ class _ChunkJob:
     prompt runs per engine step, after the decode batch."""
     slot_idx: int
     done: int = 0  # prompt tokens already written into the slot's pages
+
+
+@dataclasses.dataclass
+class _Window:
+    """One dispatched, unconsumed decode window: ``toks`` is the host copy
+    of its tokens ``[max_batch, substeps]`` (``logits`` of its fp32 logits
+    when captured), filled once ``event`` has fired (None on the CPU,
+    where the copy is done at dispatch). ``entries`` holds ``(slot, rid,
+    keep)``: outputs ``j < keep`` fed an owed prompt suffix and are
+    discarded, and ``rid`` skips a row whose slot was released or
+    re-seated after dispatch."""
+    toks: torch.Tensor
+    logits: torch.Tensor | None
+    event: object
+    entries: list
+    t0: float  # dispatch time
 
 
 class ServingEngine:
@@ -385,9 +440,6 @@ class ServingEngine:
         self._audit_rate = (max(0.0, min(1.0, self.config.quant_audit_rate))
                             if self.quant.quantize_weights else 0.0)
         self._audit_model = model if self._audit_rate else None
-        self._audit_accum = 0.0    # deterministic rate accumulator
-        self._drift_last = 0.0
-        self._drift_max = 0.0
         if self.quant.quantize_weights:
             model = quantlib.quantize_model(model)
         self.model = model
@@ -410,7 +462,6 @@ class ServingEngine:
             self.config.sched_quotas)
         self._preempt_enabled = self.sched.distinct_priorities()
         self._admit_seq = 0
-        self._preempt_count = 0
         self.spec_k = max(0, self.config.spec_k)
         # multi-LoRA excludes spec decode: the draft shares the target's
         # head, and a proposer blind to the adapter would collapse
@@ -437,12 +488,39 @@ class ServingEngine:
                   "disabling chunked prefill", flush=True)
             self.chunk_prefill = 0
         self._chunk_job: _ChunkJob | None = None
-        self._chunk_count = 0
+        # async decode pipeline: spec decode is host-synchronous by design
+        # (acceptance is a host decision), so the pipeline runs only
+        # without it, and "auto" is on for every plain-decode engine
+        mode = (self.config.async_decode or "auto").strip().lower()
+        if mode not in ("auto", "on", "off"):
+            print(f"[m2kt] WARNING: M2KT_ASYNC_DECODE={mode!r} is not "
+                  "auto|on|off; using auto", flush=True)
+            mode = "auto"
+        if mode == "on" and self.spec_k:
+            print("[m2kt] WARNING: M2KT_ASYNC_DECODE=on is incompatible "
+                  "with spec decode (M2KT_SPEC_K); running the "
+                  "synchronous loop", flush=True)
+        self.async_decode = mode != "off" and not self.spec_k
+        self.substeps = max(1, int(self.config.substeps))
+        if self.substeps > 1 and not self.async_decode:
+            print("[m2kt] WARNING: M2KT_DECODE_SUBSTEPS>1 needs the "
+                  "async pipeline (M2KT_ASYNC_DECODE != off, spec "
+                  "decode off); running 1 substep", flush=True)
+            self.substeps = 1
         # a spec verify window writes K/V up to spec_k positions past the
-        # point a stream finishes; those writes are stale by construction
-        # but must land inside the slot's own block table, so every
-        # capacity check reserves them
-        self._overrun_slack = self.spec_k
+        # point a stream finishes, an async stream up to 2 * substeps - 1
+        # (the tail of the window that emitted EOS plus the whole window
+        # dispatched after it); those writes are stale by construction but
+        # must land inside the slot's own block table, so every capacity
+        # check reserves them
+        self._async_slack = (2 * self.substeps - 1 if self.async_decode
+                             else 0)
+        self._overrun_slack = self.spec_k + self._async_slack
+        # windows dispatched but not consumed, and the completions a
+        # pipeline flush surfaced for the next step() to return
+        self._inflight: deque[_Window] = deque()
+        self._flush_backlog: list[Completion] = []
+        self._window_bufs: dict | None = None
         # speculative decoding: the draft shares the target's modules and
         # has its own pools with IDENTICAL page geometry, so page indices
         # map 1:1 and every allocator/prefix-cache decision covers both
@@ -466,6 +544,21 @@ class ServingEngine:
         # token-emission hook: called ``on_token(rid, token)`` the moment
         # a generated token lands in its slot, at every emission site
         self.on_token = None
+        self._init_records()
+        self._submit_ts: dict[str, float] = {}
+        self._req_tenant: dict[str, str] = {}
+        # absolute (perf_counter) deadlines of queued requests
+        self._deadline_abs: dict[str, float] = {}
+        self._draining = False
+        self.tracer = tracer if tracer is not None else (
+            tracing.get() if tracing.enabled() else None)
+        self._req_spans: dict[str, tracing.Span] = {}
+        self.registry = registry if registry is not None else Registry()
+        self._init_metrics()
+        self.slo = slolib.SLOTracker(registry=self.registry)
+
+    def _init_records(self) -> None:
+        """The host-side counters behind :meth:`stats`, at zero."""
         self._decode_time = 0.0
         self._decode_tokens = 0
         self._decode_steps = 0
@@ -475,25 +568,18 @@ class ServingEngine:
         # model passes by kind (PASS_KINDS): what the attention kernels'
         # launch counts must come to
         self._passes = dict.fromkeys(PASS_KINDS, 0)
-        self._submit_ts: dict[str, float] = {}
-        self._req_tenant: dict[str, str] = {}
-        # absolute (perf_counter) deadlines of queued requests
-        self._deadline_abs: dict[str, float] = {}
-        self._draining = False
+        self._preempt_count = 0
+        self._chunk_count = 0
+        self._audit_accum = 0.0    # deterministic rate accumulator
+        self._drift_last = 0.0
+        self._drift_max = 0.0
         self._last_consume_done: float | None = None
         self._gap_total = 0.0
         self._busy_total = 0.0
-        self.tracer = tracer if tracer is not None else (
-            tracing.get() if tracing.enabled() else None)
-        self._req_spans: dict[str, tracing.Span] = {}
-        self.registry = registry if registry is not None else Registry()
-        self._init_metrics()
-        self.slo = slolib.SLOTracker(registry=self.registry)
 
     def _init_metrics(self) -> None:
         """The reference's families (``move2kube_tpu/serving/engine.py``
-        ``_init_metrics``), same names, help, labels and buckets. The
-        async pipeline's gauge (not ported) stays at zero."""
+        ``_init_metrics``), same names, help, labels and buckets."""
         reg = self.registry
         self._lat_hist = reg.histogram(
             "m2kt_serve_token_latency_seconds",
@@ -612,10 +698,9 @@ class ServingEngine:
             "m2kt_serve_host_overhead_ratio",
             "Fraction of serving wall time the device spent starved on "
             "the host: dispatch gaps / (gaps + device-busy time)")
-        # the synchronous loop never has a window in flight
-        reg.gauge(
+        self._inflight_gauge = reg.gauge(
             "m2kt_serve_inflight_windows",
-            "Async decode windows dispatched but not yet consumed").set(0)
+            "Async decode windows dispatched but not yet consumed")
         self._total_pages = max(1, self.cache_cfg.num_pages - 1)
         # /metrics re-renders gauges from the host-side snapshot taken at
         # the last step-sync point: a scrape never reads a device tensor
@@ -657,6 +742,7 @@ class ServingEngine:
             "active_slots": active,
             "slot_occupancy": active / max(1, self.config.max_batch),
             "page_util": 1.0 - self._allocator.available / self._total_pages,
+            "inflight": len(self._inflight),
         }
         if self._prefix is not None:
             snap["prefix_pages"] = self._prefix.total_pages
@@ -674,6 +760,7 @@ class ServingEngine:
         self._active_slots.set(snap["active_slots"])
         self._slot_occupancy.set(snap["slot_occupancy"])
         self._page_util.set(snap["page_util"])
+        self._inflight_gauge.set(snap["inflight"])
         if "prefix_pages" in snap:
             self._prefix_pages.set(snap["prefix_pages"])
 
@@ -725,6 +812,82 @@ class ServingEngine:
                             None if draft else self._lora_args())
         cache["seq_lens"] += active.to(torch.int32)
         return logits, torch.argmax(logits, dim=-1)
+
+    def _window_buffers(self) -> dict:
+        """The async window's tensors, allocated once: ``inputs`` on the
+        device, ``[max_batch, substeps + 3]`` int32 holding each row's
+        forced inputs ``[:, :substeps]``, forced count, active flag and
+        adapter row, written from one of two host staging buffers (pinned
+        on the card), each reused only once the copy out of it has run;
+        ``carry``, the last pass's argmax, the next window's seed; and
+        ``toks``, the window's tokens (``logits`` is added once captured)."""
+        if self._window_bufs is None:
+            B, N, dev = self.config.max_batch, self.substeps, self.device
+            pin = dev.type == "cuda"
+            self._window_bufs = {
+                "inputs": torch.zeros((B, N + 3), dtype=torch.int32,
+                                      device=dev),
+                "stage": [torch.zeros((B, N + 3), dtype=torch.int32,
+                                      pin_memory=pin) for _ in range(2)],
+                "staged": [None, None],  # each copy's event (card only)
+                "turn": 0,
+                "carry": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "toks": torch.zeros((B, N), dtype=torch.int32, device=dev),
+            }
+        return self._window_bufs
+
+    @torch.inference_mode()
+    def _decode_window(self) -> None:
+        """The async pipeline's decode window: ``substeps`` single-token
+        passes of every row with no host read between them. Pass j of a
+        row consumes its forced input j while ``j < fcount`` (the slot's
+        last token, then the owed part of a prefix hit's prompt suffix)
+        and the previous pass's argmax after; a row with no forced input
+        (a slot in feedback mode) starts from ``carry``, the previous
+        window's last argmax. ``seq_lens`` advances to ``base + substeps``
+        for the active rows, on the device, so the next window can be
+        dispatched before this one is read. Writes the tokens into
+        ``toks`` (and the fp32 logits into ``logits`` when captured) and
+        the last argmax into ``carry``.
+
+        Shaped for a later capture in a CUDA graph, unchanged: the inputs
+        and outputs are tensors allocated once, no branch reads a device
+        value, the rows' views are sanitized once a window, and the paged
+        kernel's plan depends only on shapes (its split workspace is
+        allocated per call, which a graph's pool would serve)."""
+        bufs = self._window_buffers()
+        N, cache = self.substeps, self._cache
+        inputs = bufs["inputs"]
+        forced, fcount = inputs[:, :N], inputs[:, N]
+        active = inputs[:, N + 1] != 0
+        lora = None
+        if self.max_loras:
+            a, b = self.adapters.stacks()
+            lora = (a, b, inputs[:, N + 2].long())
+        logits_out = None
+        if self.capture_logits:
+            logits_out = bufs.get("logits")
+            if logits_out is None:
+                logits_out = bufs["logits"] = torch.zeros(
+                    (*bufs["toks"].shape, self.model.cfg.vocab_size),
+                    dtype=torch.float32, device=self.device)
+        bt, base = sanitized_views(cache, active)
+        # idle rows feed token 0, as the synchronous loop's do, so no pass
+        # reads a stale token (an MoE pass routes every row's token)
+        on = active.to(torch.int32)
+        tok = torch.where(fcount > 0, forced[:, 0], bufs["carry"] * on)
+        for j in range(N):
+            self._passes["decode"] += 1
+            logits = self._pass(self.model, cache, tok, base + j, bt, lora)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32) * on
+            bufs["toks"][:, j] = nxt
+            if logits_out is not None:
+                logits_out[:, j] = logits.float()
+            tok = torch.where(j + 1 < fcount, forced[:, min(j + 1, N - 1)],
+                              nxt)
+        bufs["carry"].copy_(tok)
+        cache["seq_lens"].copy_(torch.where(active, base + N,
+                                            cache["seq_lens"]))
 
     @staticmethod
     def _pass(model, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
@@ -897,7 +1060,9 @@ class ServingEngine:
                           tokens=[], finish_reason="shed")
 
     def has_work(self) -> bool:
-        return bool(self._pending) or any(s is not None for s in self._slots)
+        return (bool(self._pending) or bool(self._inflight)
+                or bool(self._flush_backlog)
+                or any(s is not None for s in self._slots))
 
     def _emit_token(self, rid: str, tok: int) -> None:
         cb = self.on_token
@@ -910,10 +1075,17 @@ class ServingEngine:
         on a prefix-cache hit, or a seat for a chunked prefill), then run
         one decode step (a spec window under ``spec_k``) for every active
         slot, then one chunk of the chunked prefill in flight. Returns
-        the sequences that finished this iteration."""
-        finished = self._admit_pending()
+        the sequences that finished this iteration. Under the async
+        pipeline the decode step dispatches one window and consumes the
+        one dispatched before it, so tokens surface one step after their
+        window was dispatched."""
+        finished = self._flush_backlog
+        self._flush_backlog = []
+        finished.extend(self._admit_pending())
         if self.spec_k:
             return self._spec_step(finished)
+        if self.async_decode:
+            return self._async_step(finished)
         # a chunking slot owns pages and a block table but has no prompt
         # resident yet: it sits out the decode batch
         active = [s is not None and not s.chunking for s in self._slots]
@@ -985,6 +1157,198 @@ class ServingEngine:
         self._update_occupancy()
         self._maybe_reset_gap()
         return finished
+
+    # ------------------------------------------------------------------
+    # async decode pipeline
+    # ------------------------------------------------------------------
+
+    def _async_step(self, finished: list[Completion]) -> list[Completion]:
+        """One async iteration: with two windows in flight, consume the
+        older and refill the slots it freed; dispatch the next window;
+        at the stream's tail (nothing left to dispatch) drain the one in
+        flight; then one chunk of the chunked prefill in flight."""
+        if len(self._inflight) >= 2:
+            # consuming before dispatching keeps the device busy (the
+            # newer window is still queued) and lets the slots this frees
+            # enter the very next window
+            self._consume_window(finished)
+            # the window boundary is the admission point, so admit_burst
+            # paces a window, not a pass
+            for _ in range(self.config.max_batch):
+                if not self._pending:
+                    break
+                before = len(self._pending)
+                finished.extend(self._admit_pending())
+                if len(self._pending) == before:
+                    break
+        dispatched = self._dispatch_window()
+        if self._inflight and not dispatched:
+            self._consume_window(finished)
+        self._chunk_step(finished)
+        self._update_occupancy()
+        self._maybe_reset_gap()
+        return finished
+
+    def _dispatch_window(self) -> bool:
+        """Queue one decode window without waiting for it; False when no
+        slot can decode. A slot owing ``r`` prompt-suffix tokens rides
+        the window forced: its last token and ``min(r, substeps - 1)``
+        owed ones, outputs ``j < r`` marked for discard; it enters
+        feedback mode once the suffix is spent. The window's tokens (and
+        logits when captured) are copied to host memory behind it, with
+        an event the consume waits on, so reading window k never waits
+        for window k + 1."""
+        N = self.substeps
+        bufs = self._window_buffers()
+        turn = bufs["turn"]
+        if bufs["staged"][turn] is not None:
+            # the copy out of this buffer was queued two windows ago
+            bufs["staged"][turn].synchronize()
+        stage = bufs["stage"][turn].numpy()
+        stage[:] = 0
+        forced, fcount = stage[:, :N], stage[:, N]
+        active, rows = stage[:, N + 1], stage[:, N + 2]
+        entries: list[tuple[int, str, int]] = []
+        for i, s in enumerate(self._slots):
+            if s is None or s.chunking:
+                continue
+            if (not s.pending
+                    and len(s.tokens) + s.inflight_scheduled >= s.max_new):
+                # the length budget is covered by windows in flight: a
+                # row here would only make output the consume trims
+                continue
+            active[i] = 1
+            rows[i] = s.adapter_row
+            if s.feedback:
+                # the next input is the previous window's carry, which
+                # the host never reads
+                entries.append((i, s.req.rid, 0))
+                s.inflight_scheduled += N
+                continue
+            r = len(s.pending)
+            c = min(r, N - 1)
+            forced[i, 0] = s.last_token
+            forced[i, 1:1 + c] = s.pending[:c]
+            fcount[i] = c + 1
+            entries.append((i, s.req.rid, r))
+            s.inflight_scheduled += max(0, N - r)
+            del s.pending[:c]
+            if s.pending:
+                # a suffix longer than the window: the next window is
+                # forced too, from the next owed token
+                s.last_token = s.pending.pop(0)
+            else:
+                s.feedback = True
+        if not entries:
+            return False
+        bufs["turn"] = 1 - turn
+        t0 = time.perf_counter()
+        # with a window in flight the device cannot starve, so the gap is
+        # zero; with none, it waited since the last consume finished
+        gap = (max(0.0, t0 - self._last_consume_done)
+               if not self._inflight and self._last_consume_done is not None
+               else 0.0)
+        self._dispatch_gap.observe(gap)
+        self._gap_total += gap
+        on_card = self.device.type == "cuda"
+        bufs["inputs"].copy_(bufs["stage"][turn], non_blocking=True)
+        if on_card:
+            bufs["staged"][turn] = torch.cuda.Event()
+            bufs["staged"][turn].record()
+        self._decode_window()
+        toks = torch.empty(bufs["toks"].shape, dtype=torch.int32,
+                           pin_memory=on_card)
+        toks.copy_(bufs["toks"], non_blocking=True)
+        logits = None
+        if self.capture_logits:
+            logits = torch.empty(bufs["logits"].shape, dtype=torch.float32,
+                                 pin_memory=on_card)
+            logits.copy_(bufs["logits"], non_blocking=True)
+        event = None
+        if on_card:
+            event = torch.cuda.Event()
+            event.record()
+        self._decode_steps_total.inc()
+        self._inflight.append(_Window(toks=toks, logits=logits, event=event,
+                                      entries=entries, t0=t0))
+        return True
+
+    def _consume_window(self, finished: list[Completion]) -> None:
+        """Read the oldest window in flight and run the host side of its
+        tokens: ``on_token``, TTFT of prefix hits, per-tenant latency,
+        logit capture, EOS and length. A row whose slot was released or
+        re-seated after dispatch is stale and skipped; a stream that ends
+        mid-window has the rest of the window trimmed."""
+        win = self._inflight.popleft()
+        t_wait = time.perf_counter()
+        if win.event is not None:
+            win.event.synchronize()
+        t_ready = time.perf_counter()
+        self._busy_total += t_ready - t_wait
+        toks = win.toks.numpy()
+        logits_np = win.logits.numpy() if win.logits is not None else None
+        start = (self._last_consume_done
+                 if self._last_consume_done is not None else win.t0)
+        wall = max(t_ready - start, 1e-9)
+        N = self.substeps
+        produced = 0
+        for i, rid, keep in win.entries:
+            slot = self._slots[i]
+            if slot is None or slot.req.rid != rid:
+                continue
+            slot.inflight_scheduled = max(
+                0, slot.inflight_scheduled - max(0, N - keep))
+            root = self._req_spans.get(rid)
+            done = None
+            for j in range(keep, N):
+                tok = int(toks[i, j])
+                if slot.prefix_hit and not slot.tokens:
+                    submit_ts = self._submit_ts.pop(rid, None)
+                    if submit_ts is not None:
+                        self._close_ttft(rid, t_ready - submit_ts, root)
+                if j == keep:
+                    self._tenant_lat.labels(self._req_tenant.get(
+                        rid, "default")).observe(wall / N)
+                if logits_np is not None:
+                    self.logit_log.setdefault(rid, []).append(
+                        logits_np[i, j].copy())
+                slot.tokens.append(tok)
+                slot.last_token = tok
+                produced += 1
+                self._emit_token(rid, tok)
+                done = self._finish_reason(slot, tok)
+                if done:
+                    break
+            if root is not None:
+                self.tracer.record(
+                    "serve.decode_step", win.t0, t_ready,
+                    attrs={"token_index": len(slot.tokens), "substeps": N},
+                    trace_id=root.trace_id, parent_id=root.span_id)
+            if done:
+                finished.append(self._release(i, done))
+        # consume to consume: the engine's cadence a window, host work
+        # included
+        self._decode_time += wall
+        self._decode_tokens += produced
+        self._decode_steps += 1
+        self._lat_hist.observe(wall / N)
+        self._tokens_total.inc(produced)
+        self._last_consume_done = time.perf_counter()
+        gaps = self._gap_total + self._busy_total
+        if gaps > 0:
+            self._host_overhead.set(self._gap_total / gaps)
+
+    def _flush_pipeline(self) -> None:
+        """Consume every window in flight, before anything that changes
+        what a window depends on (a weight swap). Completions surfacing
+        here are returned by the next :meth:`step`; the slots leave
+        feedback mode, since the next window forces their last token."""
+        while self._inflight:
+            self._consume_window(self._flush_backlog)
+        for s in self._slots:
+            if s is not None:
+                s.feedback = False
+                s.inflight_scheduled = 0
 
     def _account_step(self, dt: float, produced: int) -> None:
         """One decode (or spec) step's time and tokens, into the counters
@@ -1180,6 +1544,31 @@ class ServingEngine:
             else:
                 stall = 0
         return completions
+
+    def warm(self, prompt=(1,), max_new_tokens: int = 2) -> dict:
+        """Build and load the kernels before traffic: one request through
+        :meth:`submit` and :meth:`step` to its end, the path traffic takes,
+        that no record a user reads keeps. Its metrics go to a throwaway
+        registry and SLO ledger, it records no span, and the counters
+        behind :meth:`stats` (the passes too) start from zero after it.
+        Returns :meth:`stats` of the warm request alone. The engine must
+        hold no work."""
+        if self.has_work():
+            raise RuntimeError("warm: the engine holds work")
+        kept = {name: value for name, value in vars(self).items()
+                if isinstance(value, (Counter, Gauge, Histogram))
+                or name in ("registry", "slo", "tracer")}
+        self.registry, self.tracer = Registry(), None
+        self._init_metrics()
+        self.slo = slolib.SLOTracker(registry=self.registry)
+        try:
+            self.run([Request("_warm", list(prompt), max_new_tokens)])
+            return self.stats()
+        finally:
+            vars(self).update(kept)
+            self.logit_log.pop("_warm", None)
+            self._init_records()
+            self._update_occupancy()
 
     def _finish_reason(self, slot: _Slot, tok: int) -> str | None:
         if self.config.eos_id is not None and tok == self.config.eos_id:
@@ -1621,7 +2010,12 @@ class ServingEngine:
         engines built on it. Not safe concurrently with :meth:`step`:
         the fleet layer serializes it under the replica's step lock.
         Returns the installed version (``version`` for fleet-wide
-        agreement, else the resident version + 1)."""
+        agreement, else the resident version + 1).
+
+        Under the async pipeline the windows in flight, dispatched under
+        the old weights, are consumed first, so no stream mixes two
+        checkpoints within a window; their completions come from the next
+        :meth:`step`."""
         fp_tree = {name: torch.as_tensor(t)
                    for name, t in state_dict.items()}
         tree = fp_tree
@@ -1632,6 +2026,8 @@ class ServingEngine:
                     "install_weights: the engine audits its quantized "
                     "weights against the fp checkpoint; pass the fp tree")
         _check_tree(self.model, tree)
+        if self.async_decode:
+            self._flush_pipeline()
         if self._audit_rate:
             # the drift auditor must reference the new checkpoint, or
             # every post-swap audit would report false drift
@@ -1774,7 +2170,8 @@ class ServingEngine:
     def cost_report(self, accelerator: str = "") -> dict:
         """Roofline/MFU cost model of every bucketed pass
         (:mod:`move2kube_tpu_torch.obs.costmodel`): each prefill bucket,
-        the decode step and, with spec on, the verify window are each run
+        the decode step (the window's ``substeps`` passes under the async
+        pipeline) and, with spec on, the verify window are each run
         once under the counters on zero-filled inputs, and the serving
         gauges (``m2kt_serve_roofline_bound{executable=...}`` etc.) are set
         on this engine's registry. Decode MFU uses the engine's own
@@ -1800,8 +2197,8 @@ class ServingEngine:
                 self._cost_prefill, ids, device=self.device)
         scratch = init_cache(dataclasses.replace(self.cache_cfg, num_pages=1),
                              self.device)
-        _, decode = costmodel.count_cost(self._cost_passes, scratch, 1,
-                                         device=self.device)
+        _, decode = costmodel.count_cost(self._cost_passes, scratch,
+                                         self.substeps, device=self.device)
         reports["decode"] = decode
         # decode is the steady-state resident: its memory is what the OOM
         # flight sidecar should carry for a serving pod
@@ -1859,14 +2256,15 @@ class ServingEngine:
             "active_slots": sum(1 for s in self._slots if s is not None),
             "ttft_p50_ms": self._ttft_hist.quantile(0.50) * 1e3,
             "ttft_p95_ms": self._ttft_hist.quantile(0.95) * 1e3,
-            # the port runs the synchronous loop only (no async pipeline)
-            "async_decode": False,
+            "async_decode": bool(self.async_decode),
             "dispatch_gap_p50_ms": self._dispatch_gap.quantile(0.50) * 1e3,
             "dispatch_gap_total_s": self._gap_total,
             "host_overhead_ratio": (self._gap_total / gaps if gaps > 0
                                     else 0.0),
             "passes": dict(self._passes),
         }
+        if self.async_decode:
+            out["decode_substeps"] = self.substeps
         if self._prefix is not None:
             hits = self._prefix_hits.value
             misses = self._prefix_misses.value

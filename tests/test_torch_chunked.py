@@ -44,7 +44,7 @@ def parts():
 
 def _port(model, **over):
     eng = tengine.ServingEngine(model, tengine.EngineConfig(
-        **{**GEOMETRY, **over}), device="cpu")
+        **{**GEOMETRY, "async_decode": "off", **over}), device="cpu")
     eng.capture_logits = True
     return eng
 

@@ -284,6 +284,10 @@ def test_cost_report_mid_run_leaves_the_engine_alone(tiny, kw):
     for r in reqs:
         eng.submit(r)
     done = eng.step() + eng.step()
+    # mid-run means a decode step has landed; under the async pipeline
+    # that is the consume of the first window, one step later
+    while not eng.stats()["decode_steps"]:
+        done += eng.step()
     # a first stats() read creates the dispatch-gap histogram's series
     # (spec steps observe none), which the registry renders from then on
     eng.stats()

@@ -53,7 +53,7 @@ def _pair(parts, tracer=False, **over):
     fmodel, variables, model = parts
     cfg = {**GEOMETRY, **over}
     teng = tengine.ServingEngine(
-        model, tengine.EngineConfig(**cfg), device="cpu",
+        model, tengine.EngineConfig(**cfg, async_decode="off"), device="cpu",
         tracer=ttracing.SpanRecorder() if tracer else None)
     jeng = jengine.ServingEngine(
         fmodel, variables, jengine.EngineConfig(**cfg, async_decode="off"),
@@ -267,7 +267,7 @@ def test_stats_keys_cover_the_jax_engines(parts, over):
         keys.remove("decode_tokens")  # see the test below
     for key in keys:
         assert ours.get(key) == theirs.get(key), key
-    assert ours["async_decode"] is False
+    assert ours["async_decode"] is theirs["async_decode"]
 
 
 def test_decode_tokens_leave_out_chunking_slots(parts):

@@ -58,8 +58,8 @@ def _prompt(seed, n=12):
 
 
 def _engine(model, **over):
-    return tengine.ServingEngine(
-        model, tengine.EngineConfig(**{**GEOMETRY, **over}), device="cpu")
+    return tengine.ServingEngine(model, tengine.EngineConfig(
+        **{**GEOMETRY, "async_decode": "off", **over}), device="cpu")
 
 
 def _jengine(parts, **over):

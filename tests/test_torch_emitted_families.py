@@ -6,13 +6,15 @@ JAX planner's service, in a subprocess on the CPU.
 BERT, ResNet, the UNet, the generic scaffold and the MoE Llama each run
 2 steps to ``[m2kt] done``. A 2-step run then a 4-step one resumes from
 step 2 (the JAX package's ``tests/test_gpu2tpu_e2e.py:101-128``); an
-injected ``exit`` under the port's supervisor is retried to ``done``. A
-mesh of more than one device (the baked
-one, an ``M2KT_MESH_*`` override, ``M2KT_NUM_SLICES``) and ring
-attention exit 2 naming ROADMAP Queue 1 item 9; with no card and no
-``M2KT_DEVICE=cpu`` the program exits non-zero. Every subprocess runs in
-``tmp_path`` with an env holding no ``M2KT_*`` key but the ones it sets,
-under a timeout.
+injected ``exit`` under the port's supervisor is retried to ``done``. On
+one device the baked mesh of more than one device and an
+``M2KT_MESH_*`` override whose product is not 1 each plan and train as
+the JAX emitted trainer does on one device, printing its plan line. A
+world of two slices or two hosts exits 2 naming ROADMAP Queue 1 item 9,
+where the JAX trainer fails to start its distributed world; ring
+attention, which the JAX trainer runs, exits 2 naming item 9 too. With
+no card and no ``M2KT_DEVICE=cpu`` the program exits non-zero. Every subprocess runs in ``tmp_path`` with an env
+holding no ``M2KT_*`` key but the ones it sets, under a timeout.
 """
 
 import json
@@ -23,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from move2kube_tpu.containerizer import jax_emit  # noqa: E402
 from move2kube_tpu_torch.containerizer import cuda_emit  # noqa: E402
 from tests.test_torch_emitted_train import (  # noqa: E402
     LLAMA_TINY,
@@ -31,6 +34,8 @@ from tests.test_torch_emitted_train import (  # noqa: E402
     _port_payload,
     _run,
     _service,
+    _write,
+    run_jax_trainer,
     run_port_trainer,
 )
 
@@ -114,20 +119,54 @@ def test_injected_exit_is_retried_under_the_supervisor(tmp_path):
     assert [a["class"] for a in summary["attempts"]] == ["retryable", "ok"]
 
 
-@pytest.mark.parametrize("knobs", [
-    {},  # the baked mesh: fsdp=64
-    dict(MESH_ONE, M2KT_MESH_TENSOR="2"),
-    dict(MESH_ONE, M2KT_NUM_SLICES="2"),
-    dict(MESH_ONE, M2KT_ATTN_IMPL="ring"),
+@pytest.mark.parametrize("knobs,source", [
+    ({}, "topology=1 layout=[] source=single-chip"),  # baked: fsdp=64
+    (dict(MESH_ONE, M2KT_MESH_TENSOR="2"),
+     "topology=1 layout=[] source=single-chip"),
+    (MESH_ONE, "topology=- layout=[] source=env-mesh"),
 ])
-def test_more_than_one_device_exits_2_naming_item_9(tmp_path, knobs):
-    svc, _ = _service("llama3-8b")
+def test_one_device_plans_and_trains_as_the_jax_trainer(tmp_path, knobs,
+                                                        source):
+    """The JAX emitted trainer and the port's, one step on one CPU device:
+    both exit 0 at ``done`` and print the same one-device plan."""
+    svc, plan = _service("llama3-8b")
+    jdir = _write(jax_emit.emit_container(svc, plan).new_files,
+                  tmp_path / "jax")
+    pdir = _port_payload(svc, tmp_path)
+    env = _env(tmp_path, M2KT_STEPS=1, **LLAMA_TINY, **knobs)
+    plans = []
+    for run in (run_jax_trainer(jdir, env), run_port_trainer(pdir, env)):
+        assert run.returncode == 0, run.stderr[-3000:]
+        assert "[m2kt] done steps=1" in run.stdout
+        plans.append([x for x in run.stdout.splitlines()
+                      if x.startswith("[m2kt] devices=")])
+    assert plans[0] == plans[1] == [
+        f"[m2kt] devices=1 mesh=1x1x1x1x1x1 {source}"]
+
+
+@pytest.mark.parametrize("knobs,jax_trains", [
+    (dict(MESH_ONE, M2KT_NUM_SLICES="2"), False),
+    (dict(MESH_ONE, M2KT_NUM_HOSTS="2"), False),
+    (dict(MESH_ONE, M2KT_ATTN_IMPL="ring"), True),
+])
+def test_more_than_one_device_exits_2_naming_item_9(tmp_path, knobs,
+                                                    jax_trains):
+    """The port's trainer refuses with exit 2; the JAX trainer, on the same
+    one CPU device, fails to start a world of two processes without a
+    coordinator, and runs ring attention (a path the port lacks)."""
+    svc, plan = _service("llama3-8b")
     payload = _port_payload(svc, tmp_path)
-    run = run_port_trainer(payload, _env(tmp_path, M2KT_STEPS=1,
-                                         **LLAMA_TINY, **knobs))
+    env = _env(tmp_path, M2KT_STEPS=1, **LLAMA_TINY, **knobs)
+    run = run_port_trainer(payload, env)
     assert run.returncode == 2, run.stderr[-2000:]
     assert "ROADMAP Queue 1 item 9" in run.stdout
     assert "[m2kt] done" not in run.stdout
+    if not jax_trains:
+        jdir = _write(jax_emit.emit_container(svc, plan).new_files,
+                      tmp_path / "jax")
+        jrun = run_jax_trainer(jdir, env)
+        assert jrun.returncode != 0
+        assert "[m2kt] done" not in jrun.stdout
 
 
 def test_no_card_and_no_cpu_knob_exits_nonzero(tmp_path):

@@ -6,14 +6,18 @@ tiny HF Llama (ported by its own ``port_weights.py``).
 
 Both servers run their models in fp32 (the wrapper each is started
 through sets the Llama config's dtype; the programs' own default is bf16)
-and the JAX server with ``M2KT_ASYNC_DECODE=off``. Their greedy
-``/generate`` streams are equal for 3 prompts, and so are their SSE
-events. An unmeetable ``X-M2KT-Deadline`` gets 504 from both; ``/drain``
-then SIGTERM ends the port's server with exit 0. The port's router role
-in front of the port's decode server, and its prefill role handing KV to
-the decode server's ``/install``, give the same streams. The three knobs
-the port refuses exit 2, and no card without ``M2KT_DEVICE=cpu`` exits
-non-zero. Subprocesses run in ``tmp_path`` with an env holding no
+and both with ``M2KT_ASYNC_DECODE=off``. Their greedy ``/generate``
+streams are equal for 3 prompts, and so are their SSE events. An
+unmeetable ``X-M2KT-Deadline`` gets 504 from both; ``/drain`` then
+SIGTERM ends the port's server with exit 0. The port's server under
+``M2KT_ASYNC_DECODE=on`` and ``M2KT_DECODE_SUBSTEPS`` 2 and 4 gives the
+JAX server's async streams (windows of 4), SSE included. The warm request
+reaches neither ``/stats`` nor ``/metrics`` nor the SLO ledger, so the
+anomaly watchdog captures nothing at start. The port's router role in
+front of the port's decode server, and its prefill role handing KV to
+the decode server's ``/install``, give the same streams.
+``M2KT_SERVE_KERNELS=off`` exits 2, and no card without
+``M2KT_DEVICE=cpu`` exits non-zero. Subprocesses run in ``tmp_path`` with an env holding no
 ``M2KT_*`` key but the ones set here, are killed in ``finally``, and bind
 their ports at 0 (the JAX server, which prints no bound port, gets one
 found free).
@@ -154,7 +158,8 @@ def test_port_server_matches_the_jax_server(sides):
     jax_srv = Child(tmp, "jax", jdir, JAX_FP32, _env(
         tmp, M2KT_SERVE_PORT=jport, M2KT_ASYNC_DECODE="off",
         M2KT_CKPT_DIR=tmp / "ckpt-jax", **TINY))
-    port_srv = Child(tmp, "port", pdir, PORT_FP32, _port_env(tmp))
+    port_srv = Child(tmp, "port", pdir, PORT_FP32,
+                     _port_env(tmp, M2KT_ASYNC_DECODE="off"))
     try:
         pbase = port_srv.url("[m2kt] serving on :")
         jax_srv.wait_line("[m2kt] serving on :")
@@ -177,8 +182,8 @@ def test_port_server_matches_the_jax_server(sides):
                                late)
             assert code == 504, body
         stats = json.loads(_http(pbase + "/stats")[1])
-        assert stats["passes"]["prefill"] == 1 + len(PROMPTS) + 2
-        # the counters as the engine went ready: the warm request's
+        # the traffic's passes; the warm request's are a record beside
+        assert stats["passes"]["prefill"] == len(PROMPTS) + 2
         assert stats["warm"]["passes"]["prefill"] == 1
         # the plain versions on the CPU launch no kernel
         assert set(stats["launches"].values()) == {0}
@@ -235,9 +240,88 @@ def test_router_and_prefill_roles_give_the_same_streams(sides):
             child.stop()
 
 
+@pytest.fixture(scope="module")
+def jax_async_streams(sides):
+    """The JAX server's streams under its async pipeline, windows of 4:
+    ``/generate`` for every prompt, and SSE events for the first."""
+    tmp, jdir, _ = sides
+    jport = _free_port()
+    srv = Child(tmp, "jax-async", jdir, JAX_FP32, _env(
+        tmp, M2KT_SERVE_PORT=jport, M2KT_ASYNC_DECODE="on",
+        M2KT_DECODE_SUBSTEPS=4, M2KT_CKPT_DIR=tmp / "ckpt-jax", **TINY))
+    try:
+        srv.wait_line("[m2kt] serving on :")
+        base = f"http://127.0.0.1:{jport}"
+        return ([_generate(base, p) for p in PROMPTS],
+                _generate(base, PROMPTS[0], stream=True))
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("knobs", [
+    {"M2KT_ASYNC_DECODE": "on"},
+    {"M2KT_DECODE_SUBSTEPS": "2"},
+    {"M2KT_ASYNC_DECODE": "on", "M2KT_DECODE_SUBSTEPS": "4"},
+])
+def test_async_knobs_serve_the_jax_servers_streams(sides, jax_async_streams,
+                                                   knobs):
+    """The port's server under the async knobs serves (they were refused
+    before the pipeline was ported): its streams and SSE events equal the
+    JAX server's under its own pipeline, its engine runs the pipeline at
+    the asked width, and it drains to exit 0."""
+    tmp, _, pdir = sides
+    want, want_sse = jax_async_streams
+    srv = Child(tmp, "port-async", pdir, PORT_FP32, _port_env(tmp, **knobs))
+    try:
+        base = srv.url("[m2kt] serving on :")
+        assert [_generate(base, p) for p in PROMPTS] == want
+        assert _generate(base, PROMPTS[0], stream=True) == want_sse
+        stats = json.loads(_http(base + "/stats")[1])
+        assert stats["async_decode"] is True
+        assert stats["decode_substeps"] == int(
+            knobs.get("M2KT_DECODE_SUBSTEPS", 1))
+        assert _http(base + "/drain", {})[0] == 200
+        srv.proc.send_signal(signal.SIGTERM)
+        assert srv.proc.wait(timeout=60) == 0
+    finally:
+        srv.stop()
+
+
+def test_warm_request_reaches_no_record(sides):
+    """With a TTFT objective every request breaks, the warm request would
+    fire the SLO fast burn and a diagnostic capture: after warming,
+    ``/stats`` counts no request, ``/metrics`` no TTFT, the SLO ledger
+    nothing (no fast burn) and no ``diag-*`` bundle exists past a
+    watchdog check. One real request then does fire the capture."""
+    tmp, _, pdir = sides
+    diag = tmp / "diag-warm"
+    srv = Child(tmp, "port-warm", pdir, PORT_FP32, _port_env(
+        tmp, M2KT_METRICS_PORT=_free_port(), M2KT_SLO_TTFT_P95_S="1e-9",
+        M2KT_DIAG_DIR=diag, M2KT_DIAG_PROFILE_S="0.1"))
+    try:
+        base = srv.url("[m2kt] serving on :")
+        metrics = srv.url("[m2kt] telemetry on :") + "/metrics"
+        stats = json.loads(_http(base + "/stats")[1])
+        assert stats["warm"]["passes"]["prefill"] == 1
+        assert stats["decode_steps"] == stats["prefills"] == 0
+        assert set(stats["passes"].values()) == {0}
+        assert stats["ttft_p50_ms"] == 0.0
+        time.sleep(6.0)  # past the watchdog's first check (every 5 s)
+        text = _http(metrics)[1].decode()
+        assert "m2kt_serve_ttft_seconds_count 0" in text
+        assert "m2kt_slo_fast_burn_firing 0" in text
+        assert not diag.exists() or not list(diag.glob("diag-*"))
+        _generate(base, PROMPTS[0])
+        t_end = time.monotonic() + 30
+        while time.monotonic() < t_end and not (
+                diag.exists() and list(diag.glob("diag-slo_fast_burn-*"))):
+            time.sleep(0.5)
+        assert list(diag.glob("diag-slo_fast_burn-*"))
+    finally:
+        srv.stop()
+
+
 @pytest.mark.parametrize("knob,value,says", [
-    ("M2KT_ASYNC_DECODE", "on", "ROADMAP Queue 1 item 4h"),
-    ("M2KT_DECODE_SUBSTEPS", "2", "ROADMAP Queue 1 item 4h"),
     ("M2KT_SERVE_KERNELS", "off", "no plain attention path on a card"),
 ])
 def test_knobs_the_port_lacks_exit_2(sides, knob, value, says):

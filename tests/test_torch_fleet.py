@@ -235,7 +235,8 @@ def test_in_process_fleet_end_to_end_with_prefix_hits(parts):
     out = {}
     for mod, build in (
             (trouter, lambda: trouter.build_fleet(
-                model, 2, tengine.EngineConfig(**cfg), device="cpu")),
+                model, 2, tengine.EngineConfig(**cfg, async_decode="off"),
+                device="cpu")),
             (jrouter, lambda: jrouter.build_fleet(
                 fmodel, variables, 2, engine_config=jengine.EngineConfig(
                     **cfg, async_decode="off")))):
@@ -314,9 +315,11 @@ def test_preempted_stream_resumed_by_the_router_token_exact(parts):
     model = parts[2]
     p_be, p_gold = _prompt(8), _prompt(9)
     want = _golden(model, p_be, 12)
+    # the synchronous loop: the test counts one token a step
     eng = tengine.ServingEngine(
         model, tengine.EngineConfig(**{**GEOMETRY, "max_batch": 1,
-                                       "sched_tenants": SPEC}),
+                                       "sched_tenants": SPEC,
+                                       "async_decode": "off"}),
         device="cpu")
     rep = trouter.InProcessReplica("replica-0", eng)
     rep.start = lambda: rep  # no worker thread: the test steps the engine

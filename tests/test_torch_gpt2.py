@@ -310,7 +310,7 @@ def test_engine_matches_jax_engine(pair, case):
     fmodel, variables, model = pair
     over = ENGINE_CASES[case]
     teng = tengine.ServingEngine(model, tengine.EngineConfig(
-        **GEOMETRY, **over), device="cpu")
+        **GEOMETRY, **over, async_decode="off"), device="cpu")
     jeng = jengine.ServingEngine(fmodel, variables, jengine.EngineConfig(
         **GEOMETRY, **over, async_decode="off"))
     treqs, jreqs = _requests(tengine), _requests(jengine)

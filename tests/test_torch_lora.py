@@ -63,8 +63,8 @@ def _prompt(seed, n=10):
 def _pair(parts, adapters=ADAPTERS, **over):
     fmodel, variables, model = parts
     cfg = {**GEOMETRY, "max_loras": 3, "lora_rank": 8, **over}
-    teng = tengine.ServingEngine(model, tengine.EngineConfig(**cfg),
-                                 device="cpu")
+    teng = tengine.ServingEngine(
+        model, tengine.EngineConfig(**cfg, async_decode="off"), device="cpu")
     jeng = jengine.ServingEngine(
         fmodel, variables, jengine.EngineConfig(**cfg, async_decode="off"))
     for name in adapters:
@@ -285,8 +285,8 @@ def test_spec_decode_turns_lora_off(parts, capsys):
     warning: the engine keeps spec decode and serves no adapters."""
     fmodel, variables, model = parts
     cfg = dict(GEOMETRY, spec_k=2, max_loras=2)
-    teng = tengine.ServingEngine(model, tengine.EngineConfig(**cfg),
-                                 device="cpu")
+    teng = tengine.ServingEngine(
+        model, tengine.EngineConfig(**cfg, async_decode="off"), device="cpu")
     ours = capsys.readouterr().out
     jeng = jengine.ServingEngine(
         fmodel, variables, jengine.EngineConfig(**cfg, async_decode="off"))

@@ -195,8 +195,9 @@ def test_engine_with_idle_rows_matches_jax_engine(pair, quant):
     fmodel, variables, model = pair
     geometry = dict(max_batch=4, max_seq=64, block_size=8, buckets=(16, 32),
                     quant=quant)
-    teng = tengine.ServingEngine(model, tengine.EngineConfig(**geometry),
-                                 device="cpu")
+    teng = tengine.ServingEngine(
+        model, tengine.EngineConfig(**geometry, async_decode="off"),
+        device="cpu")
     jeng = jengine.ServingEngine(fmodel, variables, jengine.EngineConfig(
         **geometry, async_decode="off"))
     teng.capture_logits = jeng.capture_logits = True

@@ -312,8 +312,8 @@ def test_engine_registers_the_reference_families(tiny_pair, over):
     fmodel, variables, model = tiny_pair
     cfg = dict(max_batch=2, max_seq=64, block_size=8, buckets=(16, 32),
                **over)
-    teng = tengine.ServingEngine(model, tengine.EngineConfig(**cfg),
-                                 device="cpu")
+    teng = tengine.ServingEngine(
+        model, tengine.EngineConfig(**cfg, async_decode="off"), device="cpu")
     jeng = jengine.ServingEngine(fmodel, variables, jengine.EngineConfig(
         **cfg, async_decode="off"))
     ours, theirs = teng.registry.render(), jeng.registry.render()

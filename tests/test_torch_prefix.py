@@ -177,7 +177,7 @@ def parts():
 
 def _port(model, **over):
     return tengine.ServingEngine(model, tengine.EngineConfig(
-        **{**GEOMETRY, **over}), device="cpu")
+        **{**GEOMETRY, "async_decode": "off", **over}), device="cpu")
 
 
 def _jax(fmodel, variables, **over):

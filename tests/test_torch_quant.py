@@ -216,7 +216,7 @@ def _engine_pair(fmodel, variables, model, quant):
     jeng = jengine.ServingEngine(fmodel, variables, jengine.EngineConfig(
         async_decode="off", quant=quant, **geometry))
     teng = tengine.ServingEngine(model, tengine.EngineConfig(
-        quant=quant, **geometry), device="cpu")
+        async_decode="off", quant=quant, **geometry), device="cpu")
     return jeng, teng
 
 
@@ -339,8 +339,8 @@ def _audit_pair(jax_parts, model, quant, rate):
     fmodel, variables = jax_parts
     cfg = dict(max_batch=4, max_seq=64, block_size=8, buckets=(16, 32),
                quant=quant, quant_audit_rate=rate)
-    teng = tengine.ServingEngine(model, tengine.EngineConfig(**cfg),
-                                 device="cpu")
+    teng = tengine.ServingEngine(
+        model, tengine.EngineConfig(**cfg, async_decode="off"), device="cpu")
     jeng = jengine.ServingEngine(
         fmodel, variables, jengine.EngineConfig(**cfg, async_decode="off"))
     return teng, jeng

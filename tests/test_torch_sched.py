@@ -147,8 +147,8 @@ def parts():
 def _pair(parts, **over):
     fmodel, variables, model = parts
     cfg = {**GEOMETRY, **over}
-    teng = tengine.ServingEngine(model, tengine.EngineConfig(**cfg),
-                                 device="cpu")
+    teng = tengine.ServingEngine(
+        model, tengine.EngineConfig(**cfg, async_decode="off"), device="cpu")
     jeng = jengine.ServingEngine(
         fmodel, variables, jengine.EngineConfig(**cfg, async_decode="off"))
     return teng, jeng

@@ -188,8 +188,8 @@ def test_engine_streams_match_jax_engine(engine_pair):
         async_decode="off", max_batch=2, max_seq=64, block_size=8,
         buckets=(16, 32)))
     teng = tengine.ServingEngine(model, tengine.EngineConfig(
-        max_batch=2, max_seq=64, block_size=8, buckets=(16, 32)),
-        device="cpu")
+        async_decode="off", max_batch=2, max_seq=64, block_size=8,
+        buckets=(16, 32)), device="cpu")
     jeng.capture_logits = teng.capture_logits = True
     streamed = []
     teng.on_token = lambda rid, tok: streamed.append((rid, tok))

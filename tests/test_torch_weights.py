@@ -68,8 +68,8 @@ def parts():
 
 
 def _engine(model, **over):
-    return tengine.ServingEngine(
-        model, tengine.EngineConfig(**{**GEOMETRY, **over}), device="cpu")
+    return tengine.ServingEngine(model, tengine.EngineConfig(
+        **{**GEOMETRY, "async_decode": "off", **over}), device="cpu")
 
 
 def _tiny_sd() -> dict:
