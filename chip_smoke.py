@@ -141,8 +141,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``/stats`` and the SLO ledger (no diagnostic bundle), and its passes
    are what the requests imply; the emitted server on the trainer's
    checkpoint gives the streams of an engine on ``restore_variables`` of
-   it
-15. one JSON line with every kernel's numbers, then the result line
+   it; the emitted GPT-2 trainer (the ``gpt2`` sample's data=8 mesh) with
+   the env of a one-card pod brings up NCCL in a world of one, prints the
+   JAX trainer's one-device plan line, trains 10 steps with exact
+   launches and writes the plan report on the H100 budget (predicted
+   total, measured peak, drift)
+15. item 9a (``mesh_phase``): two ranks of GPT-2 small at full width and
+   depth share the card in a gloo group (``--mesh-rank`` children), each
+   ring hop through pinned host memory, 3 steps of grad_accum 2 through
+   the overlapped accumulation under the bf16 policy and fp32; after
+   every step their parameters have one SHA-256, their flash launches
+   are their passes, and under fp32 the loss and every parameter match a
+   one-rank run on the same global batch; the step's wall time, the
+   ring's seconds (host copies and gloo apart), the bytes reduced a step
+   and the card's busy share beside the one-rank step
+16. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -4583,19 +4596,20 @@ DETERMINISTIC_PRELUDE = (
 
 def emit_services(root: str) -> dict:
     """Stand-ins for the JAX planner's services of
-    ``samples/gpu-training/llama3-8b`` (training) and ``llama-serve``
-    (serving), with the attributes the port's emitter reads; ``root`` is
-    the checkout (the planner's paths are absolute)."""
+    ``samples/gpu-training/llama3-8b`` (training), ``llama-serve``
+    (serving) and ``gpt2`` (data-parallel training), with the attributes
+    the port's emitter reads; ``root`` is the checkout (the planner's
+    paths are absolute)."""
     from types import SimpleNamespace
 
-    def service(name, entry, **acc):
+    def service(name, entry, family="llama", **acc):
         src = os.path.join(root, "samples", "gpu-training", name)
         return SimpleNamespace(
             service_name=name, image="",
-            containerization_target_options=["llama"],
+            containerization_target_options=[family],
             source_artifacts={"SourceDirectories": [src]},
             accelerator=SimpleNamespace(
-                gpu_vendor="nvidia.com/gpu", model_family="llama",
+                gpu_vendor="nvidia.com/gpu", model_family=family,
                 entrypoint=os.path.join(src, entry), **acc))
 
     return {
@@ -4608,7 +4622,14 @@ def emit_services(root: str) -> dict:
         "serve": service(
             "llama-serve", "serve.py", gpu_count=1, frameworks=["torch"],
             distributed_backend="", parallelism={}, num_hosts=1,
-            num_slices=1, serving=True, serving_port=8000)}
+            num_slices=1, serving=True, serving_port=8000),
+        # samples/gpu-training/gpt2: torchrun on 8 GPUs, a data=8 mesh
+        "gpt2": service(
+            "gpt2", "finetune_gpt2.py", gpu_count=8, frameworks=["torch"],
+            distributed_backend="nccl", parallelism={"dp": 8}, num_hosts=2,
+            num_slices=1, serving=False, serving_port=0,
+            tpu_topology="2x4", tpu_accelerator="tpu-v5-lite-podslice",
+            family="gpt")}
 
 
 def _free_port() -> int:
@@ -5134,10 +5155,379 @@ def emit_phase(torch) -> dict:
         log(f"emit: train -> serve: the server on the trainer's step-"
             f"{EMIT_STEPS} checkpoint gives the in-process engine's streams "
             f"on restore_variables of it: {streams[0]}")
+        # (6) the emitted GPT-2 trainer: the sample's data=8 mesh planned
+        # on a one-card pod's world of one, over NCCL
+        for name, n in _emit_gpt2_trainer(payload["gpt2"], base,
+                                          work).items():
+            launches[name] += n
         log(f"emit: phase {time.perf_counter() - t_phase:.1f} s ({CARD})")
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# the emitted GPT-2 trainer's run: the sample's defaults (GPT-2 small,
+# batch 8 x 1024 a device, the bf16 policy), 10 steps
+EMIT_GPT2_STEPS = 10
+# what the JAX trainer prints for the sample's baked mesh (data=8 on a
+# 2x4 topology) on one device: the topology does not match one chip, so
+# the slice is a chain of one and the plan is the one-device plan
+EMIT_GPT2_PLAN = ("[m2kt] devices=1 mesh=1x1x1x1x1x1 topology=1 layout=[] "
+                  "source=single-chip")
+
+
+def _emit_gpt2_trainer(payload: str, base: dict, work: str) -> dict:
+    """The emitted GPT-2 trainer under the port's supervisor with the env
+    a one-card pod of the sample's JobSet gets (one host, one slice, host
+    index 0): it brings up NCCL in a world of one, prints the JAX
+    trainer's one-device plan line, trains 10 steps and, with
+    ``M2KT_PLAN_REPORT``, writes the plan report on the H100 budget; its
+    kernels are seeded from this process's builds. Returns its launches,
+    held to its 10 steps and the cost model's held one."""
+    from move2kube_tpu_torch.models.compile_cache import topology_fingerprint
+    from move2kube_tpu_torch.ops import _build
+
+    prewarm = os.path.join(work, "prewarm")
+    os.makedirs(prewarm)
+    os.symlink(_build.build_dir(), os.path.join(prewarm,
+                                                topology_fingerprint()))
+    report = os.path.join(work, "plan-report")
+    env = dict(base, M2KT_NUM_HOSTS="1", M2KT_NUM_SLICES="1",
+               JOB_COMPLETION_INDEX="0", M2KT_STEPS=str(EMIT_GPT2_STEPS),
+               M2KT_PLAN_REPORT=report, M2KT_PREWARM_DIR=prewarm,
+               M2KT_COMPILE_CACHE_DIR=os.path.join(work, "gpt2-kernels"),
+               M2KT_METRICS_PORT=str(_free_port()),
+               M2KT_EXIT_FILE=os.path.join(work, "gpt2-exit.json"),
+               M2KT_GOODPUT_FILE=os.path.join(work, "gpt2-goodput.json"))
+    t0 = time.perf_counter()
+    trainer = _Child("gpt2 trainer", [
+        sys.executable, "-m", "move2kube_tpu_torch.resilience.supervisor",
+        "--", sys.executable, "train_gpu.py"], env, payload)
+    rc = trainer.finish(EMIT_CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = trainer.lines
+    plan = [x for x in lines if x.startswith("[m2kt] devices=")]
+    device = next((x for x in lines if x.startswith("[m2kt] device=")), "")
+    if rc != 0 or not any(x.startswith(f"[m2kt] done steps="
+                                       f"{EMIT_GPT2_STEPS}") for x in lines):
+        raise RuntimeError(f"emit: the emitted GPT-2 trainer exited {rc}")
+    if plan != [EMIT_GPT2_PLAN]:
+        raise RuntimeError(f"emit: GPT-2 trainer plan {plan}, the JAX "
+                           f"trainer's one-device line is {EMIT_GPT2_PLAN}")
+    if "backend=nccl" not in device.split():
+        raise RuntimeError(f"emit: GPT-2 trainer process group: {device!r}")
+    got = json.loads(next(x for x in lines if x.startswith(
+        "[m2kt] kernel launches ")).split(" ", 3)[3])
+    _check_launches("emit: the emitted GPT-2 trainer", got,
+                    _want_train_launches(EMIT_GPT2_STEPS + 1, 12))
+    with open(os.path.join(report, "m2kt-plan-report.json")) as f:
+        doc = json.load(f)
+    if not os.path.isfile(os.path.join(report, "m2kt-plan-report.md")):
+        raise RuntimeError("emit: no m2kt-plan-report.md")
+    pred, drift = doc["predicted"], doc["drift"]
+    if (doc["accelerator"]["assumed_default"] or not drift[
+            "measured_peak_hbm_bytes"] or doc["mesh"]["extents"]["data"] != 1):
+        raise RuntimeError(f"emit: GPT-2 plan report {doc['accelerator']}, "
+                           f"{drift}, {doc['mesh']}")
+    rate = next(x for x in lines if x.startswith("[m2kt] done"))
+    log(f"emit: GPT-2 trainer in a one-rank NCCL world: {device[7:]}; "
+        f"{plan[0][7:]}; {rate[7:]}; {wall:.1f} s wall under the supervisor;"
+        f" launches {got}; plan report on {doc['accelerator']['chip']} "
+        f"({doc['accelerator']['requested']}): predicted "
+        f"{pred['total_bytes'] / 2**30:.3f} GiB (params "
+        f"{pred['params_bytes'] / 2**30:.3f}, grads "
+        f"{pred['grads_bytes'] / 2**30:.3f}, Adam "
+        f"{pred['opt_state_bytes'] / 2**30:.3f}, activations "
+        f"{pred['activations_bytes'] / 2**30:.3f}), measured peak "
+        f"{drift['measured_peak_hbm_bytes'] / 2**30:.3f} GiB, drift "
+        f"{drift['predicted_over_measured']:.3f} (within "
+        f"{drift['tolerance_factor']}x: {drift['within_tolerance']}), "
+        f"verdict {doc['verdict']} ({CARD})")
+    return got
+
+
+# mesh_phase: GPT-2 small at full width and depth, trained data parallel
+# by two ranks that share the one card (a gloo group, each ring hop
+# through pinned host memory), grad_accum 2 through the overlapped path;
+# the global batch is 4 rows of 1024 tokens a microbatch, 2 a rank
+MESH_RANKS, MESH_BATCH, MESH_ACCUM, MESH_STEPS = 2, 4, 2, 3
+MESH_CHILD_TIMEOUT_S = 420
+# fp32, two ranks against one rank on the same global batch: the same
+# arithmetic with the sums over the batch in another order. The loss
+# within 1e-5 relative (tests/test_torch_dp_steps.py holds the same
+# difference to 1e-5 at 2 layers); each parameter's distance from the
+# one-rank run within 1e-3 of its 3-step update's norm: AdamW divides each
+# gradient by its own running magnitude, so an entry whose gradient sits
+# at rounding level moves by up to the learning rate either way, which
+# tests/test_torch_families.py's UPDATE_REL (1e-3) already allows for.
+# The key third of each c_attn bias shifts every score of a query row
+# alike, so its gradient is rounding noise alone and AdamW moves each entry
+# by up to the learning rate a step on its sign: it is held entry by entry
+# to twice that over the steps (tests/test_torch_emitted_train.py's rule)
+MESH_LOSS_REL = 1e-5
+MESH_UPDATE_REL = 1e-3
+MESH_LR = 1e-4
+
+
+def _mesh_batches(vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(SEED + 23).integers(
+        0, vocab, (MESH_STEPS, MESH_ACCUM, MESH_BATCH, 1024))
+
+
+def _mesh_train(torch, mode: str, ids, mesh=None, on_step=None):
+    """MESH_STEPS steps of GPT-2 small (fp32 masters, ``mode``'s policy,
+    AdamW at 1e-4, remat, grad_accum MESH_ACCUM) on ``ids`` [steps, k,
+    rows, 1024], reduced across ``mesh`` when given; ``on_step(t, state,
+    loss, ms)`` after each (synchronised) step, the last one run under
+    the profiler. Returns (model, the profiled step's busy ms)."""
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        gpt2_small,
+        init_gpt2,
+        instrument_optimizer,
+        make_lm_train_step,
+        policy,
+    )
+
+    pol = policy(mode)
+    model = init_gpt2(gpt2_small(), seed=SEED, device="cuda",
+                      dtype=torch.float32)
+    state = TrainState(model, instrument_optimizer(pol.wrap_optimizer(
+        adamw(model.parameters(), MESH_LR, weight_decay=0.1))))
+    step = make_lm_train_step(grad_accum=MESH_ACCUM, precision=pol,
+                              mesh=mesh)
+    busy = None
+    for t in range(MESH_STEPS):
+        batch = {"input_ids": ids[t]}
+        out, wall = [], []
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(step(state, batch))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+
+        if t == MESH_STEPS - 1:
+            busy = _profiled(torch, f"mesh {mode} step {t + 1}", run)
+        else:
+            run()
+        state, loss = out[0]
+        if on_step is not None:
+            on_step(t, state, float(loss), wall[0])
+    return model, busy
+
+
+def mesh_rank_child() -> int:
+    """One rank of :func:`mesh_phase`'s world (``python chip_smoke.py
+    --mesh-rank OUT``; the launcher's env names the rank and the
+    rendezvous): both ranks on ``cuda:0`` in a gloo group, the bf16 policy
+    then fp32, each step's parameters hashed; prints one ``MESH_RESULT``
+    JSON line and, on rank 0, saves the fp32 run's final parameters to
+    ``OUT.pt``."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from move2kube_tpu_torch import gpt2_small, reset_launch_counts
+    from move2kube_tpu_torch.ops.attention import KERNELS
+    from move2kube_tpu_torch.parallel import overlap
+    from move2kube_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        initialize_distributed,
+        make_mesh,
+    )
+
+    out = sys.argv[2]
+    layout = initialize_distributed("cuda:0", backend="gloo")
+    try:
+        mesh = make_mesh(MeshConfig(data=layout.world), device="cuda")
+        per = MESH_BATCH // layout.world
+        ids = torch.from_numpy(_mesh_batches(gpt2_small().vocab_size)[
+            :, :, layout.rank * per:(layout.rank + 1) * per]).cuda()
+        result = {}
+        for mode in ("bf16", "fp32"):
+            steps = []
+
+            def on_step(t, state, loss, ms, steps=steps):
+                h = hashlib.sha256()
+                for p in state.model.parameters():
+                    h.update(p.detach().cpu().numpy().tobytes())
+                steps.append({"loss": loss, "ms": ms, "sha": h.hexdigest(),
+                              "ring": dict(overlap.RING_STATS)})
+
+            reset_launch_counts()
+            overlap.reset_ring_stats()
+            model, busy = _mesh_train(torch, mode, ids, mesh, on_step)
+            result[mode] = {"steps": steps, "busy_ms": busy,
+                            "launches": {k.name: k.launches
+                                         for k in KERNELS}}
+            if mode == "fp32" and layout.rank == 0:
+                torch.save({n: p.detach().cpu()
+                            for n, p in model.named_parameters()},
+                           out + ".pt")
+            del model
+            torch.cuda.empty_cache()
+        print("MESH_RESULT " + json.dumps(result), flush=True)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch) -> dict:
+    """Item 9a on the one card: two ranks of GPT-2 small at full width and
+    depth (12 layers, d=768, s=1024) share ``cuda:0`` in a gloo world,
+    each ring hop through pinned host memory, and train MESH_STEPS steps
+    of grad_accum 2 through ``overlapped_accum_grads``, under the bf16
+    policy and under fp32. Gates: after every step the two ranks'
+    parameters have the same SHA-256; each rank's flash launches are its
+    passes x layers; under fp32 the loss and each parameter after the
+    steps match a one-rank run on the same global batch (MESH_LOSS_REL,
+    MESH_UPDATE_REL). Reports each step's wall time, the ring's seconds
+    (host copies and gloo apart), the bytes reduced a step and the
+    device's busy share, beside the one-rank step. Returns both ranks'
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from move2kube_tpu_torch import gpt2_small
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="m2kt-mesh-")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("M2KT_") and k != "PYTHONPATH"}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               M2KT_LOCAL_WORLD=str(MESH_RANKS), M2KT_DIST_TIMEOUT_S="300")
+    layers = gpt2_small().num_layers
+    try:
+        ranks = [_Child(f"mesh rank {r}", [
+            sys.executable, os.path.join(here, "chip_smoke.py"),
+            "--mesh-rank", os.path.join(work, "rank")],
+            dict(env, M2KT_LOCAL_RANK=str(r)), here)
+            for r in range(MESH_RANKS)]
+        rcs = []
+        for r, child in enumerate(ranks):
+            # a rank that failed leaves its peer waiting in the ring
+            rcs.append(child.finish(MESH_CHILD_TIMEOUT_S if not any(rcs)
+                                    else 30))
+        if any(rcs):
+            raise RuntimeError(f"mesh: ranks exited {rcs}")
+        res = [json.loads(next(x for x in c.lines if x.startswith(
+            "MESH_RESULT ")).split(" ", 1)[1]) for c in ranks]
+        launches = dict.fromkeys(res[0]["fp32"]["launches"], 0)
+        want = _want_train_launches(MESH_STEPS * MESH_ACCUM, layers)
+        for r, doc in enumerate(res):
+            for mode in ("bf16", "fp32"):
+                _check_launches(f"mesh: rank {r} {mode}",
+                                doc[mode]["launches"], want)
+                for name, n in doc[mode]["launches"].items():
+                    launches[name] += n
+        for mode in ("bf16", "fp32"):
+            for t in range(MESH_STEPS):
+                shas = {doc[mode]["steps"][t]["sha"] for doc in res}
+                if len(shas) != 1:
+                    raise RuntimeError(f"mesh: {mode} step {t + 1}: the "
+                                       f"ranks' parameters differ {shas}")
+        log(f"mesh: after each of the {MESH_STEPS} steps, bf16 and fp32, "
+            f"the {MESH_RANKS} ranks' parameters have one SHA-256 "
+            f"(fp32 step {MESH_STEPS}: {res[0]['fp32']['steps'][-1]['sha'][:16]})"
+            f"; launches a rank {want} = {layers} layers x "
+            f"{MESH_STEPS * MESH_ACCUM} microbatches")
+
+        # one rank on the same global batch, no mesh
+        ids = torch.from_numpy(_mesh_batches(gpt2_small().vocab_size)).cuda()
+        one = {}
+        for mode in ("bf16", "fp32"):
+            steps = []
+            model, busy = _mesh_train(
+                torch, mode, ids, None,
+                lambda t, st, loss, ms, steps=steps: steps.append(
+                    {"loss": loss, "ms": ms}))
+            one[mode] = (steps, busy)
+            if mode == "fp32":
+                mine = torch.load(os.path.join(work, "rank.pt"))
+                init = {n: p.detach().cpu() for n, p in
+                        _mesh_init_params(torch).items()}
+                worst, key_bias = (0.0, ""), 0.0
+                d = gpt2_small().d_model
+                for n, p in model.named_parameters():
+                    p, theirs, p0 = p.detach().cpu(), mine[n], init[n]
+                    if n.endswith("c_attn.bias"):
+                        key_bias = max(key_bias, float(
+                            (theirs[d:2 * d] - p[d:2 * d]).abs().max()))
+                        keep = torch.cat([torch.arange(d),
+                                          torch.arange(2 * d, 3 * d)])
+                        p, theirs, p0 = p[keep], theirs[keep], p0[keep]
+                    upd = float(torch.linalg.vector_norm(p - p0))
+                    err = float(torch.linalg.vector_norm(theirs - p)) / max(
+                        upd, 1e-30)
+                    worst = max(worst, (err, n))
+                losses = [(a["loss"], b["loss"]) for a, b in zip(
+                    res[0]["fp32"]["steps"], steps)]
+                loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+                key_gate = 2 * MESH_STEPS * MESH_LR
+                if (loss_err > MESH_LOSS_REL or worst[0] > MESH_UPDATE_REL
+                        or key_bias > key_gate):
+                    raise RuntimeError(
+                        f"mesh: fp32 two ranks against one: losses {losses}"
+                        f" ({loss_err:.2e} > {MESH_LOSS_REL}?), worst "
+                        f"parameter {worst[1]} at {worst[0]:.2e} of its "
+                        f"update (> {MESH_UPDATE_REL}?), c_attn key bias "
+                        f"{key_bias:.2e} (> {key_gate:.1e}?)")
+                log(f"mesh: fp32, two ranks against one on the same global "
+                    f"batch: losses {losses}, largest relative difference "
+                    f"{loss_err:.2e} (gate {MESH_LOSS_REL}); worst parameter "
+                    f"{worst[1]} {worst[0]:.2e} of its 3-step update (gate "
+                    f"{MESH_UPDATE_REL}); the c_attn key biases {key_bias:.2e}"
+                    f" apart at most (gate {key_gate:.1e})")
+            del model
+            torch.cuda.empty_cache()
+        for mode in ("bf16", "fp32"):
+            steps = res[0][mode]["steps"]
+            totals = [x["ring"] for x in steps]
+            ring = [totals[0]] + [{k: b[k] - a[k] for k in a}
+                                  for a, b in zip(totals, totals[1:])]
+            busy = sum(doc[mode]["busy_ms"] for doc in res)
+            wall = steps[-1]["ms"]
+            one_steps, one_busy = one[mode]
+            log(f"mesh: {mode}, 2 ranks x {MESH_BATCH // MESH_RANKS} rows x "
+                f"{MESH_ACCUM} microbatches of 1024 (global {MESH_BATCH}): "
+                f"step wall " + ", ".join(f"{x['ms']:.1f}" for x in steps)
+                + f" ms (step 1 warms up, step {MESH_STEPS} profiled); "
+                f"ring a step (rank 0, step 2): {ring[1]['calls']} "
+                f"reductions, {ring[1]['bytes'] / 1e9:.3f} GB reduced, host "
+                f"copies {ring[1]['copy_s'] * 1e3:.1f} ms, gloo hops and "
+                f"additions {ring[1]['ring_s'] * 1e3:.1f} ms; the profiled "
+                f"step: both ranks' kernels busy {busy:.1f} ms of its "
+                f"{wall:.1f} ms ({100 * busy / wall:.1f} % busy); one rank on "
+                f"the global batch: " + ", ".join(
+                    f"{x['ms']:.1f}" for x in one_steps)
+                + f" ms a step, {one_busy:.1f} ms busy of "
+                f"{one_steps[-1]['ms']:.1f} ({CARD})")
+        log(f"mesh: phase {time.perf_counter() - t_phase:.1f} s ({CARD})")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _mesh_init_params(torch) -> dict:
+    from move2kube_tpu_torch import gpt2_small, init_gpt2
+
+    return dict(init_gpt2(gpt2_small(), seed=SEED, device="cuda",
+                          dtype=torch.float32).named_parameters())
 
 
 def main() -> int:
@@ -5233,6 +5623,11 @@ def main() -> int:
         launches[name] += emitted[name]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         train_launches[name] += emitted[name]
+    # item 9a: two ranks of GPT-2 small on the one card
+    mesh = mesh_phase(torch)
+    launches["flash_fwd"] += mesh["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        train_launches[name] += mesh[name]
     main_flash = flash_rows[-1]  # s=2048, the longest prefill bucket
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
@@ -5289,4 +5684,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--resilience-child"]:
         sys.exit(resilience_child())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_child())
     sys.exit(main())

@@ -1,22 +1,34 @@
 #!/usr/bin/env python
-"""One-GPU training program generated by move2kube-tpu (cuda emitter).
+"""Data-parallel GPU training program generated by move2kube-tpu (cuda
+emitter).
 
 The workload this program replaces, what was detected in it and the mesh
 its parallelism maps onto are baked into the constants below
 (``SOURCE_ENTRYPOINT``, ``FRAMEWORKS``, ``BACKEND``, ``GPU_COUNT``,
-``FAMILY``, ``MESH``, ``TOPOLOGY``). Like the JAX trainer, this program
-plans its mesh from the devices it sees: an explicit
-``M2KT_MESH_DATA``/``_FSDP``/``_PIPE``/``_TENSOR``/``_SEQ``/``_EXPERT``
-(a missing axis is 1) is taken only when its product is that count, and
-one device gets the one-device plan, printed as the JAX trainer prints
-it (``[m2kt] devices=1 mesh=1x1x1x1x1x1 ... source=single-chip``). It
-trains on one CUDA card (or the CPU under ``M2KT_DEVICE=cpu``); more
-than one visible card, a world of more than one process (``WORLD_SIZE``,
-or ``M2KT_NUM_HOSTS`` x ``M2KT_NUM_SLICES`` above 1, where the JAX
-trainer starts a distributed world) and ring or Ulysses attention (the
-default where the baked mesh has a seq axis) exit 2: the mesh paths of
-the PyTorch port are ROADMAP Queue 1 item 9. A pipelined workload trains
-its plain model on one device, as the JAX trainer falls back to it.
+``FAMILY``, ``MESH``, ``DEGREES``, ``TOPOLOGY``).
+
+How a pod runs: this process is the pod's one process (under
+``resilience/supervisor.py``, as the JAX trainer); it starts one rank a
+visible card (or a rank a forced CPU device under ``M2KT_DEVICE=cpu
+M2KT_FORCE_DEVICES=N``) and exits with their code. World and rank come
+from the JobSet's env: hosts = ``M2KT_NUM_HOSTS`` x ``M2KT_NUM_SLICES``,
+the host index ``M2KT_SLICE_ID`` x hosts + ``JOB_COMPLETION_INDEX``,
+the rendezvous ``M2KT_COORDINATOR`` (``torchrun``'s ``WORLD_SIZE``/
+``RANK``/``LOCAL_RANK``/``MASTER_ADDR`` win when set); a world of more
+than one pod with no rendezvous exits 2 at once. Every rank joins the
+process group (NCCL on cards, gloo on the CPU; a world of one too), then
+plans its mesh from the world as the JAX trainer plans it from its
+devices (``resolve_mesh_plan`` with the baked topology, degrees and
+slice count; an explicit ``M2KT_MESH_*`` whose product is the world
+wins) and prints the JAX trainer's plan line, with ``layout=[]``. The
+global batch is ``BATCH_PER_DEVICE`` x data x fsdp and each rank trains
+its rows of it; gradients are ring-reduced (``parallel/overlap.py``). A
+plan with an fsdp, tensor, seq, expert or pipe axis above 1, and ring or
+Ulysses attention, exit 2 naming the ROADMAP slice (Queue 1 items 9b-9e)
+that brings it. A pipelined workload planned on one device trains its
+plain model, as the JAX trainer falls back to it. Rank 0 prints the step
+lines; each pod's first rank serves the telemetry and writes the
+goodput, usage and flight files.
 
 The model comes from the vendored ``move2kube_tpu_torch`` package
 alongside this file; attention runs in its hand-written CUDA kernels.
@@ -26,14 +38,15 @@ identical, so the program trains end to end out of the box. It runs on
 the card unless ``M2KT_DEVICE=cpu``; with no card and no such knob it
 exits non-zero rather than moving to the CPU.
 
-Knobs the JAX trainer reads that this one does not: ``M2KT_FUSED_CE``
-(the loss folds the head into the chunked cross-entropy whenever the
-vocab spans more than one chunk, with no ladder); ``M2KT_VERIFY_DONATION``
-(eager PyTorch donates nothing; ``1`` prints one line saying so);
-``M2KT_PLAN_REPORT`` (the memory plan is ``parallel/memory.py``, ROADMAP
-Queue 1 item 9; set, it prints one advisory line). Besides the JAX
-program's lines it prints ``[m2kt] kernel launches {...}`` before
-``[m2kt] done``: each attention kernel's launches in this run.
+``M2KT_PLAN_REPORT`` writes ``m2kt-plan-report.json`` and ``.md``: the
+memory plan (``parallel/memory.py``) on the card's budget beside the
+first step's counted cost and measured peak. Knobs the JAX trainer reads
+that this one does not: ``M2KT_FUSED_CE`` (the loss folds the head into
+the chunked cross-entropy whenever the vocab spans more than one chunk,
+with no ladder); ``M2KT_VERIFY_DONATION`` (eager PyTorch donates nothing;
+``1`` prints one line saying so). Besides the JAX program's lines it
+prints ``[m2kt] kernel launches {...}`` (rank 0's) before ``[m2kt]
+done``: each attention kernel's launches in this run.
 """
 
 import json
@@ -53,6 +66,8 @@ from move2kube_tpu_torch.models import precision as m2kt_precision
 from move2kube_tpu_torch.models import train as m2kt_train
 from move2kube_tpu_torch.models.compile_cache import setup_compilation_cache
 from move2kube_tpu_torch.ops.attention import KERNELS, reset_launch_counts
+from move2kube_tpu_torch.parallel import mesh as m2kt_mesh
+from move2kube_tpu_torch.parallel.topology import resolve_mesh_plan
 from move2kube_tpu_torch.resilience import faults as m2kt_faults
 from move2kube_tpu_torch.resilience import goodput as m2kt_goodput
 from move2kube_tpu_torch.resilience import preemption as m2kt_preempt
@@ -64,6 +79,8 @@ BACKEND = ""
 GPU_COUNT = 1
 FAMILY = "llama"
 MESH = {"data": 1, "fsdp": 1, "pipe": 1, "tensor": 1, "seq": 1, "expert": 1}
+DEGREES = {"zero_stage": 0, "tensor_parallel": 1, "seq_parallel": 1,
+           "pipeline_parallel": 1, "expert_parallel": 1}
 TOPOLOGY = "1x1"
 NUM_SLICES_DEFAULT = 1
 PRECISION_DEFAULT = "bf16"
@@ -76,7 +93,6 @@ STEPS_DEFAULT = 100
 LR_DEFAULT = 0.0003
 # m2kt:baked-end
 
-ITEM_9 = "ROADMAP Queue 1 item 9 (multi-GPU)"
 LM_FAMILIES = ("llama", "gpt", "gpt2")
 BATCH_DEFAULTS = {"resnet": 64, "bert": 16, "gpt2": 8, "llama": 1, "gpt": 1,
                   "unet": 16}
@@ -99,6 +115,11 @@ else:
     FEATURE_DIM = int(os.environ.get("M2KT_FEATURE_DIM", "256"))
     NUM_CLASSES = int(os.environ.get("M2KT_NUM_CLASSES", "10"))
 
+try:
+    NUM_SLICES = max(1, int(os.environ.get("M2KT_NUM_SLICES", "")
+                            or NUM_SLICES_DEFAULT))
+except ValueError:
+    NUM_SLICES = NUM_SLICES_DEFAULT
 STEPS = int(os.environ.get("M2KT_STEPS", str(STEPS_DEFAULT)))
 LEARNING_RATE = float(os.environ.get("M2KT_LR", str(LR_DEFAULT)))
 # mixed-precision policy: bf16 compute + fp32 master weights by default
@@ -118,60 +139,8 @@ os.environ.setdefault("M2KT_NUMERICS", NUMERICS)
 
 
 def refuse(msg: str) -> None:
-    print(f"[m2kt] {msg}; this trainer runs on one GPU, and the rest is "
-          f"{ITEM_9}", flush=True)
+    print(f"[m2kt] {msg}", flush=True)
     raise SystemExit(2)
-
-
-def _int_env(name: str, default: int = 1) -> int:
-    try:
-        return int(os.environ.get(name, "") or default)
-    except ValueError:
-        return default
-
-
-def check_one_process(device) -> None:
-    """Exit 2 unless this is a world of one process on one device. The
-    JAX trainer starts a world of ``M2KT_NUM_HOSTS`` x ``M2KT_NUM_SLICES``
-    processes."""
-    world = _int_env("WORLD_SIZE")
-    hosts = _int_env("M2KT_NUM_HOSTS")
-    slices = _int_env("M2KT_NUM_SLICES", NUM_SLICES_DEFAULT)
-    if world > 1 or hosts * slices > 1:
-        refuse(f"a world of WORLD_SIZE={world} M2KT_NUM_HOSTS={hosts} "
-               f"M2KT_NUM_SLICES={slices}")
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n > 1:
-        refuse(f"{n} cards are visible (CUDA_VISIBLE_DEVICES names the "
-               f"one to use)")
-
-
-def plan_line() -> str:
-    """The plan line the JAX trainer prints for one device (its
-    ``resolve_mesh_plan``): source ``env-mesh`` when ``M2KT_MESH_*`` is
-    set and its product is 1, else ``single-chip`` on the baked topology
-    when that is one chip, on a chain of one otherwise."""
-    keys = [f"M2KT_MESH_{axis.upper()}" for axis in MESH]
-    dims = [1] * len(keys)
-    topology, source = None, "single-chip"
-    if any(k in os.environ for k in keys):
-        try:
-            explicit = [int(os.environ.get(k, "1")) for k in keys]
-        except ValueError:
-            explicit = []
-        if explicit and np.prod(explicit) == 1:
-            dims, topology, source = explicit, "-", "env-mesh"
-    if topology is None:
-        try:
-            topo = [int(d) for d in (os.environ.get("M2KT_TPU_TOPOLOGY", "")
-                                     or TOPOLOGY).split("x")]
-        except ValueError:
-            topo = []
-        if not topo or min(topo) <= 0 or np.prod(topo) != 1:
-            topo = [1]
-        topology = "x".join(str(d) for d in topo)
-    return (f"devices=1 mesh={'x'.join(str(d) for d in dims)} "
-            f"topology={topology} layout=[] source={source}")
 
 
 class GenericModel(torch.nn.Module):
@@ -192,9 +161,45 @@ class GenericModel(torch.nn.Module):
         return self.head(x).float()
 
 
-def build(device, global_batch: int):
-    """(state, step_fn, make_batch, accum, unit) for the baked family."""
+def write_plan_report(plan, model_cfg, batch_per_chip: int, n_devices: int,
+                      cost, out_dir: str) -> None:
+    """``M2KT_PLAN_REPORT``: the memory plan of the baked model on the
+    plan's extents (built on the meta device) against the card's budget,
+    beside the first step's counted cost and measured peak."""
+    from move2kube_tpu_torch.models.convert import meta_model
+    from move2kube_tpu_torch.parallel.memory import train_memory_plan
+
+    if model_cfg is None:
+        print("[m2kt] plan report failed: no memory plan for the generic "
+              "scaffold", flush=True)
+        return
+    extents = dict(zip(m2kt_mesh.MeshConfig.AXES, plan.config.dims()))
+    lm = {}
+    if FAMILY in LM_FAMILIES:
+        lm = dict(seq_len=SEQ_LEN, d_model=model_cfg.d_model,
+                  num_layers=model_cfg.num_layers,
+                  vocab_size=model_cfg.vocab_size)
+    mem = train_memory_plan(meta_model(model_cfg), extents,
+                            batch_per_chip=max(1, batch_per_chip), **lm)
+    accelerator = (torch.cuda.get_device_name()
+                   if torch.cuda.is_available() else "")
+    report = m2kt_obs.build_plan_report(mem, accelerator, mesh_plan=plan,
+                                        n_devices=n_devices, cost=cost)
+    m2kt_obs.write_plan_report(report, out_dir)
+    drift = report.get("drift", {})
+    print(f"[m2kt] plan report: verdict={report['verdict']} "
+          f"predicted={mem.total} "
+          f"measured={drift.get('measured_peak_hbm_bytes')} "
+          f"drift={drift.get('predicted_over_measured')} dir={out_dir}",
+          flush=True)
+
+
+def build(device, global_batch: int, mesh):
+    """(state, step_fn, make_batch, accum, unit, model_cfg) for the baked
+    family; ``make_batch(i)`` makes step i's global batch (the loader
+    keeps this rank's rows) and the steps reduce across ``mesh``."""
     attn_default = "ring" if MESH["seq"] > 1 else "flash"
+    model_cfg = None
 
     def on_device(batch):
         return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
@@ -212,7 +217,8 @@ def build(device, global_batch: int):
                             momentum=0.9)))
         accum = GRAD_ACCUM
         step_fn = m2kt_train.make_classifier_train_step(
-            has_batch_stats=True, grad_accum=accum)
+            has_batch_stats=True, grad_accum=accum, mesh=mesh)
+        model_cfg = model.cfg
 
         def make_batch(i):
             gen = np.random.default_rng(i)
@@ -243,8 +249,9 @@ def build(device, global_batch: int):
         model = m2kt_convert.init_family(cfg, seed=0, device=device)
         opt = m2kt_train.instrument_optimizer(m2kt_train.adamw(
             model.parameters(), LEARNING_RATE, weight_decay=0.01))
-        step_fn = m2kt_train.make_bert_train_step()
+        step_fn = m2kt_train.make_bert_train_step(mesh=mesh)
         accum = 1  # fine-tune step has no accumulation path
+        model_cfg = cfg
 
         def make_batch(i):
             gen = np.random.default_rng(i)
@@ -258,7 +265,8 @@ def build(device, global_batch: int):
     elif FAMILY in LM_FAMILIES:
         attn = os.environ.get("M2KT_ATTN_IMPL", attn_default)
         if attn in ("ring", "ulysses"):
-            refuse(f"attn_impl={attn} shards attention over a seq axis")
+            refuse(f"attn_impl={attn} shards attention over a seq axis: "
+                   f"ROADMAP Queue 1 item 9d (sequence parallelism)")
         if FAMILY == "gpt2":
             from move2kube_tpu_torch.models.gpt2 import GPT2Config
 
@@ -312,7 +320,9 @@ def build(device, global_batch: int):
                       "the schedule's own microbatching is the "
                       "accumulation", flush=True)
         step_fn = m2kt_train.make_lm_train_step(grad_accum=accum,
-                                                precision=PRECISION)
+                                                precision=PRECISION,
+                                                mesh=mesh)
+        model_cfg = cfg
 
         def make_batch(i):
             gen = np.random.default_rng(i)
@@ -336,8 +346,9 @@ def build(device, global_batch: int):
         opt = m2kt_train.instrument_optimizer(
             m2kt_train.adamw(model.parameters(), LEARNING_RATE))
         step_fn = m2kt_train.make_diffusion_train_step(
-            num_diffusion_steps=DIFFUSION_STEPS)
+            num_diffusion_steps=DIFFUSION_STEPS, mesh=mesh)
         accum = 1  # diffusion step has no accumulation path
+        model_cfg = cfg
 
         def make_batch(i):
             gen = np.random.default_rng(i)
@@ -377,12 +388,29 @@ def build(device, global_batch: int):
 
         unit = "samples/s"
     return (m2kt_train.TrainState(model, opt), step_fn, make_batch, accum,
-            unit)
+            unit, model_cfg)
 
 
 def main():
     device = resolve_device(os.environ.get("M2KT_DEVICE") or None)
-    check_one_process(device)
+    try:
+        n_local = m2kt_mesh.local_device_count(device)
+        layout = m2kt_mesh.process_layout(
+            dict(os.environ, M2KT_LOCAL_WORLD=str(n_local)))
+        if layout.hosts > 1:
+            # one pod's ranks meet on a local port the launcher picks
+            m2kt_mesh.check_rendezvous(layout)
+    except ValueError as e:
+        refuse(str(e))
+    if n_local > 1 and not m2kt_mesh.is_rank_process():
+        # the pod's process: one rank a card (or forced CPU device)
+        return m2kt_mesh.launch_local_ranks(
+            [sys.executable, os.path.abspath(__file__)] + sys.argv[1:],
+            n_local)
+    device = m2kt_mesh.rank_device(device, m2kt_mesh.process_layout())
+    layout = m2kt_mesh.initialize_distributed(device)
+    lead = layout.rank == 0          # prints, as the JAX process 0
+    pod_lead = layout.local_rank == 0  # the pod's files and server
     # persistent kernel build cache: a restarted pod loads the previous
     # run's kernels instead of running nvcc. M2KT_COMPILE_CACHE_DIR
     # overrides (a mounted volume); M2KT_COMPILE_CACHE=0 disables.
@@ -390,19 +418,19 @@ def main():
     # resilience: goodput/badput ledger + preemption watcher
     gp = m2kt_goodput.GoodputTracker()
     telem_srv = None
-    if METRICS_PORT > 0:
+    if METRICS_PORT > 0 and pod_lead:
         telem_srv = m2kt_obs.start_telemetry_server(METRICS_PORT)
     m2kt_obs.install_goodput_hook(gp)
     m2kt_obs.install_trace_hook()
     # runtime tracing (M2KT_TRACE, default on): spans into a bounded
     # ring, parked at M2KT_FLIGHT_PATH+".ring" on teardown for the
     # supervisor's flight recorder
-    if m2kt_obs.tracing_enabled():
+    if m2kt_obs.tracing_enabled() and pod_lead:
         m2kt_obs.install_ring_flush()
     # usage ledger (M2KT_USAGE, default on): served at GET /usage and
     # exit-flushed to m2kt-usage.jsonl
     usage_ledger = None
-    if m2kt_obs.usage_enabled():
+    if m2kt_obs.usage_enabled() and pod_lead:
         usage_ledger = m2kt_obs.UsageLedger(
             registry=m2kt_obs.default_registry())
 
@@ -427,13 +455,26 @@ def main():
     watcher = m2kt_preempt.from_env()
     if watcher is not None:
         watcher.install()
-    print(f"[m2kt] {plan_line()}", flush=True)
-    print(f"[m2kt] device={device}"
-          + (f" telemetry=:{telem_srv.port}" if telem_srv else ""),
-          flush=True)
+    # the JAX trainer's planner over the world (identity device order,
+    # so layout=[]); explicit M2KT_MESH_* whose product is the world wins
+    plan = resolve_mesh_plan(
+        layout.world, default_topology=TOPOLOGY, num_slices=NUM_SLICES,
+        **DEGREES)
+    mesh_cfg = plan.config
+    try:
+        m2kt_mesh.check_ported_mesh(mesh_cfg)
+    except NotImplementedError as e:
+        refuse(str(e))
+    mesh = m2kt_mesh.make_mesh(plan, device)
+    if lead:
+        print(f"[m2kt] devices={layout.world} {plan.describe()}", flush=True)
+        print(f"[m2kt] device={device} backend={torch.distributed.get_backend()}"
+              + (f" telemetry=:{telem_srv.port}" if telem_srv else ""),
+              flush=True)
 
-    global_batch = BATCH_PER_DEVICE
-    state, step_fn, make_batch, accum, unit = build(device, global_batch)
+    global_batch = BATCH_PER_DEVICE * mesh_cfg.data * mesh_cfg.fsdp
+    state, step_fn, make_batch, accum, unit, model_cfg = build(
+        device, global_batch, mesh)
     lm = FAMILY in LM_FAMILIES
     items_per_step = global_batch * accum * (SEQ_LEN if lm else 1)
     telem = m2kt_train.StepTelemetry(
@@ -445,7 +486,7 @@ def main():
     # batches otherwise
     loader = m2kt_data.make_loader(
         os.environ.get("M2KT_DATA", ""), global_batch, device=device,
-        synthetic_fn=make_batch)
+        synthetic_fn=make_batch, mesh=mesh)
     if accum > 1:
         # the accumulating steps consume [k, ...] stacked microbatches;
         # one next() == one optimizer update
@@ -464,8 +505,9 @@ def main():
         if start_step:
             gp.note_resume(start_step)
             gp.note_saved(start_step)
-            print(f"[m2kt] resumed from step {start_step}", flush=True)
-        elif ckpt_mngr.restored is not None:
+            if lead:
+                print(f"[m2kt] resumed from step {start_step}", flush=True)
+        elif ckpt_mngr.restored is not None and lead:
             print(f"[m2kt] loaded ported weights from checkpoint step "
                   f"{ckpt_mngr.restored['step']}", flush=True)
     # fast-forward the data stream: a resumed run continues from batch
@@ -473,7 +515,7 @@ def main():
     if start_step:
         loader.skip(start_step)
 
-    if os.environ.get("M2KT_VERIFY_DONATION", "0") == "1":
+    if os.environ.get("M2KT_VERIFY_DONATION", "0") == "1" and lead:
         print("[m2kt] M2KT_VERIFY_DONATION: nothing to verify; the eager "
               "step updates the state in place and donates no buffer",
               flush=True)
@@ -488,6 +530,8 @@ def main():
     # the kernel launches line counts this run's steps and the cost
     # model's held one
     reset_launch_counts()
+    # only the pod's first rank writes the goodput file
+    write_goodput = gp.write if pod_lead else (lambda: None)
     if first <= STEPS:
         m2kt_faults.maybe_inject(first)
         t_compile = time.perf_counter()
@@ -502,14 +546,16 @@ def main():
         # keeps m2kt_train_mfu live from then on. Also arms the
         # <flight>.mem OOM sidecar.
         telem.record_cost_model(step_fn, state, batch0)
-        m2kt_obs.install_memory_snapshot()
-        if os.environ.get("M2KT_PLAN_REPORT", "").strip():
-            print(f"[m2kt] plan report failed: the memory plan "
-                  f"(parallel/memory.py) is {ITEM_9}", flush=True)
+        if pod_lead:
+            m2kt_obs.install_memory_snapshot()
+        plan_dir = m2kt_obs.costmodel.plan_report_dir()
+        if plan_dir is not None and lead:
+            write_plan_report(plan, model_cfg, global_batch // layout.world,
+                              layout.world, telem._cost_report, plan_dir)
         if ckpt_mngr is not None and ckpt_mngr.maybe_save(first, state,
                                                           loader=loader):
             gp.note_saved(first)
-            gp.write()
+            write_goodput()
     t0 = time.perf_counter()
     mark = t0
     acct = first  # last step whose wall time is already in the ledger
@@ -529,7 +575,7 @@ def main():
         if ckpt_mngr is not None and ckpt_mngr.maybe_save(i, state,
                                                           loader=loader):
             gp.note_saved(i)
-            gp.write()  # flush so a later death can be costed precisely
+            write_goodput()  # flush so a later death can be costed precisely
         if watcher is not None and watcher.should_stop(i):
             preempted_at = i
             break
@@ -539,8 +585,9 @@ def main():
             mark, acct = now, i
             dt = now - t0
             rate = (i - first) * items_per_step / dt
-            print(f"[m2kt] step={i} loss={float(loss):.4f} {unit}={rate:.1f}",
-                  flush=True)
+            if lead:
+                print(f"[m2kt] step={i} loss={float(loss):.4f} "
+                      f"{unit}={rate:.1f}", flush=True)
     sync()
     last_step = preempted_at if preempted_at is not None else STEPS
     if last_step > acct:
@@ -557,22 +604,25 @@ def main():
             gp.note_saved(last_step)
         else:
             ckpt_mngr.close()
-    gp.write()
+    write_goodput()
     if watcher is not None:
         watcher.uninstall()
-    if preempted_at is not None:
-        rep = gp.report()
-        print(f"[m2kt] preempted: last-chance checkpoint at step "
-              f"{preempted_at}; goodput={rep['goodput_fraction']:.2%}",
-              flush=True)
-        raise SystemExit(143)
-    print(f"[m2kt] kernel launches "
-          f"{json.dumps({k.name: k.launches for k in KERNELS})}", flush=True)
-    total = time.perf_counter() - t0
-    rate = max(0, STEPS - first) * items_per_step / total
+    torch.distributed.destroy_process_group()
     rep = gp.report()
-    print(f"[m2kt] done steps={STEPS} {unit}={rate:.1f} "
-          f"goodput={rep['goodput_fraction']:.2%}", flush=True)
+    if preempted_at is not None:
+        if lead:
+            print(f"[m2kt] preempted: last-chance checkpoint at step "
+                  f"{preempted_at}; goodput={rep['goodput_fraction']:.2%}",
+                  flush=True)
+        raise SystemExit(143)
+    if lead:
+        print(f"[m2kt] kernel launches "
+              f"{json.dumps({k.name: k.launches for k in KERNELS})}",
+              flush=True)
+        total = time.perf_counter() - t0
+        rate = max(0, STEPS - first) * items_per_step / total
+        print(f"[m2kt] done steps={STEPS} {unit}={rate:.1f} "
+              f"goodput={rep['goodput_fraction']:.2%}", flush=True)
 
 
 if __name__ == "__main__":

@@ -39,6 +39,8 @@ import hashlib
 import os
 import re
 
+from move2kube_tpu_torch.parallel.mesh import infer_mesh_config
+
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(PKG_ROOT, "assets", "cuda")
 VENDORED_SUFFIXES = (".py", ".cu", ".cuh")
@@ -77,47 +79,6 @@ class EmittedContainer:
     new_files: dict
     exposed_ports: list
     baked: dict
-
-
-@dataclasses.dataclass
-class MeshConfig:
-    """The mesh a workload's parallelism maps onto (the JAX package's
-    ``parallel/mesh.MeshConfig``, outer to inner)."""
-    data: int = 1
-    fsdp: int = 1
-    pipe: int = 1
-    tensor: int = 1
-    seq: int = 1
-    expert: int = 1
-
-    def dims(self) -> tuple:
-        return (self.data, self.fsdp, self.pipe, self.tensor, self.seq,
-                self.expert)
-
-
-def infer_mesh_config(n_devices: int, *, zero_stage: int = 0,
-                      tensor_parallel: int = 1, seq_parallel: int = 1,
-                      pipeline_parallel: int = 1,
-                      expert_parallel: int = 1) -> MeshConfig:
-    """Mesh dims for a device count and the detected GPU parallelism, as
-    the JAX package chooses them: tensor/seq/expert claim their factors
-    first, pipeline next, the rest is data (fsdp under ZeRO >= 2);
-    degrees that do not divide the device count are dropped."""
-    tensor = max(1, tensor_parallel)
-    seq = max(1, seq_parallel)
-    expert = max(1, expert_parallel)
-    pipe = max(1, pipeline_parallel)
-    if n_devices % (tensor * seq * expert):
-        tensor = seq = expert = 1
-    inner = tensor * seq * expert
-    if (n_devices // inner) % pipe:
-        pipe = 1
-    rest = n_devices // (inner * pipe)
-    if zero_stage >= 2:
-        return MeshConfig(data=1, fsdp=rest, pipe=pipe, tensor=tensor,
-                          seq=seq, expert=expert)
-    return MeshConfig(data=rest, fsdp=1, pipe=pipe, tensor=tensor, seq=seq,
-                      expert=expert)
 
 
 def _dns_sanitize(s: str, maxlen: int) -> str:
@@ -297,6 +258,8 @@ def emit_container(service, answers: dict | None = None) -> EmittedContainer:
             "FAMILY": emit_family,
             "MESH": dict(zip(("data", "fsdp", "pipe", "tensor", "seq",
                               "expert"), mesh.dims())),
+            # what the trainer's planner lays over the world it starts
+            "DEGREES": degrees,
             # the JAX emitter's topology default, which its planner reads
             # on one device
             "TOPOLOGY": getattr(acc, "tpu_topology", "") or "1x1",

@@ -35,8 +35,18 @@ pinned host buffers that the manager keeps and reuses from save to save
 :meth:`CheckpointManager.install_exit_flush` make sure an interpreter
 teardown never loses the newest save. ``max_to_keep`` committed steps are
 kept. Restores load onto the devices of the state (or variables) they are
-given. Only process 0 of a ``torch.distributed`` world writes (the
-sharded save comes with Queue 1 item 9).
+given.
+
+In a ``torch.distributed`` world of n, rank 0 writes and every rank
+restores (the directory is the pod's or a shared volume): under data
+parallelism every tensor is replicated, so one copy is the whole state,
+and a checkpoint restores into a world of any size. The other ranks meet
+rank 0 at a barrier in :meth:`CheckpointManager.wait` (before each save,
+after a synchronous one and in ``close``), always on the main thread: the
+writer thread makes no collective call, and the exit flush
+(:meth:`CheckpointManager.flush`) none either, since a dying rank's peers
+may be gone. The sharded save of sharded parameters comes with FSDP
+(ROADMAP Queue 1 item 9b).
 
 The emitted trainer calls ``restore_or_init`` at startup and
 ``maybe_save`` every ``M2KT_CKPT_EVERY`` steps, pointed at
@@ -73,6 +83,14 @@ def _maybe_span(name: str, attrs: dict | None = None):
     if tracing.enabled():
         return tracing.get().span(name, attrs)
     return contextlib.nullcontext()
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _rank() -> int:
@@ -386,8 +404,15 @@ class CheckpointManager:
         self.wait()
         if step in self.all_steps():
             return False
-        if _rank() != 0:
-            return True
+        if _rank() == 0:
+            self._submit(step, state, loader)
+        if os.environ.get("M2KT_CKPT_SYNC", "0") == "1":
+            with _maybe_span("ckpt.save_sync", {"step": step}):
+                self.wait()
+        return True
+
+    def _submit(self, step: int, state, loader) -> None:
+        """Snapshot ``state`` to host memory and start the writer."""
         with _maybe_span("ckpt.save_submit", {"step": step}):
             t0 = time.perf_counter()
             payload = (dict(state) if isinstance(state, dict)
@@ -400,10 +425,6 @@ class CheckpointManager:
                 target=self._write, args=(step, payload, snapshot_s),
                 name=f"m2kt-ckpt-{step}", daemon=True)
             self._thread.start()
-        if os.environ.get("M2KT_CKPT_SYNC", "0") == "1":
-            with _maybe_span("ckpt.save_sync", {"step": step}):
-                self.wait()
-        return True
 
     def _write(self, step: int, payload: dict, snapshot_s: float) -> None:
         try:
@@ -422,18 +443,25 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, str(old)),
                           ignore_errors=True)
 
+    def flush(self) -> None:
+        """Block until this process's save in flight commits; raise if it
+        failed. No collective call."""
+        t = self._thread
+        if t is not None:
+            t.join()
+            self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise RuntimeError(f"checkpoint save failed: {err}") from err
+
     def wait(self) -> None:
-        """Block until the save in flight commits; raise if it failed. The
+        """Block until the save in flight commits, then (in a world above
+        one) until every rank is here; raise if it failed. The
         last-chance preemption path and the fault tests need the step
-        durably on disk before the process may die."""
+        durably on disk before the process may die. Main thread only."""
         with _maybe_span("ckpt.wait"):
-            t = self._thread
-            if t is not None:
-                t.join()
-                self._thread = None
-            err, self._error = self._error, None
-            if err is not None:
-                raise RuntimeError(f"checkpoint save failed: {err}") from err
+            self.flush()
+            _barrier()
 
     def install_exit_flush(self) -> None:
         """Make every interpreter exit path that runs teardown (``sys.exit``
@@ -449,7 +477,7 @@ class CheckpointManager:
 
         def _flush() -> None:
             try:
-                self.wait()
+                self.flush()
             except Exception:  # noqa: BLE001 - dying process, best effort
                 pass
 

@@ -23,7 +23,9 @@ Knobs:
 Libraries built for another card or CUDA version are not
 interchangeable: :func:`setup_compilation_cache` partitions the
 directory by a :func:`topology_fingerprint` (the card's name, its compute
-capability and the CUDA version; the mesh joins it with Queue 1 item 9).
+capability and the CUDA version). The cache holds kernel builds, which do
+not depend on the mesh, so nothing of the reference's mesh and slice tag
+carries over.
 """
 
 from __future__ import annotations

@@ -113,6 +113,67 @@ def flax_group(cfg, name: str) -> str:
     return flax.format(rest.partition(".")[0]) if "{}" in flax else flax
 
 
+# names below the top level that differ between the trees (the port's
+# -> flax's); the other families keep flax's names there
+FLAX_INNER = {
+    BertConfig: {"attn": "BertSelfAttention_0", "attn_norm": "LayerNorm_0",
+                 "mlp_in": "Dense_0", "mlp_out": "Dense_1",
+                 "mlp_norm": "LayerNorm_1"},
+    ResNetConfig: {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2",
+                   "proj_conv": "Conv_3", "norm1": "BatchNorm_0",
+                   "norm2": "BatchNorm_1", "norm3": "BatchNorm_2",
+                   "proj_norm": "BatchNorm_3"},
+}
+
+
+def flax_params(model) -> dict:
+    """Every parameter of ``model`` (a port model, its ``cfg`` attached)
+    by its flax path and shape: ``{port name: ("a/b/kernel", flax
+    shape)}``. A ``Linear`` weight ``[out, in]`` is flax's ``kernel [in,
+    out]``, a ``Conv`` weight ``[out, in, kh, kw]`` its ``kernel [kh, kw,
+    in, out]``, an embedding's weight its ``embedding``, a norm's weight
+    its ``scale``. The inverse of :func:`params_from_jax`'s map."""
+    cfg = model.cfg
+    inner = next((t for kind, t in FLAX_INNER.items()
+                  if isinstance(cfg, kind)), {})
+    modules = dict(model.named_modules())
+    out = {}
+    for name, p in model.named_parameters():
+        *mods, leaf = name.split(".")
+        owner = modules[".".join(mods)]
+        shape = tuple(p.shape)
+        if leaf == "weight":
+            if isinstance(owner, torch.nn.Linear):
+                leaf, shape = "kernel", shape[::-1]
+            elif isinstance(owner, torch.nn.Conv2d):
+                leaf, shape = "kernel", (shape[2], shape[3], shape[1],
+                                         shape[0])
+            elif isinstance(owner, (torch.nn.Embedding, Embed)):
+                leaf = "embedding"
+            else:
+                leaf = "scale"
+        path = []
+        if mods:
+            top = flax_group(cfg, name)
+            path.append(top)
+            # an indexed top name ("layer_3") took the index after it
+            rest = mods[2:] if top != mods[0] and len(mods) > 1 and \
+                mods[1].isdigit() else mods[1:]
+            path += [inner.get(m, m) for m in rest]
+        out[name] = ("/".join(path + [leaf]), shape)
+    return out
+
+
+def meta_model(cfg):
+    """The model of ``cfg``'s family on ``torch.device("meta")``, with
+    fp32 parameters (the training masters): shapes without memory."""
+    models = {LlamaConfig: Llama, GPT2Config: GPT2, BertConfig: BertEncoder,
+              ResNetConfig: ResNet, UNetConfig: UNet}
+    if isinstance(cfg, (LlamaConfig, GPT2Config)):
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    return models[type(cfg)](cfg, device="meta")
+
+
 def _np32(x):
     return np.asarray(x, np.float32)
 

@@ -1,12 +1,18 @@
 """Host-sharded input pipeline for training: the port's counterpart of
 ``move2kube_tpu/models/data.py``.
 
-Every process loads only the examples of its own contiguous shard
-(``torch.distributed``'s rank and world when a process group is up, 0
-and 1 otherwise) and cycles through it with an epoch-seeded shuffle,
+Every host loads only the examples of its own contiguous shard and
+cycles through it with an epoch-seeded shuffle,
 ``np.random.default_rng(seed + epoch)`` over ``[start, stop)``, the
-reference's permutation: the same file and seed give the same batches as
-the JAX loader.
+reference's permutation; each of the host's ranks then takes its
+contiguous rows of the host's batch, in data-axis order, as the
+reference's ``make_array_from_process_local_data`` splits a host's local
+batch over its devices. The host index and count are the launcher's
+(:func:`~move2kube_tpu_torch.parallel.mesh.current_layout`: hosts =
+``M2KT_NUM_HOSTS`` x ``M2KT_NUM_SLICES``, the ranks of a host
+consecutive), not ``torch.distributed``'s rank and world, since a host
+with k cards runs k ranks. The same file and seed give the same global
+batches as the JAX loader, whatever the number of ranks a host.
 
 Sources, selected by path (the emitted trainers read ``M2KT_DATA``):
 
@@ -27,8 +33,8 @@ handed out is ``record_stream``'ed on the consumer's stream, so its memory
 is not reused while the step still reads it. A pinned buffer is written
 again only after the event of its previous copy has completed.
 
-No mesh: the batch's device is the caller's (Queue 1 item 9 brings the
-mesh paths).
+The batch's device is the caller's: a rank's own card. A synthetic
+source's function makes the global batch and each rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -45,23 +51,27 @@ import numpy as np
 import torch
 
 from move2kube_tpu_torch._device import resolve_device
+from move2kube_tpu_torch.parallel.mesh import ProcessLayout, current_layout
 
 log = logging.getLogger("m2kt.data")
 
 
-def _rank_world() -> tuple[int, int]:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
-def _process_slice(n: int) -> tuple[int, int]:
-    """[start, stop) of this process's contiguous shard of n examples."""
-    pi, pc = _rank_world()
+def _process_slice(n: int, layout: ProcessLayout) -> tuple[int, int]:
+    """[start, stop) of this host's contiguous shard of n examples."""
+    pi, pc = layout.host, layout.hosts
     per = n // pc
     return pi * per, (pi + 1) * per if pi < pc - 1 else n
+
+
+def _rank_rows(batch: dict, layout: ProcessLayout) -> dict:
+    """This rank's rows of a global batch (each value's leading axis)."""
+    if layout.world == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        per = v.shape[0] // layout.world
+        out[k] = v[layout.rank * per:(layout.rank + 1) * per]
+    return out
 
 
 def gather_rows(src: np.ndarray, idx: np.ndarray,
@@ -137,17 +147,22 @@ def _pinned_like(arr_shape, dtype: np.dtype) -> torch.Tensor:
 
 
 class HostShardedLoader:
-    """Iterate global batches assembled from per-process shards.
+    """Iterate this rank's rows of global batches assembled from per-host
+    shards.
 
-    Each process cycles through its own contiguous slice with an
+    Each host cycles through its own contiguous slice with an
     epoch-seeded shuffle (same seed everywhere, disjoint index ranges, so
-    the global epoch is a true permutation). ``device=None`` yields host
-    (numpy) batches and leaves the transfer to a downstream
-    :class:`PrefetchLoader`; a device yields torch tensors there (on the
-    card, gathered into pinned memory and copied)."""
+    the global epoch is a true permutation); ``local_batch`` is the
+    host's share of the global batch and ``rank_batch`` this rank's
+    contiguous part of it. ``device=None`` yields host (numpy) batches
+    and leaves the transfer to a downstream :class:`PrefetchLoader`; a
+    device yields torch tensors there (on the card, gathered into pinned
+    memory and copied). ``layout`` defaults to the running process
+    group's (:func:`~move2kube_tpu_torch.parallel.mesh.current_layout`)."""
 
     def __init__(self, arrays: dict[str, np.ndarray], global_batch: int,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None,
+                 layout: ProcessLayout | None = None):
         if not arrays:
             raise ValueError("no arrays to load")
         self.device = torch.device(device) if device is not None else None
@@ -155,13 +170,14 @@ class HostShardedLoader:
         self.arrays = {k: v[:n] for k, v in arrays.items()}
         self.global_batch = global_batch
         self.seed = seed
-        _, pc = _rank_world()
-        if global_batch % pc:
+        self.layout = layout = layout or current_layout()
+        if global_batch % layout.world:
             raise ValueError(
-                f"global batch {global_batch} not divisible by {pc} "
-                "processes")
-        self.local_batch = global_batch // pc
-        self.start, self.stop = _process_slice(n)
+                f"global batch {global_batch} not divisible by "
+                f"{layout.world} processes")
+        self.local_batch = global_batch // layout.hosts
+        self.rank_batch = global_batch // layout.world
+        self.start, self.stop = _process_slice(n, layout)
         if self.stop - self.start < self.local_batch:
             raise ValueError(
                 f"process shard has {self.stop - self.start} examples, "
@@ -188,7 +204,8 @@ class HostShardedLoader:
         take = self._order[self._cursor:self._cursor + self.local_batch]
         self._cursor += self.local_batch
         self._batches += 1
-        return take
+        lo = self.layout.local_rank * self.rank_batch
+        return take[lo:lo + self.rank_batch]
 
     def __next__(self) -> dict:
         take = self._advance()
@@ -434,15 +451,16 @@ class AccumLoader:
 
 
 class _Synthetic:
-    def __init__(self, fn):
+    def __init__(self, fn, layout: ProcessLayout):
         self._fn = fn
+        self._layout = layout
         self._i = 0
 
     def __iter__(self):
         return self
 
     def __next__(self):
-        batch = self._fn(self._i)
+        batch = _rank_rows(self._fn(self._i), self._layout)
         self._i += 1
         return batch
 
@@ -463,23 +481,36 @@ class _Synthetic:
 
 
 def make_loader(path: str, global_batch: int, device=None,
-                synthetic_fn=None, seed: int = 0, prefetch: bool = True):
-    """Return a batch iterator of dicts of tensors on ``device`` (the card
-    unless the caller asks for the CPU): real data when ``path`` exists,
-    else the synthetic generator ``synthetic_fn(i)`` (the emitted
+                synthetic_fn=None, seed: int = 0, prefetch: bool = True,
+                mesh=None):
+    """Return an iterator of this rank's rows of each global batch, dicts
+    of tensors on ``device`` (the rank's card unless the caller asks for
+    the CPU): real data when ``path`` exists, else the synthetic
+    generator ``synthetic_fn(i)`` of global batches (the emitted
     programs' out-of-the-box mode). Real-data loaders are wrapped in a
     :class:`PrefetchLoader` unless ``prefetch=False`` (or
     ``M2KT_PREFETCH=0``): the inner loader stays on the host and the pump
-    thread owns the copy, overlapping it with the running step."""
+    thread owns the copy, overlapping it with the running step. A
+    ``mesh`` with a model axis above 1 raises (the batch then splits over
+    data x fsdp only, ROADMAP Queue 1 items 9b-9e)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from move2kube_tpu_torch.parallel.mesh import (
+            check_ported_mesh,
+            mesh_config_of,
+        )
+
+        check_ported_mesh(mesh_config_of(mesh))
+    layout = current_layout()
     if path and os.path.exists(path):
         use_prefetch = (prefetch
                         and os.environ.get("M2KT_PREFETCH", "1") != "0")
         loader = HostShardedLoader(load_arrays(path), global_batch, seed,
-                                   device=None if use_prefetch else dev)
+                                   device=None if use_prefetch else dev,
+                                   layout=layout)
         if use_prefetch:
             return PrefetchLoader(loader, device=dev)
         return loader
     if synthetic_fn is None:
         raise ValueError(f"data path {path!r} not found and no synthetic fn")
-    return _Synthetic(synthetic_fn)
+    return _Synthetic(synthetic_fn, layout)

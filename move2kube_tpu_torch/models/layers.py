@@ -20,7 +20,12 @@ take epsilon 1e-6, and ``GroupNorm``'s and ``BatchNorm``'s statistics
 are flax's one-pass ``E[x^2] - E[x]^2``, clipped at zero.
 ``BatchNorm(momentum=0.9)`` keeps ``ra = 0.9 ra + 0.1 batch`` with the
 biased batch variance (torch's module would keep the unbiased one), so
-:class:`BatchNorm` writes its own update.
+:class:`BatchNorm` writes its own update. In a data-parallel world its
+``stats_group`` (set by the train step) makes the batch statistics those
+of the whole global batch, as GSPMD computes them over the sharded batch:
+the per-channel sums of x and x^2 are summed across the group by a
+differentiable all-reduce (``SyncBatchNorm``'s scheme), so every rank
+normalises alike and keeps the same running statistics.
 """
 
 from __future__ import annotations
@@ -79,6 +84,29 @@ class GroupNorm(nn.Module):
                 + self.bias.float()[:, None, None])
 
 
+class _SumAcross(torch.autograd.Function):
+    """The sum of a tensor over a process group; its gradient is the sum
+    of the gradients over the group (each rank's loss depends on every
+    rank's share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm(nn.Module):
     """``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=...)`` over NCHW.
 
@@ -96,11 +124,28 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.stats_group = None
+
+    def _stats(self, x32):
+        group = self.stats_group
+        if group is None:
+            return _fast_stats(x32, (0, 2, 3))
+        import torch.distributed as dist
+
+        c = x32.shape[1]
+        sums = _SumAcross.apply(torch.cat([x32.sum((0, 2, 3)),
+                                           (x32 * x32).sum((0, 2, 3))]),
+                                group)
+        count = x32.numel() // c * dist.get_world_size(group)
+        mean = (sums[:c] / count)[None, :, None, None]
+        var = torch.clamp_min(sums[c:][None, :, None, None] / count
+                              - mean * mean, 0.0)
+        return mean, var
 
     def forward(self, x):
         x32 = x.float()
         if self.training:
-            mean, var = _fast_stats(x32, (0, 2, 3))
+            mean, var = self._stats(x32)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(m).add_((1 - m) * mean.flatten())

@@ -32,10 +32,27 @@ parameters (:mod:`move2kube_tpu_torch.obs.numerics`), and
 (:mod:`move2kube_tpu_torch.obs.costmodel`) into the reference's
 ``m2kt_train_*`` gauges.
 
-Not ported here: the mesh paths (overlapped accumulation, FSDP prefetch;
-ROADMAP.md Queue 1 item 9). ``scan_steps`` (k optimizer steps in one
-compiled call) has no counterpart on one card: the caller runs the step
-k times. Each step updates the state in place and returns it.
+Data parallelism: each step factory takes a ``mesh`` (a ``DeviceMesh``
+from :func:`~move2kube_tpu_torch.parallel.mesh.make_mesh`). On a pure
+data mesh of more than one rank the batch a rank is handed is its own
+rows of the global batch; the parameters start identical on every rank (a
+broadcast from the data group's first rank at the first step); the
+gradients are reduced by the port's ring (:mod:`move2kube_tpu_torch.
+parallel.overlap`) in place of GSPMD's implicit psum, with no DDP and no
+``dist.all_reduce``: one reduction path in the reference's order, which
+leaves every rank with the same bits. With ``grad_accum > 1`` each
+microbatch's reduction overlaps the next one's backward
+(:func:`~move2kube_tpu_torch.parallel.overlap.overlapped_accum_grads`,
+the reference's path on such a mesh); with one microbatch the single
+reduction goes through the same ring. The loss comes back as the group's
+mean, and the loss-scale guard, the grad norm and the health recorder
+read the reduced gradients, so no rank skips an update alone. BatchNorm
+statistics are taken over the global batch (:class:`~move2kube_tpu_torch.
+models.layers.BatchNorm`). A mesh with any other axis above 1 raises
+``NotImplementedError`` naming its ROADMAP slice (9b-9e). ``scan_steps``
+(k optimizer steps in one compiled call) has no counterpart: the caller
+runs the step k times. Each step updates the state in place and returns
+it.
 """
 
 from __future__ import annotations
@@ -292,6 +309,58 @@ class TrainState:
         return stats or None
 
 
+class _DataParallel:
+    """A step's data-parallel context: the ring's group of a pure data
+    mesh (None without a mesh or on a mesh of one), made at the first
+    step, when each model met is also broadcast from the group's first
+    rank and its BatchNorm layers get the data group."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh = mesh
+        self._group = None
+        self._synced: set[int] = set()
+
+    def group(self, model):
+        if self.mesh is None:
+            return None
+        from move2kube_tpu_torch.parallel import overlap
+        from move2kube_tpu_torch.parallel.mesh import (
+            check_ported_mesh,
+            mesh_config_of,
+        )
+
+        cfg = mesh_config_of(self.mesh)
+        if cfg.total() == 1:
+            return None
+        if not overlap.is_pure_data_parallel(self.mesh):
+            check_ported_mesh(cfg)  # raises, naming the axis's slice
+        data = self.mesh.get_group("data")
+        if self._group is None:
+            self._group = overlap.ring_group(data)
+        if id(model) not in self._synced:
+            overlap.broadcast_model(model, data)
+            for m in model.modules():
+                if hasattr(m, "stats_group"):
+                    m.stats_group = data
+            self._synced.add(id(model))
+        return self._group
+
+
+def _reduced_loss(model, loss_of, batch, grad_accum: int, group):
+    """Backward and ring-reduce one update's gradients on the data group
+    (``loss_of(microbatch) -> loss``; ``batch`` holds ``grad_accum``
+    stacked microbatches when above 1); returns the group's mean loss."""
+    from move2kube_tpu_torch.parallel import overlap
+
+    params = list(model.parameters())
+    if grad_accum <= 1:
+        loss = loss_of(batch)
+        loss.backward()
+        overlap.reduce_grads(params, group)
+        return overlap.group_mean(loss.detach(), group)
+    return overlap.overlapped_accum_grads(params, loss_of, batch, group)
+
+
 def _accumulate(model, micro_losses, grad_accum: int) -> torch.Tensor:
     """Backward each microbatch's loss (``micro_losses``: a generator of
     ``grad_accum`` losses) into the fp32 ``.grad``, average the
@@ -306,27 +375,36 @@ def _accumulate(model, micro_losses, grad_accum: int) -> torch.Tensor:
     return torch.stack(losses).mean()
 
 
-def _family_step(loss_fn, grad_accum: int = 1):
+def _family_step(loss_fn, grad_accum: int = 1, mesh=None):
     """A step around ``loss_fn(model, batch) -> loss`` (batch tensors on
     the model's device): zero the grads, backward (over ``grad_accum``
-    microbatches stacked on each tensor's leading axis when > 1),
-    update."""
+    microbatches stacked on each tensor's leading axis when > 1), reduce
+    across the data group on a ``mesh``, update."""
+    dp = _DataParallel(mesh)
 
     def step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
         dev = next(model.parameters()).device
         batch = {k: v.to(dev) for k, v in batch.items()}
         opt.zero_grad()
-        if grad_accum <= 1:
-            loss = loss_fn(model, batch)
-            loss.backward()
-            loss = loss.detach()
-        else:
+        group = dp.group(model)
+        if grad_accum > 1:
             lead = {v.shape[0] for v in batch.values()}
             if lead != {grad_accum}:
                 raise ValueError(f"grad_accum={grad_accum} takes batch "
                                  f"tensors [{grad_accum}, ...]; got leading "
                                  f"extents {sorted(lead)}")
+        if group is not None:
+            micro = (batch if grad_accum <= 1 else
+                     [{k: v[i] for k, v in batch.items()}
+                      for i in range(grad_accum)])
+            loss = _reduced_loss(model, lambda b: loss_fn(model, b), micro,
+                                 grad_accum, group)
+        elif grad_accum <= 1:
+            loss = loss_fn(model, batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
             micro = ({k: v[i] for k, v in batch.items()}
                      for i in range(grad_accum))
             loss = _accumulate(model, (loss_fn(model, b) for b in micro),
@@ -339,7 +417,7 @@ def _family_step(loss_fn, grad_accum: int = 1):
 
 
 def make_classifier_train_step(has_batch_stats: bool = False,
-                               grad_accum: int = 1):
+                               grad_accum: int = 1, mesh=None):
     """Train step for image/sequence classifiers (ResNet); ``step(state,
     {"input": x, "label": y}) -> (state, loss)``, cross-entropy of the
     logits in fp32.
@@ -351,7 +429,8 @@ def make_classifier_train_step(has_batch_stats: bool = False,
     ``grad_accum=k`` takes ``[k, batch, ...]`` tensors and folds the k
     microbatches into one update; the statistics go through the
     microbatches in order, so the final ones reflect all k, as the JAX
-    step threads them through its scan."""
+    step threads them through its scan. On a data ``mesh`` the statistics
+    are the global batch's."""
 
     def loss_fn(model, batch):
         if has_batch_stats:
@@ -361,10 +440,10 @@ def make_classifier_train_step(has_batch_stats: bool = False,
                              "pass has_batch_stats=True")
         return cross_entropy_loss(model(batch["input"]), batch["label"])
 
-    return _family_step(loss_fn, grad_accum)
+    return _family_step(loss_fn, grad_accum, mesh)
 
 
-def make_bert_train_step():
+def make_bert_train_step(mesh=None):
     """Fine-tune step for ``BertEncoder``; ``step(state, {"input_ids",
     "attention_mask" (optional), "label"}) -> (state, loss)``."""
 
@@ -372,10 +451,10 @@ def make_bert_train_step():
         logits = model(batch["input_ids"], batch.get("attention_mask"))
         return cross_entropy_loss(logits, batch["label"])
 
-    return _family_step(loss_fn)
+    return _family_step(loss_fn, mesh=mesh)
 
 
-def make_diffusion_train_step(num_diffusion_steps: int = 1000):
+def make_diffusion_train_step(num_diffusion_steps: int = 1000, mesh=None):
     """DDPM denoising step for the ``UNet``: the batch carries clean
     ``image``s, pre-drawn gaussian ``noise`` and integer timesteps ``t``;
     the step forms ``x_t`` from the linear-beta schedule
@@ -396,12 +475,12 @@ def make_diffusion_train_step(num_diffusion_steps: int = 1000):
         pred = model(x_t, t)
         return torch.mean((pred - noise32) ** 2)
 
-    return _family_step(loss_fn)
+    return _family_step(loss_fn, mesh=mesh)
 
 
 def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
                        precision=None, chunk: int = DEFAULT_CHUNK,
-                       moe_aux_weight: float = 0.01):
+                       moe_aux_weight: float = 0.01, mesh=None):
     """Next-token-prediction step for ``Llama`` (MoE included) and
     ``GPT2``; ``step(state, {"input_ids": ids}) -> (state, loss)``.
 
@@ -422,8 +501,11 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
     - ``moe_aux_weight``: the weight of an MoE model's load-balancing
       loss (``Llama.moe_aux``, its blocks' sum) in the loss, on both
       paths; dense models have none.
+    - ``mesh``: a pure data mesh reduces the gradients across its ranks
+      (the module's docstring); each rank's ``input_ids`` are its rows.
 
     The batch runs where the model's parameters lie."""
+    dp = _DataParallel(mesh)
 
     def _loss(model, ids):
         params = dict(model.named_parameters())
@@ -451,15 +533,19 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
         model, opt = state.model, state.optimizer
         ids = batch["input_ids"].to(next(model.parameters()).device)
         opt.zero_grad()
-        if grad_accum <= 1:
+        if grad_accum > 1 and (ids.ndim != 3 or ids.shape[0] != grad_accum):
+            raise ValueError(
+                f"grad_accum={grad_accum} takes input_ids [k, batch, "
+                f"seq] with k = {grad_accum}; got {tuple(ids.shape)}")
+        group = dp.group(model)
+        if group is not None:
+            loss = _reduced_loss(model, lambda x: _loss(model, x), ids,
+                                 grad_accum, group)
+        elif grad_accum <= 1:
             loss = _loss(model, ids)
             loss.backward()
             loss = loss.detach()
         else:
-            if ids.ndim != 3 or ids.shape[0] != grad_accum:
-                raise ValueError(
-                    f"grad_accum={grad_accum} takes input_ids [k, batch, "
-                    f"seq] with k = {grad_accum}; got {tuple(ids.shape)}")
             loss = _accumulate(model, (_loss(model, micro)
                                        for micro in ids), grad_accum)
         if precision is not None:

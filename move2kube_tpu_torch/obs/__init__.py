@@ -14,11 +14,9 @@
 - the step cost model with the memory sidecar (:mod:`.costmodel`) and the
   tensor-health plane (:mod:`.numerics`).
 
-Not ported, with the ROADMAP item that brings each: ``build_plan_report``
-and ``write_plan_report`` come with ``parallel/memory.py`` (Queue 1 item
-9); ``analyze_compiled`` reads an XLA executable and has no counterpart
-(:func:`analyze_step_fn` and :func:`.costmodel.count_cost` count an eager
-run instead).
+Not ported: ``analyze_compiled`` reads an XLA executable and has no
+counterpart (:func:`analyze_step_fn` and :func:`.costmodel.count_cost`
+count an eager run instead).
 """
 
 from move2kube_tpu_torch.obs.bridge import (
@@ -36,6 +34,7 @@ from move2kube_tpu_torch.obs.costmodel import (
     ChipSpec,
     CostReport,
     analyze_step_fn,
+    build_plan_report,
     chip_spec,
     export_drift_gauge,
     export_serving_gauges,
@@ -43,6 +42,7 @@ from move2kube_tpu_torch.obs.costmodel import (
     install_memory_snapshot,
     normalize_accelerator,
     write_memory_snapshot,
+    write_plan_report,
 )
 from move2kube_tpu_torch.obs.fleetview import FleetTraceCollector
 from move2kube_tpu_torch.obs.ledger import (
@@ -149,6 +149,8 @@ __all__ = [
     "analyze_step_fn",
     "chip_spec",
     "export_drift_gauge",
+    "build_plan_report",
+    "write_plan_report",
     "export_serving_gauges",
     "export_train_gauges",
     "install_memory_snapshot",

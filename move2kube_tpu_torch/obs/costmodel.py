@@ -28,9 +28,14 @@ Exported as the reference's gauges (``m2kt_train_mfu``,
 ``<flight>.mem`` sidecar (:func:`install_memory_snapshot`), written from
 ``torch.cuda.memory_stats()`` under the reference's keys.
 
-Not ported: the preflight plan report (``build_plan_report``,
-``write_plan_report``), which comes with ``parallel/memory.py`` (ROADMAP
-Queue 1 item 9), and the XLA introspection (``analyze_compiled``,
+The preflight plan report (:func:`build_plan_report`,
+:func:`write_plan_report`, the ``m2kt-plan-report/v1`` schema) sets the
+memory plan of :mod:`move2kube_tpu_torch.parallel.memory` beside the
+card's budget and, when a step has run, beside this module's cost report:
+its ``compiled`` section is the counted step, and the drift is the
+prediction over ``torch.cuda.max_memory_allocated`` of that step.
+
+Not ported: the XLA introspection (``analyze_compiled``,
 ``lower_and_compile``), which has no counterpart. torch is imported only
 inside the functions that need it.
 """
@@ -47,6 +52,12 @@ from dataclasses import dataclass, field
 from move2kube_tpu_torch.obs import tracing
 
 ACCELERATOR_ENV = "M2KT_TPU_ACCELERATOR"
+PLAN_REPORT_ENV = "M2KT_PLAN_REPORT"
+PLAN_REPORT_STRICT_ENV = "M2KT_PLAN_REPORT_STRICT"
+
+# predicted-vs-measured peak-memory tolerance, the reference's: the
+# analytic plan and the measurement agree within 4x either way
+PLAN_DRIFT_TOLERANCE_FACTOR = 4.0
 
 # roofline classes, also the value of the m2kt_roofline_bound gauge
 COMPUTE_BOUND = 1.0
@@ -440,6 +451,239 @@ def export_drift_gauge(predicted_total: float | None,
         "bytes; 0 = unknown",
     ).set(ratio or 0.0)
     return ratio
+
+
+# ---------------------------------------------------------------------------
+# preflight plan report
+# ---------------------------------------------------------------------------
+
+
+def plan_report_dir() -> str | None:
+    """Where ``m2kt-plan-report.{json,md}`` lands: ``M2KT_PLAN_REPORT``
+    unset/0/false -> None (off), "1"/true -> ``M2KT_METRICS_DIR`` or cwd,
+    anything else -> treated as the target directory."""
+    raw = os.environ.get(PLAN_REPORT_ENV, "").strip()
+    if not raw or raw.lower() in ("0", "false", "off"):
+        return None
+    if raw.lower() in ("1", "true", "on"):
+        return os.environ.get("M2KT_METRICS_DIR", "") or "."
+    return raw
+
+
+def build_plan_report(memory_plan, accelerator: str, *,
+                      mesh_plan=None, n_devices: int | None = None,
+                      cost: CostReport | None = None,
+                      step_seconds: float | None = None,
+                      headroom: float = 0.9,
+                      optimizer_slots: int = 2) -> dict:
+    """The preflight fit report: the ``MemoryPlan`` (``parallel/
+    memory.py``) against the card's budget, the ``MeshPlan`` (``parallel/
+    topology.py``, optional), the counted step's roofline and MFU when
+    ``cost`` is given, and, over budget, the smallest fsdp re-split that
+    would fit. A plain dict, the reference's schema."""
+    spec, assumed = chip_spec(accelerator)
+    budget = spec.hbm_bytes * headroom
+    predicted_total = int(memory_plan.total)
+    fits = predicted_total <= budget
+    report = {
+        "schema": "m2kt-plan-report/v1",
+        "accelerator": {
+            "requested": accelerator,
+            "resolved": normalize_accelerator(accelerator),
+            "chip": spec.name,
+            "assumed_default": assumed,
+            "peak_bf16_flops": spec.peak_bf16_flops,
+            "hbm_bytes": spec.hbm_bytes,
+            "hbm_bandwidth_bytes_s": spec.hbm_bandwidth,
+        },
+        "predicted": {
+            "params_bytes": int(memory_plan.params),
+            "grads_bytes": int(memory_plan.grads),
+            "opt_state_bytes": int(memory_plan.opt_state),
+            "activations_bytes": int(memory_plan.activations),
+            "total_bytes": predicted_total,
+            "breakdown": [
+                {"leaf": name, "bytes": int(nbytes)}
+                for name, nbytes in memory_plan.breakdown
+            ],
+        },
+        "fit": {
+            "fits": fits,
+            "headroom": headroom,
+            "budget_bytes": int(budget),
+            "utilization": (predicted_total / budget) if budget else None,
+        },
+        "verdict": "fit" if fits else "over-budget",
+    }
+    if mesh_plan is not None:
+        report["mesh"] = {
+            "describe": mesh_plan.describe(),
+            "extents": {
+                axis: getattr(mesh_plan.config, axis)
+                for axis in type(mesh_plan.config).AXES
+            },
+            "dcn_dp": mesh_plan.dcn_dp,
+            "source": mesh_plan.source,
+        }
+    if not fits:
+        report["suggestion"] = _fsdp_suggestion(
+            memory_plan, mesh_plan, n_devices, spec, headroom,
+            optimizer_slots)
+    if cost is not None:
+        report["compiled"] = cost.to_dict()
+        report["compiled"]["roofline"] = cost.roofline(spec)
+        report["estimated_mfu"] = {
+            "roofline_ceiling": cost.mfu_ceiling(spec),
+            "achieved": cost.mfu(step_seconds, spec),
+            "step_seconds": step_seconds,
+        }
+        measured_total = cost.peak_hbm_bytes
+        drift = None
+        if measured_total:
+            drift = predicted_total / measured_total
+        report["drift"] = {
+            "measured_peak_hbm_bytes": measured_total,
+            "predicted_over_measured": drift,
+            "tolerance_factor": PLAN_DRIFT_TOLERANCE_FACTOR,
+            "within_tolerance": (
+                None if drift is None else
+                1 / PLAN_DRIFT_TOLERANCE_FACTOR <= drift
+                <= PLAN_DRIFT_TOLERANCE_FACTOR),
+        }
+    return report
+
+
+def _fsdp_suggestion(memory_plan, mesh_plan, n_devices, spec: ChipSpec,
+                     headroom: float, optimizer_slots: int) -> dict:
+    """The next fsdp re-split that fits, by the planner's own split
+    (``topology._memory_min_fsdp``) over the dp x fsdp pool."""
+    from move2kube_tpu_torch.parallel.topology import _memory_min_fsdp
+
+    suggestion: dict = {"action": "re-split fsdp"}
+    if mesh_plan is not None:
+        cfg = mesh_plan.config
+        resident = cfg.data * cfg.fsdp
+        tensor, current = cfg.tensor, cfg.fsdp
+    else:
+        resident = max(1, int(n_devices or 1))
+        tensor, current = 1, 1
+    # params in the plan are per card: scale back to the pool's total
+    param_bytes = int(memory_plan.params) * max(1, current)
+    fsdp = _memory_min_fsdp(resident, tensor, param_bytes, spec.hbm_bytes,
+                            headroom, optimizer_slots)
+    suggestion.update({
+        "current_fsdp": current,
+        "suggested_fsdp": max(fsdp, current),
+        "resident_pool": resident,
+    })
+    if fsdp <= current:
+        # state already sharded as far as the pool allows: the overage is
+        # activations
+        suggestion["action"] = (
+            "state fully sharded; reduce batch/sequence or add chips")
+    return suggestion
+
+
+def _fmt_bytes(n) -> str:
+    if n is None:
+        return "-"
+    value = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(value) < 1024 or unit == "GiB":
+            return f"{value:.2f} {unit}" if unit != "B" else f"{int(value)} B"
+        value /= 1024
+    return f"{value:.2f} GiB"
+
+
+def render_plan_markdown(report: dict) -> str:
+    """The report as a short markdown brief (the JSON is for tools)."""
+    acc = report.get("accelerator", {})
+    pred = report.get("predicted", {})
+    fit = report.get("fit", {})
+    lines = [
+        "# m2kt preflight plan report",
+        "",
+        f"- **verdict**: {report.get('verdict', '?')}",
+        f"- **chip**: {acc.get('chip', '?')}"
+        + (" (assumed default)" if acc.get("assumed_default") else "")
+        + f" — HBM {_fmt_bytes(acc.get('hbm_bytes'))}, "
+          f"peak bf16 {acc.get('peak_bf16_flops', 0) / 1e12:.0f} TFLOP/s",
+        f"- **budget**: {_fmt_bytes(fit.get('budget_bytes'))} "
+        f"(headroom {fit.get('headroom')})",
+        "",
+        "| component | bytes/chip |",
+        "|---|---|",
+    ]
+    for key, label in (("params_bytes", "params"), ("grads_bytes", "grads"),
+                       ("opt_state_bytes", "optimizer state"),
+                       ("activations_bytes", "activations"),
+                       ("total_bytes", "**total**")):
+        lines.append(f"| {label} | {_fmt_bytes(pred.get(key))} |")
+    if report.get("mesh"):
+        lines += ["", f"Mesh plan: `{report['mesh']['describe']}`"]
+    if report.get("suggestion"):
+        s = report["suggestion"]
+        lines += ["", f"**Over budget** — {s.get('action')}"]
+        if s.get("suggested_fsdp"):
+            lines.append(f"Suggested fsdp: {s['current_fsdp']} -> "
+                         f"{s['suggested_fsdp']} "
+                         f"(pool {s['resident_pool']})")
+    est = report.get("estimated_mfu")
+    if est:
+        ceil = est.get("roofline_ceiling")
+        ach = est.get("achieved")
+        lines += ["", "Compiled-step estimate: "
+                  + (f"MFU ceiling {ceil:.1%}" if ceil is not None
+                     else "MFU ceiling unknown")
+                  + (f", achieved {ach:.2%}" if ach is not None else "")]
+    drift = report.get("drift")
+    if drift and drift.get("predicted_over_measured") is not None:
+        lines += ["", f"Predicted/measured peak HBM: "
+                  f"{drift['predicted_over_measured']:.2f}x "
+                  f"(tolerance {drift['tolerance_factor']}x, "
+                  f"{'OK' if drift['within_tolerance'] else 'DRIFTED'})"]
+    return "\n".join(lines) + "\n"
+
+
+def write_plan_report(report: dict, out_dir: str | None = None,
+                      strict: bool | None = None) -> tuple[str, str] | None:
+    """Write ``m2kt-plan-report.json`` and ``.md`` into ``out_dir``
+    (default: the ``M2KT_PLAN_REPORT`` directory; None when the knob is
+    off), each through a temporary file and a rename. ``strict`` (default
+    ``M2KT_PLAN_REPORT_STRICT``) turns an over-budget verdict into a
+    SystemExit; otherwise the suggestion goes to stderr."""
+    out_dir = out_dir if out_dir is not None else plan_report_dir()
+    if out_dir is None:
+        return None
+    paths = None
+    try:
+        os.makedirs(out_dir, exist_ok=True)
+        json_path = os.path.join(out_dir, "m2kt-plan-report.json")
+        md_path = os.path.join(out_dir, "m2kt-plan-report.md")
+        for path, payload in ((json_path, json.dumps(
+                report, indent=2, sort_keys=True) + "\n"),
+                (md_path, render_plan_markdown(report))):
+            tmp = path + f".tmp.{os.getpid()}"
+            with open(tmp, "w", encoding="utf-8") as f:
+                f.write(payload)
+            os.replace(tmp, path)
+        paths = (json_path, md_path)
+    except OSError:
+        pass
+    if report.get("verdict") == "over-budget":
+        if strict is None:
+            strict = os.environ.get(
+                PLAN_REPORT_STRICT_ENV, "0").lower() in ("1", "true", "on")
+        msg = (f"[m2kt] plan report: predicted "
+               f"{report['predicted']['total_bytes'] / 1e9:.2f} GB/chip "
+               f"exceeds the {report['fit']['budget_bytes'] / 1e9:.2f} GB "
+               f"budget; suggestion: {report.get('suggestion', {})}")
+        if strict:
+            raise SystemExit(msg)
+        import sys
+
+        print(msg, file=sys.stderr, flush=True)
+    return paths
 
 
 # ---------------------------------------------------------------------------

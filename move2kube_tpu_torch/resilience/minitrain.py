@@ -19,15 +19,26 @@ seed. Each step's batch is seeded by the step number alone, so two runs
 see identical data. Every step prints its loss with ``float.hex`` (its
 bits), so a resumed run can be held to an uninterrupted one exactly.
 
-Knobs: ``M2KT_STEPS`` (default 8), ``M2KT_BATCH_PER_DEVICE`` (default 4),
-``M2KT_CKPT_DIR``/``M2KT_CKPT_EVERY`` (checkpointing off when unset, like
-the emitted trainers), ``M2KT_STEP_SLEEP_S`` (default 0: pad steps so
-goodput numbers have visible magnitude), plus every ``M2KT_FAULT_*`` /
-``M2KT_PREEMPT_*`` knob of :mod:`.faults` and :mod:`.preemption`.
-``M2KT_NUM_SLICES`` above 1 and ``M2KT_FORCE_DEVICES`` (the reference's
-multislice drill) raise ``NotImplementedError``: the mesh paths come with
-ROADMAP Queue 1 item 9. Unlike the reference, this harness runs no cost
-model and no straggler detector.
+Multislice on the CPU: ``M2KT_FORCE_DEVICES=N`` (with ``M2KT_DEVICE=cpu``)
+starts N local gloo ranks (:func:`~move2kube_tpu_torch.parallel.mesh.
+launch_local_ranks`), the port's counterpart of the reference's N forced
+host devices in one process, and ``M2KT_NUM_SLICES=K`` makes the planner
+lay a ``dcn_dp=K`` outer data axis over them. The ranks train data
+parallel (the ring of :mod:`move2kube_tpu_torch.parallel.overlap`) and
+the pod's process exits with their common code (83 on ``slice_loss``), so
+the supervisor's elastic re-plan shrinks both knobs after a slice loss
+and the restarted attempt re-plans for the smaller world. Global batch:
+``M2KT_BATCH_PER_DEVICE`` (default 4) x the planned data x fsdp extents;
+each step's batch is seeded by the step alone and each rank takes its
+rows, so two runs with the same global batch see the same data whatever
+the world. Rank 0 prints, writes the goodput file and the span ring.
+
+Knobs: ``M2KT_STEPS`` (default 8), ``M2KT_CKPT_DIR``/``M2KT_CKPT_EVERY``
+(checkpointing off when unset, like the emitted trainers),
+``M2KT_STEP_SLEEP_S`` (default 0: pad steps so goodput numbers have
+visible magnitude), plus every ``M2KT_FAULT_*`` / ``M2KT_PREEMPT_*`` knob
+of :mod:`.faults` and :mod:`.preemption`. Unlike the reference, this
+harness runs no cost model and no straggler detector.
 """
 
 from __future__ import annotations
@@ -43,15 +54,6 @@ def _device():
     from move2kube_tpu_torch._device import resolve_device
 
     return resolve_device(os.environ.get("M2KT_DEVICE") or None)
-
-
-def _refuse_multislice() -> None:
-    raw = os.environ.get("M2KT_NUM_SLICES", "") or "1"
-    if (raw.isdigit() and int(raw) > 1) or os.environ.get(
-            "M2KT_FORCE_DEVICES", ""):
-        raise NotImplementedError(
-            "the multislice drill (M2KT_NUM_SLICES > 1, M2KT_FORCE_DEVICES) "
-            "needs the mesh paths of ROADMAP Queue 1 item 9")
 
 
 def build_state(device):
@@ -84,41 +86,78 @@ def make_batch(i: int, batch: int, device):
         np.random.default_rng(i).random((batch, DIM), np.float32)).to(device)
 
 
-def train_step(state, x):
+def train_step(state, x, group=None):
+    """One SGD step on ``x``; with a data ``group`` (the ring's) the
+    gradients are ring-reduced and the loss is the group's mean."""
     state.optimizer.zero_grad()
     out = state.model(x)
     loss = (out * out).mean()
     loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        from move2kube_tpu_torch.parallel import overlap
+
+        overlap.reduce_grads(state.model.parameters(), group)
+        loss = overlap.group_mean(loss, group)
     state.optimizer.step()
     state.step += 1
-    return state, loss.detach()
+    return state, loss
 
 
 def main() -> None:
-    _refuse_multislice()
     device = _device()
+
+    from move2kube_tpu_torch.parallel import mesh as m2kt_mesh
+
+    n_local = m2kt_mesh.local_device_count(device)
+    if n_local > 1 and not m2kt_mesh.is_rank_process():
+        sys.exit(m2kt_mesh.launch_local_ranks(
+            [sys.executable, "-m", "move2kube_tpu_torch.resilience.minitrain"],
+            n_local))
 
     from move2kube_tpu_torch.models import checkpoint as m2kt_ckpt
     from move2kube_tpu_torch.obs import tracing
+    from move2kube_tpu_torch.parallel import overlap
+    from move2kube_tpu_torch.parallel.topology import resolve_mesh_plan
     from move2kube_tpu_torch.resilience import faults, goodput, preemption
 
+    layout = m2kt_mesh.process_layout()
+    device = m2kt_mesh.rank_device(device, layout)
+    layout = m2kt_mesh.initialize_distributed(device)
+    lead = layout.rank == 0
     # per-step spans into the bounded ring, flushed to <flight>.ring on
     # every teardown-running exit path so the supervisor's flight
     # recorder can reconstruct the final seconds of a dead attempt
-    tracer = tracing.get() if tracing.enabled() else None
+    tracer = tracing.get() if tracing.enabled() and lead else None
     if tracer is not None:
         tracing.install_ring_flush()
 
     steps = int(os.environ.get("M2KT_STEPS", "8"))
     step_sleep = float(os.environ.get("M2KT_STEP_SLEEP_S", "0"))
-    batch = int(os.environ.get("M2KT_BATCH_PER_DEVICE", "4") or 4)
+    bpd = int(os.environ.get("M2KT_BATCH_PER_DEVICE", "4") or 4)
 
     gp = goodput.GoodputTracker()
     watcher = preemption.from_env()
     if watcher is not None:
         watcher.install()
-    print(f"[m2kt] device={device} global_batch={batch}", flush=True)
+    # the emitted trainers' startup: plan (num_slices from
+    # M2KT_NUM_SLICES, shrunk by the elastic supervisor after a slice
+    # loss), then the mesh over the ranks
+    plan = resolve_mesh_plan(layout.world)
+    m2kt_mesh.check_ported_mesh(plan.config)
+    batch = bpd * plan.config.data * plan.config.fsdp
+    group = None
+    if layout.world > 1:
+        mesh = m2kt_mesh.make_mesh(plan, device)
+        group = overlap.ring_group(mesh.get_group("data"))
+    if lead:
+        print(f"[m2kt] device={device} plan: {plan.describe()} "
+              f"devices={layout.world} global_batch={batch}", flush=True)
     state = build_state(device)
+    if group is not None:
+        overlap.broadcast_model(state.model, group)
+    per = batch // layout.world
+    rows = slice(layout.rank * per, (layout.rank + 1) * per)
 
     ckpt = m2kt_ckpt.from_env(default_every=1)
     start = 0
@@ -129,7 +168,8 @@ def main() -> None:
         if start:
             gp.note_resume(start)
             gp.note_saved(start)
-            print(f"[m2kt] resumed from step {start}", flush=True)
+            if lead:
+                print(f"[m2kt] resumed from step {start}", flush=True)
 
     preempted_at = None
     loss = None
@@ -137,8 +177,11 @@ def main() -> None:
         for i in range(start + 1, steps + 1):
             faults.maybe_inject(i)
             t0 = time.perf_counter()
-            state, loss = train_step(state, make_batch(i, batch, device))
-            print(f"[m2kt] step {i} loss {float(loss).hex()}", flush=True)
+            state, loss = train_step(state, make_batch(i, batch,
+                                                       device)[rows], group)
+            if lead:
+                print(f"[m2kt] step {i} loss {float(loss).hex()}",
+                      flush=True)
             if step_sleep:
                 time.sleep(step_sleep)
             t1 = time.perf_counter()
@@ -154,17 +197,19 @@ def main() -> None:
                 # can land
                 ckpt.wait()
                 gp.note_saved(i)
-                gp.write()
+                if lead:
+                    gp.write()
             if watcher is not None and watcher.should_stop(i):
                 preempted_at = i
                 break
     except SystemExit:
         # injected fault (slice_loss exits 83, exit kind exits N): a save
-        # still in flight must land before the process dies. The goodput
-        # report is deliberately NOT re-flushed here: post-checkpoint
-        # work is the supervisor's "lost" span.
+        # still in flight must land before the process dies (no barrier:
+        # the peers may be gone). The goodput report is deliberately NOT
+        # re-flushed here: post-checkpoint work is the supervisor's
+        # "lost" span.
         if ckpt is not None:
-            ckpt.wait()
+            ckpt.flush()
         raise
     finally:
         if watcher is not None:
@@ -176,18 +221,24 @@ def main() -> None:
                 ckpt.maybe_save(last, state, force=True)
             ckpt.close()  # block: the last save must land before exit
         gp.note_saved(last)
-    if loss is not None:
-        print(f"[m2kt] step={gp.steps_done} loss={float(loss):.6f}",
-              flush=True)
-    gp.write()
     rep = gp.report()
+    if lead:
+        if loss is not None:
+            print(f"[m2kt] step={gp.steps_done} loss={float(loss):.6f}",
+                  flush=True)
+        gp.write()
+        if preempted_at is not None:
+            print(f"[m2kt] preempted: last-chance checkpoint at step "
+                  f"{preempted_at}; goodput={rep['goodput_fraction']:.2%}",
+                  flush=True)
+        else:
+            print(f"[m2kt] done steps={steps} "
+                  f"goodput={rep['goodput_fraction']:.2%}", flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     if preempted_at is not None:
-        print(f"[m2kt] preempted: last-chance checkpoint at step "
-              f"{preempted_at}; goodput={rep['goodput_fraction']:.2%}",
-              flush=True)
         sys.exit(143)
-    print(f"[m2kt] done steps={steps} "
-          f"goodput={rep['goodput_fraction']:.2%}", flush=True)
 
 
 if __name__ == "__main__":

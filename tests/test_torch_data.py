@@ -349,8 +349,9 @@ finally:
 
 
 def test_shards_follow_the_process_group(tmp_path):
-    """In a two-process gloo world each process reads its own contiguous
-    half with the reference's permutation of it."""
+    """In a two-process gloo world of two hosts (one rank each) each
+    process reads its own host's contiguous half with the reference's
+    permutation of it."""
     import socket
     import subprocess
     import sys
@@ -363,6 +364,8 @@ def test_shards_follow_the_process_group(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if not k.startswith("M2KT_")}
     env["PYTHONPATH"] = repo
+    # the host count is the launcher's; the ranks of a host are consecutive
+    env["M2KT_NUM_HOSTS"] = "2"
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(r), str(port), str(tmp_path)],
         cwd=tmp_path, env=env, stdout=subprocess.PIPE,

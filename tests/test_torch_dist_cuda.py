@@ -1,0 +1,121 @@
+"""The port's data-parallel step on a card: two gloo ranks share ``cuda:0``
+(each ring hop through pinned host memory) and train the tiny Llama two
+steps through the overlapped path (``grad_accum`` 2, the attention in the
+flash kernels). Their parameters end with the same bits; the ring's
+result on the card has the bits of the same ring on CPU tensors; each
+rank's kernel launches are its passes.
+
+Every test here needs a CUDA card and skips without one. The file imports
+neither JAX nor the JAX package, so it runs where only PyTorch is
+installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_dist_cuda.py
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+RANK = r'''
+import dataclasses, hashlib, json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, n, store, out = int(sys.argv[1]), 2, sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(store, n), rank=rank,
+                        world_size=n)
+try:
+    from move2kube_tpu_torch.models import llama
+    from move2kube_tpu_torch.models import train as T
+    from move2kube_tpu_torch.models.convert import init_llama
+    from move2kube_tpu_torch.ops.attention import KERNELS, reset_launch_counts
+    from move2kube_tpu_torch.parallel import overlap
+    from move2kube_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(rank + 5)
+    leaves = [rng.normal(size=s).astype(np.float32) for s in ((3,), (64, 5))]
+    on_card = overlap.ring_all_reduce([torch.from_numpy(a).cuda()
+                                       for a in leaves])
+    cpu_group = dist.new_group([0, 1], backend="gloo")
+    on_cpu = overlap.ring_all_reduce([torch.from_numpy(a) for a in leaves],
+                                     cpu_group)
+    ring_same = all(a.cpu().numpy().tobytes() == b.numpy().tobytes()
+                    for a, b in zip(on_card, on_cpu))
+    mesh = make_mesh(MeshConfig(data=n), device="cuda")
+    # head_dim 64, a width the kernels take
+    cfg = dataclasses.replace(llama.llama_tiny(), dtype=torch.float32,
+                              num_heads=2, num_kv_heads=2,
+                              attn_impl="flash")
+    model = init_llama(cfg, seed=rank, device="cuda", dtype=torch.float32)
+    state = T.TrainState(model, T.adamw(model.parameters(), 1e-3))
+    step = T.make_lm_train_step(grad_accum=2, mesh=mesh)
+    ids = np.random.default_rng(0).integers(0, 512, (2, 2, 4, 64))
+    reset_launch_counts()
+    shas = []
+    for t in range(2):
+        local = torch.from_numpy(ids[t][:, rank * 2:(rank + 1) * 2]).cuda()
+        state, loss = step(state, {"input_ids": local})
+        h = hashlib.sha256()
+        for p in model.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+        shas.append(h.hexdigest())
+    with open(f"{out}-{rank}.json", "w") as f:
+        json.dump({"ring_same": ring_same, "shas": shas,
+                   "launches": {k.name: k.launches for k in KERNELS},
+                   "loss": float(loss)}, f)
+finally:
+    dist.destroy_process_group()
+'''
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_two_ranks_on_one_card_train_bit_identically(cuda, tmp_path):
+    script = tmp_path / "rank.py"
+    script.write_text(RANK)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("M2KT_")}
+    env["PYTHONPATH"] = REPO
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(r), str(tmp_path / "store"),
+         str(tmp_path / "out")], cwd=tmp_path, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    try:
+        done = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, done):
+        assert p.returncode == 0, err[-3000:]
+    docs = [json.loads((tmp_path / f"out-{r}.json").read_text())
+            for r in (0, 1)]
+    assert all(d["ring_same"] for d in docs)
+    assert docs[0]["shas"] == docs[1]["shas"]
+    assert docs[0]["loss"] == docs[1]["loss"]
+    # 2 steps x 2 microbatches x 2 layers: the forward and its remat
+    # recompute, and each backward kernel once
+    layers, passes = 2, 2 * 2
+    for d in docs:
+        assert d["launches"] == {
+            "flash_fwd": 2 * layers * passes,
+            "flash_bwd_dq": layers * passes,
+            "flash_bwd_dkv": layers * passes, "paged_decode": 0,
+            "paged_decode_int8": 0}

@@ -232,3 +232,43 @@ def test_importing_the_emission_modules_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# item 9a: the mesh, the planner, the sharding rules the memory plan
+# reads, the memory plan and the ring
+MESH_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/topology.py", "parallel/sharding.py",
+                "parallel/memory.py", "parallel/overlap.py")
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_modules_import_nothing_of_jax(module):
+    path = REPO / "move2kube_tpu_torch" / module
+    assert path in _port_files()
+    bad = [f"{line} imports {root}" for line, root in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_mesh_modules_loads_no_jax():
+    mods = ", ".join("move2kube_tpu_torch." + m[:-3].replace("/", ".")
+                     .removesuffix(".__init__") for m in MESH_MODULES)
+    code = (f"import sys, {mods}; bad = [m for m in sys.modules if "
+            f"m.split('.')[0] in {FORBIDDEN!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_process_group_entry_points_default_to_the_card():
+    """``make_mesh`` is on the card unless asked for the CPU, as every
+    entry point of the port: without a card it raises before any group
+    is touched."""
+    from move2kube_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()

@@ -5,7 +5,7 @@ at step 5 is classified retryable and the restarted attempt resumes from
 the step-4 checkpoint, with the exit file, goodput file and flight doc
 of the reference's shape and the losses of an uninterrupted run, bit for
 bit; retry exhaustion reports the last rc; the SIGTERM handler comes
-back on every way out; minitrain refuses the multislice drill and a
+back on every way out; minitrain refuses forced CPU ranks on a card and a
 missing card.
 
 Hygiene: every subprocess runs with ``cwd`` under ``tmp_path``, an env
@@ -181,15 +181,23 @@ def test_retry_exhaustion_reports_last_rc(supervised):
 
 
 def test_minitrain_refuses_multislice_and_a_missing_card(monkeypatch):
-    monkeypatch.setenv("M2KT_NUM_SLICES", "2")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        minitrain.main()
-    monkeypatch.delenv("M2KT_NUM_SLICES")
+    """The multislice drill runs (``tests/test_torch_dist_train.py``);
+    forced ranks are CPU ranks, so ``M2KT_FORCE_DEVICES`` on a card is
+    refused, and without a card and ``M2KT_DEVICE=cpu`` minitrain raises
+    before it starts a rank, with or without slices."""
+    from move2kube_tpu_torch.parallel.mesh import local_device_count
+
     monkeypatch.setenv("M2KT_FORCE_DEVICES", "8")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        minitrain.main()
-    monkeypatch.delenv("M2KT_FORCE_DEVICES")
+    with pytest.raises(ValueError, match="M2KT_DEVICE=cpu"):
+        local_device_count("cuda")
+    assert local_device_count("cpu") == 8
     monkeypatch.delenv("M2KT_DEVICE", raising=False)
+    monkeypatch.setenv("M2KT_NUM_SLICES", "2")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            minitrain.main()
+    monkeypatch.delenv("M2KT_NUM_SLICES")
+    monkeypatch.delenv("M2KT_FORCE_DEVICES")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             minitrain.main()
