@@ -155,7 +155,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    one-rank run on the same global batch; the step's wall time, the
    ring's seconds (host copies and gloo apart), the bytes reduced a step
    and the card's busy share beside the one-rank step
-16. one JSON line with every kernel's numbers, then the result line
+16. item 9b (``fsdp_phase``): two ranks of Llama-8B at full width, cut to
+   2 layers, share the card in a gloo group (``--fsdp-rank`` children)
+   and train ZeRO-3 (fsdp=2), 3 steps of grad_accum 2 under the bf16
+   policy and fp32 through the prefetched schedule and 2 of fp32 through
+   the sequential one; each rank's parameter and Adam moment bytes are
+   the memory plan's per-device bytes; in every step each gathered leaf
+   the step used holds the rank's shard as its slice and has one digest
+   on both ranks, and so do the replicated leaves after it;
+   the flash launches are the passes, and under fp32 the loss and every
+   parameter match a one-rank run on the same global batch and the two
+   schedules each other; each rank's peak against the plan and the
+   one-rank fp32 run, the step's wall time, the gathers' and
+   reduce-scatters' seconds and bytes and the card's busy share
+17. one JSON line with every kernel's numbers, then the result line
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -5530,6 +5543,483 @@ def _mesh_init_params(torch) -> dict:
                           dtype=torch.float32).named_parameters())
 
 
+# fsdp_phase: Llama-8B at full width, cut to FSDP_LAYERS layers, trained
+# ZeRO-3 (fsdp=2) by two ranks that share the one card (a gloo group, each
+# ring hop through pinned host memory): each rank holds its shards of the
+# parameters and of the Adam moments, gathers them once a step and
+# reduce-scatters each microbatch's gradients (grad_accum 2, the
+# prefetched schedule; once more M2KT_FSDP_PREFETCH=off's sequential one).
+# Each rank takes 1 row of 2048 tokens a microbatch
+FSDP_RANKS, FSDP_ACCUM, FSDP_STEPS, FSDP_LAYERS = 2, 2, 3, 2
+# the sequential schedule's run, held to the prefetched one's tree after
+# as many steps
+FSDP_OFF_STEPS = 2
+FSDP_SEQ = 2048
+FSDP_CHILD_TIMEOUT_S = 600
+# fp32 against one rank on the same global batch, and the two schedules
+# against each other: the same arithmetic with the sums in another order
+# (ranks, ring, microbatches), as in mesh_phase. The loss within 1e-5
+# relative; each parameter's distance within 1e-3 of its 3-step update's
+# norm, AdamW's rounding-level entries moving by up to the learning rate
+# (MESH_UPDATE_REL's reason). Llama has no bias whose gradient is
+# rounding noise alone
+FSDP_LOSS_REL = 1e-5
+FSDP_UPDATE_REL = 1e-3
+FSDP_LR = 1e-4
+
+
+def _fsdp_cfg():
+    from move2kube_tpu_torch import llama_8b
+
+    return dataclasses.replace(llama_8b(), num_layers=FSDP_LAYERS,
+                               max_len=FSDP_SEQ, attn_impl="flash")
+
+
+def _fsdp_batches(vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(SEED + 29).integers(
+        0, vocab, (FSDP_STEPS, FSDP_ACCUM, FSDP_RANKS, FSDP_SEQ))
+
+
+def _fsdp_train(torch, mode: str, ids, mesh=None, on_step=None,
+                steps: int = FSDP_STEPS):
+    """``steps`` steps of the cut Llama-8B (fp32 masters, ``mode``'s
+    policy, AdamW at FSDP_LR, remat, grad_accum FSDP_ACCUM) on ``ids``
+    [steps, k, rows, seq]: sharded over ``mesh``'s fsdp axis when given
+    (``create_sharded_state``, seed SEED), else ``init_llama``'s whole
+    tree from the same seed; ``on_step(t, state, loss, ms)`` after each
+    synchronised step, the last one under the profiler. Returns (state,
+    the profiled step's busy ms)."""
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        create_sharded_state,
+        init_llama,
+        instrument_optimizer,
+        make_lm_train_step,
+        policy,
+    )
+
+    pol = policy(mode)
+
+    def make_opt(params):
+        return instrument_optimizer(pol.wrap_optimizer(
+            adamw(params, FSDP_LR, weight_decay=0.1)))
+
+    cfg = _fsdp_cfg()
+    if mesh is not None:
+        state = create_sharded_state(cfg, mesh, make_opt, seed=SEED,
+                                     device="cuda")
+    else:
+        model = init_llama(cfg, seed=SEED, device="cuda",
+                           dtype=torch.float32)
+        state = TrainState(model, make_opt(model.parameters()))
+    step = make_lm_train_step(grad_accum=FSDP_ACCUM, precision=pol,
+                              mesh=mesh)
+    busy = None
+    for t in range(steps):
+        batch = {"input_ids": ids[t]}
+        out, wall = [], []
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(step(state, batch))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+
+        if t == steps - 1:
+            busy = _profiled(torch, f"fsdp {mode} step {t + 1}", run)
+        else:
+            run()
+        state, loss = out[0]
+        if on_step is not None:
+            on_step(t, state, float(loss), wall[0])
+    return state, busy
+
+
+def _fsdp_resident(state) -> tuple[int, int]:
+    """A state's resident bytes: its parameters, and its Adam moments."""
+    params = sum(p.numel() * p.element_size()
+                 for p in state.model.parameters())
+    moments = sum(v.numel() * v.element_size()
+                  for slots in state.optimizer.inner.state.values()
+                  for k, v in slots.items() if k in ("exp_avg",
+                                                     "exp_avg_sq"))
+    return params, moments
+
+
+# a digest's chunk of entries: bounds its int64 temporaries to 64 MB
+_DIGEST_CHUNK = 1 << 23
+
+
+def _device_digest(torch, t) -> str:
+    """Two int64 sums of ``t``'s bits, plain and weighted by position,
+    computed on ``t``'s device: equal for equal bits, and for a flipped
+    bit or moved entries unequal but by chance."""
+    bits = t.detach().contiguous().view(-1)
+    bits = bits.view({2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[bits.element_size()])
+    plain = weighted = 0
+    for at in range(0, bits.numel(), _DIGEST_CHUNK):
+        x = bits[at:at + _DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(at, at + x.numel(), device=x.device) % 65521 + 1
+        plain += int(x.sum())
+        weighted += int((x * w).sum())
+    return f"{plain}:{weighted}"
+
+
+def _gathered_tree(state, ring, gather) -> dict:
+    """The state's parameters at their global shapes on the host (each
+    shard all-gathered through ``ring`` by ``gather``)."""
+    lay = state.model.fsdp_layout
+    out = {}
+    for name, p in state.model.named_parameters():
+        dim = lay.dims[name]
+        full = p.detach() if dim is None else gather(p.detach(), ring, dim)
+        out[name] = full.cpu()
+    return out
+
+
+def fsdp_rank_child() -> int:
+    """One rank of :func:`fsdp_phase`'s world (``python chip_smoke.py
+    --fsdp-rank OUT``; the launcher's env names the rank and the
+    rendezvous): both ranks on ``cuda:0`` in a gloo group, the bf16 policy,
+    fp32, then fp32 under ``M2KT_FSDP_PREFETCH=off``. Every all-gather the
+    steps make is checked as it returns: this rank's shard is its slice of
+    the gathered tensor, bit for bit, and the tensor's digest
+    (:func:`_device_digest`) is kept; after each step the step's digests
+    and the replicated leaves' are hashed. Prints one ``FSDP_RESULT``
+    JSON line; rank 0 saves the fp32 prefetched run's gathered parameters
+    after its last step (``OUT-auto.pt``, for the one-rank run) and holds
+    the sequential run's after its last to the prefetched run's after as
+    many steps (the result's ``off_vs_auto``). Those gathers are outside
+    the steps, their checks and their ring counts."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from move2kube_tpu_torch import reset_launch_counts
+    from move2kube_tpu_torch.models.convert import meta_model
+    from move2kube_tpu_torch.ops.attention import KERNELS
+    from move2kube_tpu_torch.parallel import overlap
+    from move2kube_tpu_torch.parallel.memory import train_memory_plan
+    from move2kube_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        initialize_distributed,
+        make_mesh,
+    )
+
+    out = sys.argv[2]
+    layout = initialize_distributed("cuda:0", backend="gloo")
+    gather = overlap.ring_all_gather
+    seen = {"digests": [], "slices_ok": True}
+
+    def checked_gather(shard, group=None, dim=0, stream=None):
+        # every gather of the step (the leaves its forward used, and the
+        # optimizer's scalars): the rank's shard is its slice
+        full = gather(shard, group, dim, stream)
+        size = shard.shape[dim]
+        r = dist.get_rank(group or dist.group.WORLD)
+        seen["slices_ok"] &= torch.equal(full.narrow(dim, r * size, size),
+                                         shard)
+        seen["digests"].append(_device_digest(torch, full))
+        return full
+
+    overlap.ring_all_gather = checked_gather
+    try:
+        mesh = make_mesh(MeshConfig(fsdp=layout.world), device="cuda")
+        ring = overlap.mesh_ring_group(mesh, ("fsdp",))
+        cfg = _fsdp_cfg()
+        ids = torch.from_numpy(_fsdp_batches(cfg.vocab_size)[
+            :, :, layout.rank:layout.rank + 1]).cuda()
+        extents = dict.fromkeys(MeshConfig.AXES, 1)
+        extents["fsdp"] = layout.world
+        plan = train_memory_plan(meta_model(cfg), extents, seq_len=FSDP_SEQ,
+                                 batch_per_chip=1, d_model=cfg.d_model,
+                                 num_layers=cfg.num_layers,
+                                 vocab_size=cfg.vocab_size)
+        result = {"plan": {"params": plan.params,
+                           "opt_state": plan.opt_state,
+                           "total": plan.total}}
+        # the prefetched fp32 run's tree after FSDP_OFF_STEPS steps
+        at_step2 = {}
+        for mode, sched, n_steps in (("bf16", "auto", FSDP_STEPS),
+                                     ("fp32", "auto", FSDP_STEPS),
+                                     ("fp32", "off", FSDP_OFF_STEPS)):
+            os.environ["M2KT_FSDP_PREFETCH"] = sched
+            steps = []
+            keep = (mode, sched) == ("fp32", "auto")
+            seen.update(digests=[], slices_ok=True)
+
+            def on_step(t, state, loss, ms, steps=steps, keep=keep):
+                lay = state.model.fsdp_layout
+                rep = " ".join(
+                    _device_digest(torch, p)
+                    for name, p in state.model.named_parameters()
+                    if lay.dims[name] is None)
+                steps.append({
+                    "loss": loss, "ms": ms,
+                    "replicated": hashlib.sha256(rep.encode()).hexdigest(),
+                    "gathered": hashlib.sha256(
+                        " ".join(seen["digests"]).encode()).hexdigest(),
+                    "gathers": len(seen["digests"]),
+                    "slices_ok": bool(seen["slices_ok"]),
+                    "ring": dict(overlap.RING_STATS)})
+                if keep and t == FSDP_OFF_STEPS - 1:
+                    # the tree the sequential run is held to, gathered
+                    # outside the steps and their ring counts
+                    ring_stats = dict(overlap.RING_STATS)
+                    at_step2.update(_gathered_tree(state, ring, gather))
+                    overlap.RING_STATS.update(ring_stats)
+                seen.update(digests=[], slices_ok=True)
+
+            reset_launch_counts()
+            overlap.reset_ring_stats()
+            torch.cuda.reset_peak_memory_stats()
+            state, busy = _fsdp_train(torch, mode, ids, mesh, on_step,
+                                      n_steps)
+            params, moments = _fsdp_resident(state)
+            # what the schedule holds beyond the plan: the plan report's
+            # flag of it
+            extra = overlap.fsdp_transient_bytes(
+                state.model.fsdp_layout, overlap.fsdp_prefetched(mesh),
+                FSDP_ACCUM, torch.bfloat16 if mode == "bf16"
+                else torch.float32)
+            result[f"{mode}-{sched}"] = {
+                "steps": steps, "busy_ms": busy, "transients": extra,
+                "params_bytes": params, "moment_bytes": moments,
+                "peak": torch.cuda.max_memory_allocated(),
+                "launches": {k.name: k.launches for k in KERNELS}}
+            if mode == "fp32":
+                tree = _gathered_tree(state, ring, gather)
+                if layout.rank == 0 and sched == "auto":
+                    torch.save(tree, f"{out}-{sched}.pt")
+                elif layout.rank == 0:
+                    from move2kube_tpu_torch import init_llama
+
+                    init = {n: p.detach().cpu() for n, p in init_llama(
+                        cfg, seed=SEED, device="cuda",
+                        dtype=torch.float32).named_parameters()}
+                    result["off_vs_auto"] = _worst_update(
+                        torch, at_step2, tree, init)
+                    del init
+                del tree
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        print("FSDP_RESULT " + json.dumps(result), flush=True)
+    finally:
+        overlap.ring_all_gather = gather
+        dist.destroy_process_group()
+    return 0
+
+
+def _worst_update(torch, theirs: dict, mine: dict, init: dict):
+    """(the largest distance of a parameter of ``mine`` from ``theirs``
+    in units of its update from ``init``, its name)."""
+    worst = (0.0, "")
+    for n, p in theirs.items():
+        upd = float(torch.linalg.vector_norm(p - init[n]))
+        err = float(torch.linalg.vector_norm(mine[n] - p)) / max(upd, 1e-30)
+        worst = max(worst, (err, n))
+    return worst
+
+
+def fsdp_phase(torch) -> dict:
+    """Item 9b on the one card: two ranks of Llama-8B at full width, cut
+    to FSDP_LAYERS layers, share ``cuda:0`` in a gloo world and train
+    FSDP_STEPS steps of grad_accum 2 ZeRO-3 (fsdp=2), under the bf16
+    policy and fp32 through the prefetched schedule, and FSDP_OFF_STEPS
+    of fp32 through the sequential one. Gates: each rank's resident
+    parameter and Adam moment bytes equal the memory plan's per-device
+    ``params`` and ``opt_state`` at {fsdp: 2} to the byte; in every step
+    each rank's shard is its slice of every tree it gathered, and the
+    gathered trees (by their digests) are bit-identical on both ranks, so
+    the shards put together are the tree each rank used; after every
+    step the replicated leaves are bit-identical across the ranks (by
+    their digests); each rank's flash launches are its passes x layers; under fp32 the loss
+    and each parameter after the steps match a one-rank unsharded run on
+    the same global batch, and the sequential schedule the prefetched one
+    after as many steps (FSDP_LOSS_REL, FSDP_UPDATE_REL). Reports each
+    rank's peak against the plan's prediction (and the fp32 runs' against
+    the one-rank run's), the step's wall time, the gathers' and
+    reduce-scatters' seconds and bytes (host copies and gloo apart) and
+    the device's busy share. Returns both ranks' launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="m2kt-fsdp-")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("M2KT_") and k != "PYTHONPATH"}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               M2KT_LOCAL_WORLD=str(FSDP_RANKS), M2KT_DIST_TIMEOUT_S="300")
+    cfg = _fsdp_cfg()
+    try:
+        ranks = [_Child(f"fsdp rank {r}", [
+            sys.executable, os.path.join(here, "chip_smoke.py"),
+            "--fsdp-rank", os.path.join(work, "rank")],
+            dict(env, M2KT_LOCAL_RANK=str(r)), here)
+            for r in range(FSDP_RANKS)]
+        rcs = []
+        for child in ranks:
+            # a rank that failed leaves its peer waiting in the ring
+            rcs.append(child.finish(FSDP_CHILD_TIMEOUT_S if not any(rcs)
+                                    else 30))
+        if any(rcs):
+            raise RuntimeError(f"fsdp: ranks exited {rcs}")
+        res = [json.loads(next(x for x in c.lines if x.startswith(
+            "FSDP_RESULT ")).split(" ", 1)[1]) for c in ranks]
+        runs = {"bf16-auto": FSDP_STEPS, "fp32-auto": FSDP_STEPS,
+                "fp32-off": FSDP_OFF_STEPS}
+        plan = res[0]["plan"]
+        launches = dict.fromkeys(res[0]["fp32-auto"]["launches"], 0)
+        for r, doc in enumerate(res):
+            for run, n_steps in runs.items():
+                d = doc[run]
+                want = _want_train_launches(n_steps * FSDP_ACCUM,
+                                            FSDP_LAYERS)
+                if (d["params_bytes"], d["moment_bytes"]) != (
+                        plan["params"], plan["opt_state"]):
+                    raise RuntimeError(
+                        f"fsdp: rank {r} {run} holds {d['params_bytes']} B "
+                        f"of parameters and {d['moment_bytes']} B of Adam "
+                        f"moments; the plan at fsdp=2 says {plan['params']}"
+                        f" and {plan['opt_state']}")
+                _check_launches(f"fsdp: rank {r} {run}", d["launches"],
+                                want)
+                for name, n in d["launches"].items():
+                    launches[name] += n
+                for t, step in enumerate(d["steps"]):
+                    if not step["slices_ok"] or not step["gathers"]:
+                        raise RuntimeError(
+                            f"fsdp: rank {r} {run} step {t + 1}: a shard is"
+                            " not its slice of a tree the step gathered "
+                            f"({step['gathers']} gathers)")
+        gathers = {}
+        for run in runs:
+            for t, step in enumerate(res[0][run]["steps"]):
+                gathers[run] = gathers.get(run, []) + [step["gathers"]]
+                for what in ("gathered", "replicated"):
+                    shas = {doc[run]["steps"][t][what] for doc in res}
+                    if len(shas) != 1:
+                        raise RuntimeError(f"fsdp: {run} step {t + 1}: the "
+                                           f"ranks' {what} trees differ "
+                                           f"{shas}")
+        log(f"fsdp: each rank holds {plan['params']} B of parameters and "
+            f"{plan['opt_state']} B of Adam moments, the memory plan's "
+            f"per-device bytes at fsdp=2; in every step of every run each "
+            f"rank's shards are their slices of every tree it gathered "
+            f"(gathers a step {gathers}), the gathered trees have one "
+            f"digest on both ranks and, after the step, the replicated "
+            f"leaves one digest; launches a rank a run are {FSDP_LAYERS} "
+            f"layers x the microbatches")
+
+        # one rank on the same global batch, unsharded
+        ids = torch.from_numpy(_fsdp_batches(cfg.vocab_size)).cuda()
+        one = {}
+        from move2kube_tpu_torch import init_llama
+
+        init = {n: p.detach().cpu() for n, p in init_llama(
+            cfg, seed=SEED, device="cuda",
+            dtype=torch.float32).named_parameters()}
+        # the fp32 policy alone: the bf16 runs have no one-rank twin
+        steps = []
+        torch.cuda.reset_peak_memory_stats()
+        state, busy = _fsdp_train(
+            torch, "fp32", ids, None,
+            lambda t, st, loss, ms, steps=steps: steps.append(
+                {"loss": loss, "ms": ms}))
+        one["fp32"] = (steps, busy, torch.cuda.max_memory_allocated())
+        mine = {n: p.detach().cpu()
+                for n, p in state.model.named_parameters()}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        gates = []
+        for label, run, worst, ref_steps in (
+                ("two ranks (prefetched) against one", "fp32-auto",
+                 _worst_update(torch, mine, torch.load(
+                     os.path.join(work, "rank-auto.pt")), init), steps),
+                ("the sequential schedule against the prefetched",
+                 "fp32-off", tuple(res[0]["off_vs_auto"]),
+                 res[0]["fp32-auto"]["steps"])):
+            losses = [(a["loss"], b["loss"]) for a, b in zip(
+                res[0][run]["steps"], ref_steps)]
+            loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+            gates.append((label, losses, loss_err, worst, runs[run]))
+            if loss_err > FSDP_LOSS_REL or worst[0] > FSDP_UPDATE_REL:
+                raise RuntimeError(
+                    f"fsdp: fp32, {label}: losses {losses} "
+                    f"({loss_err:.2e} > {FSDP_LOSS_REL}?), worst "
+                    f"parameter {worst[1]} at {worst[0]:.2e} of its "
+                    f"update (> {FSDP_UPDATE_REL}?)")
+        for label, losses, loss_err, worst, n_steps in gates:
+            log(f"fsdp: fp32, {label} on the same global batch: "
+                f"losses {losses}, largest relative difference "
+                f"{loss_err:.2e} (gate {FSDP_LOSS_REL}); worst "
+                f"parameter {worst[1]} {worst[0]:.2e} of its "
+                f"{n_steps}-step update (gate {FSDP_UPDATE_REL})")
+        for run in runs:
+            mode = run.split("-")[0]
+            steps = res[0][run]["steps"]
+            totals = [x["ring"] for x in steps]
+            ring = [totals[0]] + [{k: b[k] - a[k] for k in a}
+                                  for a, b in zip(totals, totals[1:])]
+            r2 = ring[1]
+            busy = sum(doc[run]["busy_ms"] for doc in res)
+            wall = steps[-1]["ms"]
+            peaks = [doc[run]["peak"] for doc in res]
+            extra = res[0][run]["transients"]
+            vs_one = ""
+            if mode in one:
+                one_steps, one_busy, one_peak = one[mode]
+                vs_one = (
+                    f" and one rank's {one_peak} B on the global batch ("
+                    + ", ".join(f"{p / one_peak:.3f}" for p in peaks)
+                    + " of it); one rank: "
+                    + ", ".join(f"{x['ms']:.1f}" for x in one_steps)
+                    + f" ms a step, {one_busy:.1f} ms busy of "
+                    f"{one_steps[-1]['ms']:.1f}")
+            log(f"fsdp: {run}, 2 ranks x 1 row x {FSDP_ACCUM} microbatches "
+                f"of {FSDP_SEQ} (global 2 rows): step wall "
+                + ", ".join(f"{x['ms']:.1f}" for x in steps)
+                + f" ms (step 1 warms up, step {runs[run]} profiled); "
+                f"rank 0, step 2: all-gathers {r2['ag_calls']} calls "
+                f"{r2['ag_bytes'] / 1e9:.3f} GB (host copies "
+                f"{r2['ag_copy_s'] * 1e3:.1f} ms, gloo hops "
+                f"{r2['ag_ring_s'] * 1e3:.1f} ms), reduce-scatters "
+                f"{r2['rs_calls']} calls {r2['rs_bytes'] / 1e9:.3f} GB "
+                f"(host copies {r2['rs_copy_s'] * 1e3:.1f} ms, gloo hops and "
+                f"additions {r2['rs_ring_s'] * 1e3:.1f} ms), all-reduces "
+                f"{r2['calls']} calls {r2['bytes'] / 1e9:.3f} GB (host copies"
+                f" {r2['copy_s'] * 1e3:.1f} ms, gloo {r2['ring_s'] * 1e3:.1f}"
+                f" ms); the profiled step: both ranks' kernels busy "
+                f"{busy:.1f} ms of its {wall:.1f} ms ({100 * busy / wall:.1f}"
+                f" % busy); peak {peaks} B a rank against the plan's "
+                f"{plan['total']} B (drift "
+                + ", ".join(f"{plan['total'] / p:.3f}" for p in peaks)
+                + f"; with the {extra['schedule']} schedule's "
+                f"{extra['total_bytes']} B beyond it, "
+                + ", ".join(f"{(plan['total'] + extra['total_bytes']) / p:.3f}"
+                            for p in peaks)
+                + f"){vs_one} ({CARD})")
+        log(f"fsdp: phase {time.perf_counter() - t_phase:.1f} s ({CARD})")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -5625,9 +6115,12 @@ def main() -> int:
         train_launches[name] += emitted[name]
     # item 9a: two ranks of GPT-2 small on the one card
     mesh = mesh_phase(torch)
-    launches["flash_fwd"] += mesh["flash_fwd"]
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        train_launches[name] += mesh[name]
+    # item 9b: two ZeRO-3 ranks of Llama-8B's width on the one card
+    fsdp = fsdp_phase(torch)
+    for part in (mesh, fsdp):
+        launches["flash_fwd"] += part["flash_fwd"]
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            train_launches[name] += part[name]
     main_flash = flash_rows[-1]  # s=2048, the longest prefill bucket
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
@@ -5686,4 +6179,6 @@ if __name__ == "__main__":
         sys.exit(resilience_child())
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank_child())
+    if sys.argv[1:2] == ["--fsdp-rank"]:
+        sys.exit(fsdp_rank_child())
     sys.exit(main())

@@ -18,8 +18,10 @@ Model families: Llama (MoE included, :mod:`.models.moe`) and GPT-2
 and the diffusion UNet (:mod:`.models.bert`, :mod:`.models.resnet`,
 :mod:`.models.unet`) with their train steps, in plain PyTorch as the JAX
 package runs them outside any Pallas kernel.
-Training: the single-device LM step (:mod:`.models.train`) with fp32
-master weights, the family steps, the precision policies
+Training: the LM step (:mod:`.models.train`) with fp32 master weights,
+on one card or a mesh of data and fsdp (ZeRO-3) ranks
+(:mod:`.parallel`, :func:`create_sharded_state`), the family steps, the
+precision policies
 (:mod:`.models.precision`) and the head-folded chunked cross-entropy
 (:mod:`.ops.crossentropy`). Attention
 runs in hand-written CUDA kernels (:mod:`.ops.attention`): the flash
@@ -99,6 +101,7 @@ from move2kube_tpu_torch.models.train import (
     TrainState,
     adam,
     adamw,
+    create_sharded_state,
     default_optimizer,
     grad_norm_from_state,
     instrument_optimizer,
@@ -248,6 +251,7 @@ __all__ = [
     "adam",
     "adamw",
     "bake_prewarm",
+    "create_sharded_state",
     "bert_base",
     "bert_params_from_torch",
     "bert_tiny",

@@ -320,7 +320,15 @@ class _Server:
             self.fanout.publish(rid, tok)
 
         self.engine.on_token = _on_token
-        threading.Thread(target=self._loop, daemon=True).start()
+        self._stopping = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop the step loop and wait for it: no thread runs the engine
+        while the interpreter shuts down."""
+        self._stopping.set()
+        self._thread.join(timeout)
 
     def _finish(self, rid: str, outcome) -> None:
         """Hand a completion (or the error that replaced it) to the
@@ -359,7 +367,7 @@ class _Server:
         # /stats' launch counts cover the traffic from here on
         reset_launch_counts()
         self.ready.set()
-        while True:
+        while not self._stopping.is_set():
             # unlike the JAX program, the wait for a request happens only
             # when the engine is idle: a decode step never waits on it
             try:
@@ -1053,6 +1061,7 @@ def main() -> None:
           f"quant={SERVE_QUANT} kernels={SERVE_KERNELS} spec_k={SPEC_K} "
           f"async={ASYNC_DECODE} substeps={DECODE_SUBSTEPS}", flush=True)
     httpd.serve_forever()
+    server.close()
 
 
 if __name__ == "__main__":

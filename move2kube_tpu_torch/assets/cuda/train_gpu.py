@@ -22,10 +22,14 @@ devices (``resolve_mesh_plan`` with the baked topology, degrees and
 slice count; an explicit ``M2KT_MESH_*`` whose product is the world
 wins) and prints the JAX trainer's plan line, with ``layout=[]``. The
 global batch is ``BATCH_PER_DEVICE`` x data x fsdp and each rank trains
-its rows of it; gradients are ring-reduced (``parallel/overlap.py``). A
-plan with an fsdp, tensor, seq, expert or pipe axis above 1, and ring or
-Ulysses attention, exit 2 naming the ROADMAP slice (Queue 1 items 9b-9e)
-that brings it. A pipelined workload planned on one device trains its
+its rows of it; gradients are ring-reduced (``parallel/overlap.py``). On
+a plan with an fsdp axis (the llama3-8b sample's ZeRO-3 mesh) each rank
+builds only its shards of the parameters (``create_sharded_state``), the
+optimizer's moments are shards too, the step gathers the parameters and
+reduce-scatters the gradients, and the checkpoint is saved sharded. A
+plan with a tensor, seq, expert or pipe axis above 1, and ring or Ulysses
+attention, exit 2 naming the ROADMAP slice (Queue 1 items 9c-9e) that
+brings it. A pipelined workload planned on one device trains its
 plain model, as the JAX trainer falls back to it. Rank 0 prints the step
 lines; each pod's first rank serves the telemetry and writes the
 goodput, usage and flight files.
@@ -40,7 +44,8 @@ exits non-zero rather than moving to the CPU.
 
 ``M2KT_PLAN_REPORT`` writes ``m2kt-plan-report.json`` and ``.md``: the
 memory plan (``parallel/memory.py``) on the card's budget beside the
-first step's counted cost and measured peak. Knobs the JAX trainer reads
+first step's counted cost and measured peak (in a world above one, every
+rank's peak beside the plan's per-device bytes). Knobs the JAX trainer reads
 that this one does not: ``M2KT_FUSED_CE`` (the loss folds the head into
 the chunked cross-entropy whenever the vocab spans more than one chunk,
 with no ladder); ``M2KT_VERIFY_DONATION`` (eager PyTorch donates nothing;
@@ -162,10 +167,15 @@ class GenericModel(torch.nn.Module):
 
 
 def write_plan_report(plan, model_cfg, batch_per_chip: int, n_devices: int,
-                      cost, out_dir: str) -> None:
+                      cost, out_dir: str, rank_peaks=None,
+                      transients=None) -> None:
     """``M2KT_PLAN_REPORT``: the memory plan of the baked model on the
     plan's extents (built on the meta device) against the card's budget,
-    beside the first step's counted cost and measured peak."""
+    beside the first step's counted cost and measured peak, and each
+    rank's measured peak (``rank_peaks``) when the world has several. On
+    an fsdp plan, ``transients`` (``overlap.fsdp_transient_bytes``): what
+    the schedule holds beyond the plan (the gathered tree, its cast copy,
+    the full gradients), flagged beside the plan's total."""
     from move2kube_tpu_torch.models.convert import meta_model
     from move2kube_tpu_torch.parallel.memory import train_memory_plan
 
@@ -185,13 +195,26 @@ def write_plan_report(plan, model_cfg, batch_per_chip: int, n_devices: int,
                    if torch.cuda.is_available() else "")
     report = m2kt_obs.build_plan_report(mem, accelerator, mesh_plan=plan,
                                         n_devices=n_devices, cost=cost)
-    m2kt_obs.write_plan_report(report, out_dir)
+    if transients is not None:
+        report["fsdp_transients"] = dict(
+            transients,
+            predicted_with_transients_bytes=mem.total
+            + transients["total_bytes"])
     drift = report.get("drift", {})
+    if rank_peaks is not None:
+        drift["measured_peak_hbm_bytes_by_rank"] = rank_peaks
+        drift["predicted_over_measured_by_rank"] = [
+            round(mem.total / peak, 3) if peak else None
+            for peak in rank_peaks]
+    m2kt_obs.write_plan_report(report, out_dir)
     print(f"[m2kt] plan report: verdict={report['verdict']} "
           f"predicted={mem.total} "
           f"measured={drift.get('measured_peak_hbm_bytes')} "
-          f"drift={drift.get('predicted_over_measured')} dir={out_dir}",
-          flush=True)
+          f"drift={drift.get('predicted_over_measured')} "
+          + (f"by_rank={rank_peaks} " if rank_peaks is not None else "")
+          + (f"fsdp_transients={transients['total_bytes']} "
+             if transients is not None else "")
+          + f"dir={out_dir}", flush=True)
 
 
 def build(device, global_batch: int, mesh):
@@ -200,6 +223,10 @@ def build(device, global_batch: int, mesh):
     keeps this rank's rows) and the steps reduce across ``mesh``."""
     attn_default = "ring" if MESH["seq"] > 1 else "flash"
     model_cfg = None
+    state = None
+    # an fsdp plan: each rank builds only its shards (ZeRO-3)
+    sharded = (mesh is not None
+               and m2kt_mesh.mesh_config_of(mesh).fsdp > 1)
 
     def on_device(batch):
         return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
@@ -246,9 +273,16 @@ def build(device, global_batch: int, mesh):
             d_model=int(os.environ.get("M2KT_DMODEL", "768")),
             mlp_dim=int(os.environ.get("M2KT_MLP_DIM", "3072")),
             max_len=max_len, num_classes=NUM_CLASSES)
-        model = m2kt_convert.init_family(cfg, seed=0, device=device)
-        opt = m2kt_train.instrument_optimizer(m2kt_train.adamw(
-            model.parameters(), LEARNING_RATE, weight_decay=0.01))
+        def bert_opt(params):
+            return m2kt_train.instrument_optimizer(m2kt_train.adamw(
+                params, LEARNING_RATE, weight_decay=0.01))
+
+        if sharded:
+            state = m2kt_train.create_sharded_state(cfg, mesh, bert_opt,
+                                                    seed=0, device=device)
+        else:
+            model = m2kt_convert.init_family(cfg, seed=0, device=device)
+            opt = bert_opt(model.parameters())
         step_fn = m2kt_train.make_bert_train_step(mesh=mesh)
         accum = 1  # fine-tune step has no accumulation path
         model_cfg = cfg
@@ -303,12 +337,21 @@ def build(device, global_batch: int, mesh):
                 attn_impl=attn)
             init, weight_decay = m2kt_convert.init_llama, 0.1
         cfg = PRECISION.apply_to_model_config(cfg)
+
+        def lm_opt(params):
+            return m2kt_train.instrument_optimizer(PRECISION.wrap_optimizer(
+                m2kt_train.adamw(params, LEARNING_RATE,
+                                 weight_decay=weight_decay)))
+
         # fp32 master weights; the step casts them to the policy's
         # compute dtype inside the loss
-        model = init(cfg, seed=0, device=device, dtype=torch.float32)
-        opt = m2kt_train.instrument_optimizer(PRECISION.wrap_optimizer(
-            m2kt_train.adamw(model.parameters(), LEARNING_RATE,
-                             weight_decay=weight_decay)))
+        if sharded:
+            state = m2kt_train.create_sharded_state(
+                cfg, mesh, lm_opt, seed=0, device=device,
+                dtype=torch.float32)
+        else:
+            model = init(cfg, seed=0, device=device, dtype=torch.float32)
+            opt = lm_opt(model.parameters())
         accum = GRAD_ACCUM
         if MESH["pipe"] > 1:
             # the JAX trainer's pipeline path, which on one device trains
@@ -387,8 +430,9 @@ def build(device, global_batch: int, mesh):
                 "label": gen.integers(0, NUM_CLASSES, global_batch)})
 
         unit = "samples/s"
-    return (m2kt_train.TrainState(model, opt), step_fn, make_batch, accum,
-            unit, model_cfg)
+    if state is None:
+        state = m2kt_train.TrainState(model, opt)
+    return state, step_fn, make_batch, accum, unit, model_cfg
 
 
 def main():
@@ -403,7 +447,15 @@ def main():
     except ValueError as e:
         refuse(str(e))
     if n_local > 1 and not m2kt_mesh.is_rank_process():
-        # the pod's process: one rank a card (or forced CPU device)
+        # the pod's process: a plan with an axis the port does not run is
+        # refused here, before any rank starts; then one rank a card (or
+        # forced CPU device)
+        try:
+            m2kt_mesh.check_ported_mesh(resolve_mesh_plan(
+                layout.world, default_topology=TOPOLOGY,
+                num_slices=NUM_SLICES, **DEGREES).config)
+        except NotImplementedError as e:
+            refuse(str(e))
         return m2kt_mesh.launch_local_ranks(
             [sys.executable, os.path.abspath(__file__)] + sys.argv[1:],
             n_local)
@@ -549,9 +601,29 @@ def main():
         if pod_lead:
             m2kt_obs.install_memory_snapshot()
         plan_dir = m2kt_obs.costmodel.plan_report_dir()
+        rank_peaks = None
+        if plan_dir is not None and layout.world > 1:
+            # every rank's peak, gathered through the ring (a collective:
+            # every rank takes part)
+            from move2kube_tpu_torch.parallel import overlap
+
+            report = telem._cost_report
+            peak = (report.peak_hbm_bytes or 0) if report is not None else 0
+            rank_peaks = [int(x) for x in overlap.ring_all_gather(
+                torch.tensor([float(peak)], dtype=torch.float64,
+                             device=device), None, 0).tolist()]
         if plan_dir is not None and lead:
+            from move2kube_tpu_torch.parallel import overlap
+            from move2kube_tpu_torch.parallel.sharding import layout_of
+
+            shards = layout_of(state.model)
+            transients = None if shards is None else \
+                overlap.fsdp_transient_bytes(
+                    shards, overlap.fsdp_prefetched(mesh), accum,
+                    PRECISION.compute_dtype)
             write_plan_report(plan, model_cfg, global_batch // layout.world,
-                              layout.world, telem._cost_report, plan_dir)
+                              layout.world, telem._cost_report, plan_dir,
+                              rank_peaks, transients)
         if ckpt_mngr is not None and ckpt_mngr.maybe_save(first, state,
                                                           loader=loader):
             gp.note_saved(first)

@@ -37,16 +37,36 @@ teardown never loses the newest save. ``max_to_keep`` committed steps are
 kept. Restores load onto the devices of the state (or variables) they are
 given.
 
-In a ``torch.distributed`` world of n, rank 0 writes and every rank
-restores (the directory is the pod's or a shared volume): under data
-parallelism every tensor is replicated, so one copy is the whole state,
-and a checkpoint restores into a world of any size. The other ranks meet
-rank 0 at a barrier in :meth:`CheckpointManager.wait` (before each save,
-after a synchronous one and in ``close``), always on the main thread: the
-writer thread makes no collective call, and the exit flush
+In a ``torch.distributed`` world of n every rank restores (the directory
+is the pod's or a shared volume). Under data parallelism every tensor is
+replicated, so rank 0 writes one copy, the whole state. A model of fsdp
+shards (:func:`~move2kube_tpu_torch.parallel.sharding.layout_of`) is
+saved sharded: the first data rank of each fsdp coordinate r writes
+``shard-<r>.pt``, its shards of the parameters and of the optimizer's
+moments, and rank 0 writes ``state.pt`` with the replicated leaves, the
+buffers and the rest of the optimizer's state; ``meta.json`` lists each
+leaf's global shape, its sharded dimension and the extent. Every rank
+writes into one temporary directory, each shard under a name of its own
+that is renamed to ``shard-<r>.pt`` once it is whole, and rank 0's writer
+thread commits the step by rename once its own files are written and
+every shard is there: the step commits as soon as the last part lands,
+with no collective call, so the exit flush commits it as it does a whole
+save, and a rank that dies mid-save leaves no step that looks committed.
+A restore reads each leaf
+at its global shape (the saved shards put together) and keeps the slice
+the new world's layout gives this rank, so a checkpoint restores into a
+world of any size and between data and fsdp meshes; a step missing a
+shard, or with one unreadable, is a damaged step.
+
+The ranks meet at barriers in :meth:`CheckpointManager.wait` (before
+each save, after a synchronous one and in ``close``), always on the main
+thread: the writer thread makes no collective call, and the exit flush
 (:meth:`CheckpointManager.flush`) none either, since a dying rank's peers
-may be gone. The sharded save of sharded parameters comes with FSDP
-(ROADMAP Queue 1 item 9b).
+may be gone. Rank 0's writer waits for the other ranks' shards at most
+the process group's timeout (``M2KT_DIST_TIMEOUT_S``); a shard that does
+not come by then fails the save, which leaves no committed step. Whether a step is committed already is read by every rank
+between two barriers, so all ranks take the same branch of
+:meth:`~CheckpointManager.maybe_save` and meet at the same barriers.
 
 The emitted trainer calls ``restore_or_init`` at startup and
 ``maybe_save`` every ``M2KT_CKPT_EVERY`` steps, pointed at
@@ -99,6 +119,18 @@ def _rank() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _shard_file(r: int) -> str:
+    return f"shard-{r}.pt"
 
 
 def _host_copy(obj, pinned: dict, path: str = ""):
@@ -167,10 +199,12 @@ def _shapes(tree: dict) -> dict:
     return {k: tuple(v.shape) for k, v in tree.items()}
 
 
-def _check_tree(loaded: dict, want: dict) -> None:
+def _check_tree(loaded: dict, want) -> None:
     """Raise ValueError naming the arrays ``loaded`` lacks or holds in
-    another shape than ``want`` (both name -> tensor)."""
-    detail = _diff_arrays(_shapes(want), _shapes(loaded))
+    another shape than ``want`` (name -> tensor, or name -> shape)."""
+    want = {k: tuple(v.shape) if torch.is_tensor(v) else tuple(v)
+            for k, v in want.items()}
+    detail = _diff_arrays(want, _shapes(loaded))
     if detail:
         raise ValueError(detail)
 
@@ -191,6 +225,85 @@ def _load_payload(step_dir: str) -> dict:
     return payload
 
 
+class _SavedStep:
+    """A committed step's arrays at their global shapes: ``model`` (name
+    -> tensor; a params-only tree's ``params``), and ``slots(name)``, a
+    parameter's optimizer state; each sharded leaf put together from the
+    saved shards along its sharded dimension. Every file the step needs is
+    read here: a missing or unreadable shard raises."""
+
+    def __init__(self, step_dir: str) -> None:
+        self.meta = _read_meta(step_dir)
+        self.payload = _load_payload(step_dir)
+        self.model = _model_tree(self.payload)
+        self._opt: dict = {}
+        sharded = self.meta.get("sharded")
+        if sharded is None:
+            return
+        parts = []
+        for r in range(int(sharded["extent"])):
+            part = torch.load(os.path.join(step_dir, _shard_file(r)),
+                              map_location="cpu", weights_only=True,
+                              mmap=True)
+            if not isinstance(part, dict) or "model" not in part:
+                raise ValueError(f"{step_dir}: shard {r} holds no model")
+            parts.append(part)
+        self.model = dict(self.model)
+        for name, info in sharded["leaves"].items():
+            dim = info["dim"]
+            if dim is None:
+                continue
+            self.model[name] = torch.cat([p["model"][name] for p in parts],
+                                         dim)
+            self._opt[name] = {
+                slot: torch.cat([p["optimizer"][name][slot] for p in parts],
+                                dim)
+                for slot in parts[0]["optimizer"].get(name, {})}
+
+    def inner_state(self, names: list, take) -> dict:
+        """The torch optimizer's state dict for a model whose parameters
+        are ``names`` (the optimizer's order), each parameter-shaped slot
+        cut by ``take(name, tensor)``. A step saved without names numbers
+        its parameters as ``names`` does."""
+        inner = self.payload["optimizer"]["inner"]
+        saved = self.payload.get("names") or names
+        index = {n: i for i, n in enumerate(names)}
+        state = {}
+        for i, slots in inner["state"].items():
+            name = saved[int(i)]
+            slots = dict(slots, **self._opt.get(name, {}))
+            shape = tuple(self.model[name].shape)
+            state[index[name]] = {
+                k: take(name, v) if torch.is_tensor(v) and v.ndim
+                and tuple(v.shape) == shape else v
+                for k, v in slots.items()}
+        return {"state": state, "param_groups": inner["param_groups"]}
+
+
+def _global_shapes(model) -> dict:
+    """Name -> the global shape of each entry of ``model``'s state dict
+    (a sharded parameter's whole shape)."""
+    from move2kube_tpu_torch.parallel.sharding import layout_of
+
+    layout = layout_of(model)
+    shapes = _shapes(model.state_dict())
+    if layout is not None:
+        for name in layout.sharded():
+            shapes[name] = tuple(layout.specs[name].shape)
+    return shapes
+
+
+def _taker(model):
+    """``take(name, global tensor) -> this rank's part``: the layout's
+    slice for a sharded model, the tensor itself otherwise."""
+    from move2kube_tpu_torch.parallel.sharding import layout_of
+
+    layout = layout_of(model)
+    if layout is None:
+        return lambda name, t: t
+    return lambda name, t: layout.take(name, t)
+
+
 def _model_tree(payload: dict) -> dict:
     """The model's arrays in a payload: a train state's ``model``, else a
     params-only tree's ``params``."""
@@ -201,7 +314,7 @@ def _model_tree(payload: dict) -> dict:
     return tree
 
 
-def _name_bad_arrays(step_dir: str, want: dict) -> str:
+def _name_bad_arrays(step_dir: str, want) -> str:
     """Best-effort: which array(s) made this step unrestorable? The step's
     ``meta.json`` (cheap: no array reads) is diffed against the tree the
     caller wants: a partial write is missing arrays, a foreign checkpoint
@@ -216,7 +329,25 @@ def _name_bad_arrays(step_dir: str, want: dict) -> str:
                 have[name] = tuple(spec["shape"])
     except Exception:  # noqa: BLE001 - metadata as damaged as the data
         return ""
-    return _diff_arrays(_shapes(want), have)
+    want = {k: tuple(v.shape) if torch.is_tensor(v) else tuple(v)
+            for k, v in want.items()}
+    return _diff_arrays(want, have)
+
+
+def _save(obj, path: str) -> int:
+    # torch.load never checks the archive's CRC-32, so none is computed:
+    # it cost more than half of a save's write and caught nothing
+    from torch.utils.serialization import config as serialization
+
+    with serialization.patch({"save.compute_crc32": False}):
+        torch.save(obj, path)
+    return os.path.getsize(path)
+
+
+def _write_meta(tmp: str, doc: dict) -> None:
+    with open(os.path.join(tmp, META_FILE), "w", encoding="utf-8") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 def write_step(ckpt_dir: str, step: int, payload: dict) -> dict:
@@ -228,22 +359,51 @@ def write_step(ckpt_dir: str, step: int, payload: dict) -> dict:
     tmp = os.path.join(ckpt_dir, f".{step}.tmp-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    path = os.path.join(tmp, PAYLOAD_FILE)
-    # torch.load never checks the archive's CRC-32, so none is computed:
-    # it cost more than half of a save's write and caught nothing
-    from torch.utils.serialization import config as serialization
-
-    with serialization.patch({"save.compute_crc32": False}):
-        torch.save(payload, path)
-    nbytes = os.path.getsize(path)
-    doc = {"step": step, "format": 1, "bytes": nbytes,
-           "kind": "train_state" if "model" in payload else "tree",
-           "loader": payload.get("loader"),
-           "arrays": _array_index(payload)}
-    with open(os.path.join(tmp, META_FILE), "w", encoding="utf-8") as f:
-        json.dump(doc, f, indent=1, sort_keys=True)
-        f.write("\n")
+    nbytes = _save(payload, os.path.join(tmp, PAYLOAD_FILE))
+    _write_meta(tmp, {"step": step, "format": 1, "bytes": nbytes,
+                      "kind": "train_state" if "model" in payload
+                      else "tree",
+                      "loader": payload.get("loader"),
+                      "arrays": _array_index(payload)})
     os.replace(tmp, final)
+    return {"step": step, "seconds": time.perf_counter() - t0,
+            "bytes": nbytes}
+
+
+def _sharded_tmp(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f".{step}.tmp-sharded")
+
+
+def write_sharded_part(ckpt_dir: str, step: int, part: dict,
+                       timeout: float = 600.0) -> dict:
+    """This rank's part of a sharded save, into the step's temporary
+    directory: ``part["shard"]`` as ``shard-<r>.pt`` (written under
+    another name, then renamed, so a shard that is there is whole) when
+    this rank writes its fsdp coordinate's shards. On rank 0
+    ``part["state"]`` as ``state.pt`` and ``part["meta"]`` as
+    ``meta.json``; then it waits until every one of the ``extent`` shards
+    is there, at most ``timeout`` seconds, and commits the step by
+    rename."""
+    t0 = time.perf_counter()
+    tmp = _sharded_tmp(ckpt_dir, step)
+    os.makedirs(tmp, exist_ok=True)
+    nbytes = 0
+    if part.get("shard") is not None:
+        path = os.path.join(tmp, _shard_file(part["shard_rank"]))
+        nbytes += _save(part["shard"], path + ".part")
+        os.replace(path + ".part", path)
+    if part.get("state") is not None:
+        nbytes += _save(part["state"], os.path.join(tmp, PAYLOAD_FILE))
+        _write_meta(tmp, dict(part["meta"], step=step))
+        extent = int(part["meta"]["sharded"]["extent"])
+        shards = [os.path.join(tmp, _shard_file(r)) for r in range(extent)]
+        deadline = time.monotonic() + timeout
+        while not all(os.path.exists(f) for f in shards):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"step {step}: a shard did not come in "
+                                   f"{timeout:.0f} s; not committed")
+            time.sleep(0.01)
+        os.replace(tmp, os.path.join(ckpt_dir, str(step)))
     return {"step": step, "seconds": time.perf_counter() - t0,
             "bytes": nbytes}
 
@@ -262,6 +422,56 @@ def _train_state_payload(state, loader) -> dict:
         "step": state.step,
         "loader": position() if position is not None else None,
     }
+
+
+def _param_names(state) -> list:
+    """The model's parameter names in the optimizer's order (its state
+    dict numbers the parameters in that order)."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for p in state.optimizer.params()]
+
+
+def _sharded_part(state, loader, layout) -> dict:
+    """This rank's part of a sharded save of ``state`` (module
+    docstring): the shards of the parameters and of the optimizer's
+    moments where this rank writes its coordinate's, and on rank 0 the
+    rest and the metadata."""
+    full = _train_state_payload(state, loader)
+    names = _param_names(state)
+    sharded = set(layout.sharded())
+    inner = full["optimizer"]["inner"]
+    shard_model = {n: t for n, t in full["model"].items() if n in sharded}
+    shard_opt, rest_opt = {}, {}
+    for i, slots in inner["state"].items():
+        name = names[i]
+        if name not in sharded:
+            rest_opt[i] = slots
+            continue
+        shape = shard_model[name].shape
+        shard_opt[name] = {k: v for k, v in slots.items()
+                           if torch.is_tensor(v) and v.shape == shape}
+        rest_opt[i] = {k: v for k, v in slots.items()
+                       if k not in shard_opt[name]}
+    part = {"shard": None, "state": None,
+            "shard_rank": layout.rank}
+    if layout.data_rank == 0:
+        part["shard"] = {"model": shard_model, "optimizer": shard_opt}
+    if _rank() == 0:
+        state_pt = dict(full, model={n: t for n, t in full["model"].items()
+                                     if n not in sharded})
+        state_pt["optimizer"] = dict(full["optimizer"], inner={
+            "state": rest_opt, "param_groups": inner["param_groups"]})
+        state_pt["names"] = names
+        leaves = layout.describe()
+        arrays = {}
+        for n, t in full["model"].items():
+            shape = leaves[n]["shape"] if n in leaves else list(t.shape)
+            arrays[f"model/{n}"] = {"shape": shape, "dtype": str(t.dtype)}
+        part["state"] = state_pt
+        part["meta"] = {"format": 2, "kind": "train_state",
+                        "loader": full["loader"], "arrays": arrays,
+                        "sharded": {"extent": layout.n, "leaves": leaves}}
+    return part
 
 
 class CheckpointManager:
@@ -341,28 +551,37 @@ class CheckpointManager:
 
     def _restore_at(self, step: int, state, ported_restore=None):
         """Load one step into ``state``, negotiating the checkpoint shape
-        (full TrainState, then the ported layout, then params only).
-        Raises, with ``state`` untouched, when the step is unreadable."""
+        (full TrainState, then the ported layout, then params only), each
+        leaf cut to the model's own layout (a sharded model takes its
+        slices). Raises, with ``state`` untouched, when the step is
+        unreadable."""
         sdir = os.path.join(self.directory, str(step))
-        meta = _read_meta(sdir)
-        payload = _load_payload(sdir)
+        saved = _SavedStep(sdir)
+        meta, payload = saved.meta, saved.payload
         model = state.model
+        take = _taker(model)
+        want = _global_shapes(model)
+
+        def load_model(tree) -> None:
+            model.load_state_dict({n: take(n, tree[n]) for n in want})
+
         if "model" in payload:
-            _check_tree(payload["model"], model.state_dict())
+            _check_tree(saved.model, want)
             opt = state.optimizer
-            saved = payload["optimizer"]
+            saved_opt = payload["optimizer"]
             try:
-                opt.inner.load_state_dict(saved["inner"])
-            except (ValueError, KeyError, TypeError) as e:
+                inner = saved.inner_state(_param_names(state), take)
+                opt.inner.load_state_dict(inner)
+            except (ValueError, KeyError, TypeError, IndexError) as e:
                 log.warning("checkpoint step %d: optimizer state does not "
                             "fit (%s); loading its parameters only", step, e)
-                model.load_state_dict(payload["model"])
+                load_model(saved.model)
                 self.restored = meta
                 return state, 0
-            model.load_state_dict(payload["model"])
-            opt.count = int(saved["count"])
-            if saved.get("guard") is not None and opt.guard is not None:
-                vars(opt.guard).update(saved["guard"])
+            load_model(saved.model)
+            opt.count = int(saved_opt["count"])
+            if saved_opt.get("guard") is not None and opt.guard is not None:
+                vars(opt.guard).update(saved_opt["guard"])
             state.step = int(payload["step"])
             self.restored = meta
             log.info("resumed from checkpoint step %d", step)
@@ -377,8 +596,8 @@ class CheckpointManager:
             self.restored = meta
             log.info("grafted ported weights from checkpoint step %d", step)
             return graft_fn(state, params), 0
-        _check_tree(params, model.state_dict())
-        model.load_state_dict(params)
+        _check_tree(params, want)
+        load_model(params)
         self.restored = meta
         log.info("loaded ported weights from checkpoint step %d", step)
         return state, 0
@@ -398,18 +617,40 @@ class CheckpointManager:
         ``M2KT_CKPT_SYNC=1`` blocks until the save commits: every step the
         goodput ledger reports as saved is then durable (fault drills);
         the default can lose the save in flight to an abrupt death,
-        falling back one cadence."""
+        falling back one cadence. A sharded save commits when its last
+        part lands (:func:`write_sharded_part`)."""
         if not force and step % self.every:
             return False
         self.wait()
-        if step in self.all_steps():
+        # every rank reads the directory between two barriers: nothing is
+        # written meanwhile, so all take the same branch below
+        committed = step in self.all_steps()
+        sharded = self._layout(state)
+        if sharded is not None and not committed and _rank() == 0:
+            shutil.rmtree(_sharded_tmp(self.directory, step),
+                          ignore_errors=True)
+        _barrier()
+        if committed:
             return False
-        if _rank() == 0:
+        if sharded is not None:
+            self._submit_sharded(step, state, loader, sharded)
+        elif _rank() == 0:
             self._submit(step, state, loader)
         if os.environ.get("M2KT_CKPT_SYNC", "0") == "1":
             with _maybe_span("ckpt.save_sync", {"step": step}):
                 self.wait()
         return True
+
+    @staticmethod
+    def _layout(state):
+        """The fsdp layout of a sharded train state in a world above one,
+        else None (saved whole by rank 0)."""
+        from move2kube_tpu_torch.parallel.sharding import layout_of
+
+        model = getattr(state, "model", None)
+        if model is None or _world() == 1:
+            return None
+        return layout_of(model)
 
     def _submit(self, step: int, state, loader) -> None:
         """Snapshot ``state`` to host memory and start the writer."""
@@ -426,6 +667,21 @@ class CheckpointManager:
                 name=f"m2kt-ckpt-{step}", daemon=True)
             self._thread.start()
 
+    def _submit_sharded(self, step: int, state, loader, layout) -> None:
+        """Snapshot this rank's part of a sharded save and start its
+        writer (rank 0's commits the step)."""
+        with _maybe_span("ckpt.save_submit", {"step": step}):
+            t0 = time.perf_counter()
+            part = _host_copy(_sharded_part(state, loader, layout),
+                              self._pinned)
+            if self._pinned:
+                torch.cuda.synchronize()
+            snapshot_s = time.perf_counter() - t0
+            self._thread = threading.Thread(
+                target=self._write_part, args=(step, part, snapshot_s),
+                name=f"m2kt-ckpt-{step}", daemon=True)
+            self._thread.start()
+
     def _write(self, step: int, payload: dict, snapshot_s: float) -> None:
         try:
             done = write_step(self.directory, step, payload)
@@ -437,6 +693,21 @@ class CheckpointManager:
         except BaseException as e:  # noqa: BLE001 - re-raised by wait()
             self._error = e
 
+    def _write_part(self, step: int, part: dict, snapshot_s: float) -> None:
+        try:
+            from move2kube_tpu_torch.parallel.mesh import timeout_seconds
+
+            done = write_sharded_part(self.directory, step, part,
+                                      timeout_seconds())
+            done["snapshot_seconds"] = snapshot_s
+            self.last_save = done
+            if part.get("state") is not None:
+                self._prune()
+                log.info("checkpoint step %d committed (sharded): %d bytes "
+                         "in %.3f s", step, done["bytes"], done["seconds"])
+        except BaseException as e:  # noqa: BLE001 - re-raised by wait()
+            self._error = e
+
     def _prune(self) -> None:
         steps = self.all_steps()
         for old in steps[:max(0, len(steps) - self.max_to_keep)]:
@@ -444,7 +715,9 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def flush(self) -> None:
-        """Block until this process's save in flight commits; raise if it
+        """Block until this process's save in flight is written (a whole
+        save committed; of a sharded one this rank's part, and on rank 0
+        the step committed once every shard has landed); raise if it
         failed. No collective call."""
         t = self._thread
         if t is not None:
@@ -456,9 +729,10 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Block until the save in flight commits, then (in a world above
-        one) until every rank is here; raise if it failed. The
-        last-chance preemption path and the fault tests need the step
-        durably on disk before the process may die. Main thread only."""
+        one) until every rank is here, so every rank sees it committed;
+        raise if it failed. The last-chance preemption path and the fault
+        tests need the step durably on disk before the process may die.
+        Main thread only."""
         with _maybe_span("ckpt.wait"):
             self.flush()
             _barrier()
@@ -494,12 +768,15 @@ class CheckpointManager:
         self.wait()
 
 
-def restore_variables(ckpt_dir: str, variables: dict) -> dict:
+def restore_variables(ckpt_dir: str, variables: dict, layout=None) -> dict:
     """Restore model weights for serving: ``variables`` is the model's
     state dict (name -> tensor; the serving entrypoint has no TrainState),
     and the result holds the checkpoint's arrays under the same names, each
     cast to its variable's dtype and device (fp32 masters into a bf16
-    model on the card), ready for ``model.load_state_dict``.
+    model on the card), ready for ``model.load_state_dict``. A sharded
+    checkpoint is read whole. With ``layout`` (a :class:`~move2kube_tpu_torch.
+    parallel.sharding.ShardLayout`), ``variables`` holds this rank's shards
+    and each sharded leaf is read into its slice.
 
     Accepts the same checkpoint shapes the trainer writes: a full
     TrainState (its model) or a params-only tree. Same corrupt-latest
@@ -519,19 +796,25 @@ def restore_variables(ckpt_dir: str, variables: dict) -> dict:
             f"{type(err).__name__}: {err}") from err
     steps = sorted((s for s, _ in step_dirs(ckpt_dir)), reverse=True)
     failures: list[tuple[int, str]] = []
+    want = _shapes(variables)
+    take = lambda name, t: t  # noqa: E731
+    if layout is not None:
+        want.update({n: tuple(layout.specs[n].shape)
+                     for n in layout.sharded()})
+        take = layout.take
     for step in steps:
         sdir = os.path.join(ckpt_dir, str(step))
         try:
-            tree = _model_tree(_load_payload(sdir))
-            _check_tree(tree, variables)
+            tree = _SavedStep(sdir).model
+            _check_tree(tree, want)
         except Exception as e:  # noqa: BLE001 - torch.load raises many types
-            detail = (_name_bad_arrays(sdir, variables)
+            detail = (_name_bad_arrays(sdir, want)
                       or f"{type(e).__name__}: {e}")
             failures.append((step, detail))
             log.warning("checkpoint step %d unreadable (%s)", step, detail)
             continue
         log.info("serving weights restored from checkpoint step %d", step)
-        return {k: tree[k].to(device=v.device, dtype=v.dtype)
+        return {k: take(k, tree[k]).to(device=v.device, dtype=v.dtype)
                 for k, v in variables.items()}
     if steps:
         step, detail = failures[0]

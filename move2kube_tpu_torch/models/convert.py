@@ -133,7 +133,17 @@ def flax_params(model) -> dict:
     out]``, a ``Conv`` weight ``[out, in, kh, kw]`` its ``kernel [kh, kw,
     in, out]``, an embedding's weight its ``embedding``, a norm's weight
     its ``scale``. The inverse of :func:`params_from_jax`'s map."""
-    cfg = model.cfg
+    return {name: (path, shape)
+            for name, (path, shape, _) in flax_layout(model).items()}
+
+
+def flax_layout(model) -> dict:
+    """:func:`flax_params` with each leaf's dimension map: ``{port name:
+    (flax path, flax shape, order)}``, where flax dimension i is port
+    dimension ``order[i]`` (``(1, 0)`` for a ``Linear`` weight, ``(2, 3,
+    1, 0)`` for a ``Conv`` weight, the identity otherwise). A model
+    without a ``cfg`` keeps its own names as the paths."""
+    cfg = getattr(model, "cfg", None)
     inner = next((t for kind, t in FLAX_INNER.items()
                   if isinstance(cfg, kind)), {})
     modules = dict(model.named_modules())
@@ -142,16 +152,17 @@ def flax_params(model) -> dict:
         *mods, leaf = name.split(".")
         owner = modules[".".join(mods)]
         shape = tuple(p.shape)
+        order = tuple(range(len(shape)))
         if leaf == "weight":
             if isinstance(owner, torch.nn.Linear):
-                leaf, shape = "kernel", shape[::-1]
+                leaf, order = "kernel", (1, 0)
             elif isinstance(owner, torch.nn.Conv2d):
-                leaf, shape = "kernel", (shape[2], shape[3], shape[1],
-                                         shape[0])
+                leaf, order = "kernel", (2, 3, 1, 0)
             elif isinstance(owner, (torch.nn.Embedding, Embed)):
                 leaf = "embedding"
             else:
                 leaf = "scale"
+        shape = tuple(shape[i] for i in order)
         path = []
         if mods:
             top = flax_group(cfg, name)
@@ -160,7 +171,7 @@ def flax_params(model) -> dict:
             rest = mods[2:] if top != mods[0] and len(mods) > 1 and \
                 mods[1].isdigit() else mods[1:]
             path += [inner.get(m, m) for m in rest]
-        out[name] = ("/".join(path + [leaf]), shape)
+        out[name] = ("/".join(path + [leaf]), shape, order)
     return out
 
 
@@ -531,7 +542,7 @@ def init_llama(cfg: LlamaConfig, seed: int = 0, device=None,
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     model = Llama(cfg, device=dev)
-    _draw_lm(model, seed, dev, embeds=("embed.weight",))
+    _draw_lm(model, seed, dev, embeds=LM_EMBEDS[LlamaConfig])
     return model
 
 
@@ -547,30 +558,42 @@ def init_gpt2(cfg: GPT2Config, seed: int = 0, device=None,
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     model = GPT2(cfg, device=dev)
-    _draw_lm(model, seed, dev, embeds=("wte.weight", "wpe.weight"))
+    _draw_lm(model, seed, dev, embeds=LM_EMBEDS[GPT2Config])
     return model
+
+
+LM_EMBEDS = {LlamaConfig: ("embed.weight",),
+             GPT2Config: ("wte.weight", "wpe.weight")}
 
 
 def _draw_lm(model, seed: int, dev, embeds) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    norms = {name for name, mod in model.named_modules()
-             if type(mod).__name__ in ("RMSNorm", "LayerNorm")}
-    d_model = model.cfg.d_model
     for name, param in model.named_parameters():
-        owner, _, leaf = name.rpartition(".")
-        if owner in norms:
-            param.fill_(1.0 if leaf in ("scale", "weight") else 0.0)
-        elif leaf == "bias":
-            param.zero_()
-        elif name in embeds:
-            # draw in fp32 (one matrix at a time), then cast into the param
-            draw = torch.empty(param.shape, dtype=torch.float32, device=dev)
-            draw.normal_(0.0, 1.0 / math.sqrt(d_model), generator=gen)
-            param.copy_(draw)
-            del draw
-        else:
-            # nn.Linear weight [out, in]; expert weights [E, in, out]
-            fan_in = (param.shape[1] if param.ndim == 2
-                      else param.shape[0] * param.shape[1])
-            lecun_normal_(param, fan_in, gen)
+        draw_lm_leaf(model, name, param, gen, embeds)
+
+
+def draw_lm_leaf(model, name: str, param, gen, embeds) -> None:
+    """Fill ``param`` (parameter ``name`` of the LM ``model`` at its
+    global shape, or a tensor of that shape) with its draw from ``gen``,
+    as :func:`init_llama` and :func:`init_gpt2` draw their leaves in
+    ``named_parameters`` order: one leaf at a time, so a sharded state
+    can draw each leaf whole and keep its slice."""
+    owner, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(owner) if owner else model
+    dev = param.device
+    if type(mod).__name__ in ("RMSNorm", "LayerNorm"):
+        param.fill_(1.0 if leaf in ("scale", "weight") else 0.0)
+    elif leaf == "bias":
+        param.zero_()
+    elif name in embeds:
+        # draw in fp32 (one matrix at a time), then cast into the param
+        draw = torch.empty(param.shape, dtype=torch.float32, device=dev)
+        draw.normal_(0.0, 1.0 / math.sqrt(model.cfg.d_model), generator=gen)
+        param.copy_(draw)
+        del draw
+    else:
+        # nn.Linear weight [out, in]; expert weights [E, in, out]
+        fan_in = (param.shape[1] if param.ndim == 2
+                  else param.shape[0] * param.shape[1])
+        lecun_normal_(param, fan_in, gen)

@@ -491,8 +491,10 @@ def make_loader(path: str, global_batch: int, device=None,
     :class:`PrefetchLoader` unless ``prefetch=False`` (or
     ``M2KT_PREFETCH=0``): the inner loader stays on the host and the pump
     thread owns the copy, overlapping it with the running step. A
-    ``mesh`` with a model axis above 1 raises (the batch then splits over
-    data x fsdp only, ROADMAP Queue 1 items 9b-9e)."""
+    ``mesh`` with a model axis above 1 raises (ROADMAP Queue 1 items
+    9c-9e); on a data x fsdp mesh each rank takes its rows, rank r of the
+    world (fsdp inner) the r-th block, as the reference shards the batch
+    over ``("data", "fsdp")``."""
     dev = resolve_device(device)
     if mesh is not None:
         from move2kube_tpu_torch.parallel.mesh import (

@@ -125,11 +125,15 @@ class FiniteGuard:
         self.total_notfinite = 0
         self.last_finite = True
 
-    def admit(self, grads) -> bool:
+    def admit(self, grads, any_rank=None) -> bool:
         """Count this update's gradients; True when it is to be applied.
-        Reads one flag back from the device."""
+        Reads one flag back from the device. ``any_rank(flag) -> bool``:
+        the group's verdict on a rank's flag, for gradients that are
+        shards (every rank then skips or applies the update alike)."""
         finite = bool(torch.stack(
             [torch.isfinite(g).all() for g in grads]).all()) if grads else True
+        if any_rank is not None:
+            finite = not any_rank(not finite)
         self.last_finite = finite
         if finite:
             self.notfinite_count = 0

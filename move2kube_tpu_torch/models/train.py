@@ -48,8 +48,30 @@ reduction goes through the same ring. The loss comes back as the group's
 mean, and the loss-scale guard, the grad norm and the health recorder
 read the reduced gradients, so no rank skips an update alone. BatchNorm
 statistics are taken over the global batch (:class:`~move2kube_tpu_torch.
-models.layers.BatchNorm`). A mesh with any other axis above 1 raises
-``NotImplementedError`` naming its ROADMAP slice (9b-9e). ``scan_steps``
+models.layers.BatchNorm`).
+
+FSDP (ZeRO-3): on a mesh with an fsdp axis the model holds this rank's
+shards (:func:`create_sharded_state`, or :func:`~move2kube_tpu_torch.
+parallel.sharding.shard_params` before the optimizer's first step), so
+the optimizer's moments are shards too. The step gathers the sharded
+leaves into tensors of their own for the forward (``functional_call`` on
+the gathered dict, so the precision cast and the head-folded loss see
+whole fp32 tensors) and reduce-scatters their gradients into the shards'
+``.grad``, the full gradients freed as their reduction ends: on a pure
+fsdp mesh through :func:`~move2kube_tpu_torch.parallel.overlap.
+prefetched_fsdp_accum_grads` (one gather a step, each microbatch's
+reduction overlapping the next backward) for every ``grad_accum``,
+unless ``M2KT_FSDP_PREFETCH=off``; on a data x fsdp mesh, and under
+``off``, through the sequential schedule, which gathers for every
+microbatch and all-reduces the shards over the data axis. Replicated
+leaves are all-reduced over the whole batch group; the family steps run
+their loss on the gathered parameters, and a conv family, whose leaves
+all stay whole, takes the data path over the batch group. No
+``torch.distributed.fsdp``, no DDP, no ``all_gather_into_tensor`` or
+``reduce_scatter_tensor``: the rings' point-to-point hops are the one
+gather and reduction path. A mesh with a tensor, expert, seq or
+pipe axis above 1 raises ``NotImplementedError`` naming its ROADMAP
+slice (9c-9e). ``scan_steps``
 (k optimizer steps in one compiled call) has no counterpart: the caller
 runs the step k times. Each step updates the state in place and returns
 it.
@@ -137,6 +159,13 @@ class Optimizer:
       TensorHealthState` on the parameters' device), both taken before
       the guard, so a skipped update is recorded too. Nothing is read
       back to the host.
+    - ``sharding``: over fsdp shards (set by the step), the norm is the
+      square root of the group's sum of squares, each shard and each
+      replicated leaf counted once; the health summaries are reduced
+      across the group (sums summed, maxima maxed, counts summed), so
+      every rank records the whole tree's numbers; and the guard's
+      verdict is the group's (any rank's non-finite gradient rejects the
+      update on every rank).
 
     The health groups need the parameters' names: :meth:`bind` takes them
     from the model (a :class:`TrainState` binds its own).
@@ -158,6 +187,10 @@ class Optimizer:
         self.health_names: list[str] | None = None
         self._groups: dict[int, int] = {}
         self._held = False
+        # set by a step on an fsdp mesh: which parameters are shards and
+        # the group they are shards over, so the norm, the guard and the
+        # health summaries read the whole tree
+        self.sharding: _ShardedTree | None = None
 
     def params(self) -> list:
         return [p for g in self.inner.param_groups for p in g["params"]]
@@ -204,21 +237,29 @@ class Optimizer:
             n = len(self.health_names)
         grads = [p.grad if p.grad is not None
                  else p.new_zeros(()).expand_as(p) for p in params]
+        shards = gather = None
+        if self.sharding is not None:
+            shards = [self.sharding.is_shard(p) for p in params]
+            gather = self.sharding.gather
         self.health = numericslib.TensorHealthState(
-            *numericslib.summarize_tree(grads, groups, n),
-            *numericslib.summarize_tree(params, groups, n))
+            *numericslib.summarize_tree(grads, groups, n, shards, gather),
+            *numericslib.summarize_tree(params, groups, n, shards, gather))
 
     def step(self) -> bool:
         """Apply the update held in the parameters' ``.grad``; returns
         False when the guard rejected it."""
         if self._held:
             return True
-        grads = [p.grad for p in self.params() if p.grad is not None]
+        with_grad = [p for p in self.params() if p.grad is not None]
+        grads = [p.grad for p in with_grad]
+        sharded = self.sharding
         if self.record_grad_norm:
-            self.grad_norm = global_norm(grads)
+            self.grad_norm = (global_norm(grads) if sharded is None
+                              else sharded.global_norm(with_grad))
         if self.record_health and self.health_on:
             self._record_health(self.params())
-        if self.guard is not None and not self.guard.admit(grads):
+        if self.guard is not None and not self.guard.admit(
+                grads, None if sharded is None else sharded.any_rank):
             return False
         if self.schedule is not None:
             lr = self.schedule(self.count)
@@ -309,18 +350,162 @@ class TrainState:
         return stats or None
 
 
-class _DataParallel:
-    """A step's data-parallel context: the ring's group of a pure data
-    mesh (None without a mesh or on a mesh of one), made at the first
-    step, when each model met is also broadcast from the group's first
-    rank and its BatchNorm layers get the data group."""
+def create_sharded_state(cfg, mesh, optimizer_fn, seed: int = 0,
+                         device=None, dtype: torch.dtype = torch.float32,
+                         params: dict | None = None,
+                         rules=None) -> TrainState:
+    """A :class:`TrainState` whose parameters are this rank's fsdp shards
+    on ``mesh`` (ZeRO-3): the reference's ``create_sharded_state``.
+
+    A Llama or GPT-2 (``cfg``'s type) is built on the meta device, and
+    each leaf is then materialised on ``device`` (the card by default)
+    one at a time, in ``dtype`` (fp32 masters by default), and only this
+    rank's slice kept (:func:`~move2kube_tpu_torch.parallel.sharding.
+    shard_params`' layout), so no rank ever holds the whole tree. Every
+    rank draws a leaf's full values from one generator seeded with
+    ``seed``, in :func:`~move2kube_tpu_torch.models.convert.init_llama`'s
+    order: the values do not depend on the world, and the shards put
+    together are ``init_llama(cfg, seed)``'s tree. ``params`` (a full
+    tree by the port's names, as ``params_from_jax`` gives it) takes the
+    place of the draws. A BERT, ResNet or UNet is built whole
+    (``init_family``, or ``params``) and then sharded.
+
+    ``optimizer_fn(parameters) -> Optimizer`` is built over the shards,
+    so the optimizer's moments are shards too."""
+    from move2kube_tpu_torch._device import resolve_device
+    from move2kube_tpu_torch.models import convert
+    from move2kube_tpu_torch.parallel.sharding import (
+        mesh_layout,
+        shard_params,
+    )
+
+    dev = resolve_device(device)
+    lm = type(cfg) in convert.LM_EMBEDS
+    if not lm:
+        if params is None:
+            model = convert.init_family(cfg, seed, device=dev)
+        else:
+            model = convert.meta_model(cfg).to_empty(device=dev)
+            model.load_state_dict(params)
+        shard_params(model, mesh, rules)
+        return TrainState(model, optimizer_fn(model.parameters()))
+    from move2kube_tpu_torch.models.gpt2 import GPT2
+    from move2kube_tpu_torch.models.llama import Llama, LlamaConfig
+
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = (Llama if isinstance(cfg, LlamaConfig) else GPT2)(
+        cfg, device="meta")
+    layout = mesh_layout(model, mesh, rules)
+    gen = None
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    embeds = convert.LM_EMBEDS[type(cfg)]
+    for name, p in list(model.named_parameters()):
+        if params is None:
+            full = torch.empty(p.shape, dtype=dtype, device=dev)
+            convert.draw_lm_leaf(model, name, full, gen, embeds)
+        else:
+            full = params[name].to(device=dev, dtype=dtype)
+        shard = layout.take(name, full)
+        shard = shard.clone() if shard is not full else full
+        del full
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(shard))
+    model.fsdp_layout = layout
+    return TrainState(model, optimizer_fn(model.parameters()))
+
+
+class _ShardedTree:
+    """How the optimizer's records read a tree of fsdp shards: which
+    parameters are shards, and the fsdp group they are shards over. A
+    shard counts once across the group and a replicated leaf once on its
+    rank; every reduction goes through the ring's all-gather, so every
+    rank reads the same bits."""
+
+    def __init__(self, shard_ids: set, group, device) -> None:
+        self.shard_ids = shard_ids
+        self.group = group
+        self.device = device
+
+    def is_shard(self, p) -> bool:
+        return id(p) in self.shard_ids
+
+    def gather(self, t):
+        """``t`` of every rank of the group, stacked on a new first
+        dimension in rank order."""
+        from move2kube_tpu_torch.parallel import overlap
+
+        return overlap.ring_all_gather(t.unsqueeze(0), self.group, 0)
+
+    def global_norm(self, params) -> torch.Tensor:
+        """``optax.global_norm`` of the whole tree's gradients."""
+        shard_sq, rep_sq = [], []
+        for p in params:
+            sq = torch.linalg.vector_norm(p.grad.float()) ** 2
+            (shard_sq if self.is_shard(p) else rep_sq).append(sq)
+        zero = params[0].grad.new_zeros((), dtype=torch.float32)
+        total = self.gather(torch.stack(shard_sq).sum() if shard_sq
+                            else zero).sum()
+        if rep_sq:
+            total = total + torch.stack(rep_sq).sum()
+        return torch.sqrt(total)
+
+    def any_rank(self, flag: bool) -> bool:
+        """True when ``flag`` holds on any rank of the group (a MAX)."""
+        t = torch.tensor([1.0 if flag else 0.0], device=self.device)
+        return bool(self.gather(t).amax() > 0)
+
+
+class _MeshPlan:
+    """What a step runs on a mesh of more than one rank.
+
+    - ``batch``: the ring group of every rank of the batch (data x fsdp);
+      the data path (9a) reduces over it, and so do a sharded model's
+      replicated leaves.
+    - ``layout``: the model's :class:`~move2kube_tpu_torch.parallel.
+      sharding.ShardLayout` when it holds fsdp shards, else None.
+    - ``fsdp``, ``data``: the ring groups of this rank's fsdp and data
+      axes (None at extent 1).
+    - ``prefetch``: the pure-fsdp schedule
+      (:func:`~move2kube_tpu_torch.parallel.overlap.
+      prefetched_fsdp_accum_grads`) rather than the sequential one."""
+
+    def __init__(self, batch, layout=None, fsdp=None, data=None,
+                 prefetch=False) -> None:
+        self.batch, self.layout = batch, layout
+        self.fsdp, self.data, self.prefetch = fsdp, data, prefetch
+
+
+class _MeshContext:
+    """A step's mesh context, made at the first step: the ring groups of
+    the batch and of the fsdp and data axes, each model met broadcast
+    once (a data-parallel model from the batch group's first rank; a
+    sharded one its replicated leaves and buffers over the batch group,
+    its shards over the data group), its BatchNorm layers given the batch
+    group, and a sharded model's optimizer told which of its parameters
+    are shards. None without a mesh or on a mesh of one."""
 
     def __init__(self, mesh) -> None:
         self.mesh = mesh
-        self._group = None
+        self._groups = None
         self._synced: set[int] = set()
 
-    def group(self, model):
+    def _ring_groups(self, cfg):
+        from move2kube_tpu_torch.parallel import overlap
+
+        if self._groups is None:
+            data = (overlap.mesh_ring_group(self.mesh, ("data",))
+                    if cfg.data > 1 else None)
+            fsdp = (overlap.mesh_ring_group(self.mesh, ("fsdp",))
+                    if cfg.fsdp > 1 else None)
+            batch = (overlap.mesh_ring_group(self.mesh, ("data", "fsdp"))
+                     if data is not None and fsdp is not None
+                     else data or fsdp)
+            self._groups = (batch, fsdp, data)
+        return self._groups
+
+    def plan(self, state) -> _MeshPlan | None:
         if self.mesh is None:
             return None
         from move2kube_tpu_torch.parallel import overlap
@@ -328,37 +513,107 @@ class _DataParallel:
             check_ported_mesh,
             mesh_config_of,
         )
+        from move2kube_tpu_torch.parallel.sharding import layout_of
 
         cfg = mesh_config_of(self.mesh)
         if cfg.total() == 1:
             return None
-        if not overlap.is_pure_data_parallel(self.mesh):
-            check_ported_mesh(cfg)  # raises, naming the axis's slice
-        data = self.mesh.get_group("data")
-        if self._group is None:
-            self._group = overlap.ring_group(data)
+        check_ported_mesh(cfg)  # raises, naming an unported axis's slice
+        model = state.model
+        layout = layout_of(model)  # None too for a conv family's
+        if layout is None and cfg.fsdp > 1 and any(
+                d is not None for d in overlap._fsdp_leaf_dims(
+                    model, cfg.fsdp).values()):
+            raise ValueError(
+                "an fsdp mesh trains a sharded model: build the state with "
+                "create_sharded_state (or shard_params before the "
+                "optimizer's first step)")
+        batch, fsdp, data = self._ring_groups(cfg)
         if id(model) not in self._synced:
-            overlap.broadcast_model(model, data)
-            for m in model.modules():
-                if hasattr(m, "stats_group"):
-                    m.stats_group = data
+            self._sync(model, layout, cfg)
             self._synced.add(id(model))
-        return self._group
+        if layout is None:
+            return _MeshPlan(batch)
+        shards = {id(p) for n, p in model.named_parameters()
+                  if layout.dims[n] is not None}
+        state.optimizer.sharding = _ShardedTree(
+            shards, fsdp, next(model.parameters()).device)
+        return _MeshPlan(batch, layout, fsdp, data,
+                         overlap.fsdp_prefetched(self.mesh))
+
+    def _sync(self, model, layout, cfg) -> None:
+        from move2kube_tpu_torch.parallel import overlap
+
+        mesh = self.mesh
+        batch = (mesh.get_group("data") if cfg.fsdp == 1 else
+                 mesh.get_group("fsdp") if cfg.data == 1 else None)
+        if batch is None:
+            import torch.distributed as dist
+
+            batch = dist.group.WORLD
+        if layout is None:
+            overlap.broadcast_model(model, batch)
+        else:
+            whole = [p for n, p in model.named_parameters()
+                     if layout.dims[n] is None]
+            overlap.broadcast_tensors([*whole, *model.buffers()], batch)
+            if cfg.data > 1:
+                overlap.broadcast_tensors(
+                    [p for n, p in model.named_parameters()
+                     if layout.dims[n] is not None], mesh.get_group("data"))
+        for m in model.modules():
+            if hasattr(m, "stats_group"):
+                m.stats_group = batch
 
 
-def _reduced_loss(model, loss_of, batch, grad_accum: int, group):
-    """Backward and ring-reduce one update's gradients on the data group
-    (``loss_of(microbatch) -> loss``; ``batch`` holds ``grad_accum``
-    stacked microbatches when above 1); returns the group's mean loss."""
+class _Applied:
+    """``model`` called on ``params`` (``torch.func.functional_call``),
+    its other attributes the model's own: what a family's loss function
+    sees in place of a sharded model."""
+
+    def __init__(self, model, params: dict) -> None:
+        self._model, self._params = model, params
+
+    def __call__(self, *args, **kwargs):
+        return torch.func.functional_call(self._model, self._params, args,
+                                          kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+
+def _mesh_loss(plan, model, loss_of, batch, grad_accum: int):
+    """Backward and reduce one update's gradients on a mesh
+    (``loss_of(params, microbatch) -> loss``, ``params`` a dict of the
+    parameters at their global shapes; ``batch`` holds ``grad_accum``
+    stacked microbatches when above 1); returns the group's mean loss.
+    A data-parallel model takes 9a's ring over the batch group; a
+    sharded one the fsdp schedule of ``plan``."""
     from move2kube_tpu_torch.parallel import overlap
 
-    params = list(model.parameters())
-    if grad_accum <= 1:
-        loss = loss_of(batch)
-        loss.backward()
-        overlap.reduce_grads(params, group)
-        return overlap.group_mean(loss.detach(), group)
-    return overlap.overlapped_accum_grads(params, loss_of, batch, group)
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    if plan.layout is None:
+        whole = dict(named)
+        if grad_accum <= 1:
+            loss = loss_of(whole, batch)
+            loss.backward()
+            overlap.reduce_grads(params, plan.batch)
+            return overlap.group_mean(loss.detach(), plan.batch)
+        return overlap.overlapped_accum_grads(
+            params, lambda mb: loss_of(whole, mb), batch, plan.batch)
+    names = [n for n, _ in named]
+    dims = [plan.layout.dims[n] for n in names]
+    micro = [batch] if grad_accum <= 1 else batch
+
+    def loss_fn(full, mb):
+        return loss_of(dict(zip(names, full)), mb)
+
+    if plan.prefetch:
+        return overlap.prefetched_fsdp_accum_grads(params, dims, loss_fn,
+                                                   micro, plan.fsdp)
+    return overlap.sequential_fsdp_accum_grads(
+        params, dims, loss_fn, micro, plan.fsdp, plan.data, plan.batch)
 
 
 def _accumulate(model, micro_losses, grad_accum: int) -> torch.Tensor:
@@ -375,31 +630,38 @@ def _accumulate(model, micro_losses, grad_accum: int) -> torch.Tensor:
     return torch.stack(losses).mean()
 
 
-def _family_step(loss_fn, grad_accum: int = 1, mesh=None):
-    """A step around ``loss_fn(model, batch) -> loss`` (batch tensors on
-    the model's device): zero the grads, backward (over ``grad_accum``
-    microbatches stacked on each tensor's leading axis when > 1), reduce
-    across the data group on a ``mesh``, update."""
-    dp = _DataParallel(mesh)
+def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
+    """A step around ``loss_fn(model, batch) -> loss`` (``batch`` a dict
+    of tensors, moved to the model's device): zero the grads, backward
+    (over ``grad_accum`` microbatches stacked on each tensor's leading
+    axis when > 1), reduce across the batch group on a ``mesh`` (a
+    sharded model's loss function is handed the model on its gathered
+    parameters), update. The families' steps below and minitrain's are
+    this one."""
+    ctx = _MeshContext(mesh)
 
     def step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
         dev = next(model.parameters()).device
         batch = {k: v.to(dev) for k, v in batch.items()}
         opt.zero_grad()
-        group = dp.group(model)
+        plan = ctx.plan(state)
         if grad_accum > 1:
             lead = {v.shape[0] for v in batch.values()}
             if lead != {grad_accum}:
                 raise ValueError(f"grad_accum={grad_accum} takes batch "
                                  f"tensors [{grad_accum}, ...]; got leading "
                                  f"extents {sorted(lead)}")
-        if group is not None:
+        if plan is not None:
             micro = (batch if grad_accum <= 1 else
                      [{k: v[i] for k, v in batch.items()}
                       for i in range(grad_accum)])
-            loss = _reduced_loss(model, lambda b: loss_fn(model, b), micro,
-                                 grad_accum, group)
+            loss = _mesh_loss(
+                plan, model,
+                lambda params, b: loss_fn(
+                    model if plan.layout is None else _Applied(model, params),
+                    b),
+                micro, grad_accum)
         elif grad_accum <= 1:
             loss = loss_fn(model, batch)
             loss.backward()
@@ -440,7 +702,7 @@ def make_classifier_train_step(has_batch_stats: bool = False,
                              "pass has_batch_stats=True")
         return cross_entropy_loss(model(batch["input"]), batch["label"])
 
-    return _family_step(loss_fn, grad_accum, mesh)
+    return make_train_step(loss_fn, grad_accum, mesh)
 
 
 def make_bert_train_step(mesh=None):
@@ -451,7 +713,7 @@ def make_bert_train_step(mesh=None):
         logits = model(batch["input_ids"], batch.get("attention_mask"))
         return cross_entropy_loss(logits, batch["label"])
 
-    return _family_step(loss_fn, mesh=mesh)
+    return make_train_step(loss_fn, mesh=mesh)
 
 
 def make_diffusion_train_step(num_diffusion_steps: int = 1000, mesh=None):
@@ -475,7 +737,7 @@ def make_diffusion_train_step(num_diffusion_steps: int = 1000, mesh=None):
         pred = model(x_t, t)
         return torch.mean((pred - noise32) ** 2)
 
-    return _family_step(loss_fn, mesh=mesh)
+    return make_train_step(loss_fn, mesh=mesh)
 
 
 def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
@@ -505,11 +767,14 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
       (the module's docstring); each rank's ``input_ids`` are its rows.
 
     The batch runs where the model's parameters lie."""
-    dp = _DataParallel(mesh)
+    ctx = _MeshContext(mesh)
 
-    def _loss(model, ids):
-        params = dict(model.named_parameters())
+    def _loss(model, ids, params=None):
+        if params is None:
+            params = dict(model.named_parameters())
         if precision is not None:
+            # on the parameters at their global shapes: a sharded model's
+            # gathered fp32 masters are cast here, after the gather
             params = precision.cast_params(params)
         head_w = lm_head_weight(params)
         if head_w.shape[0] > chunk:
@@ -537,10 +802,11 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
             raise ValueError(
                 f"grad_accum={grad_accum} takes input_ids [k, batch, "
                 f"seq] with k = {grad_accum}; got {tuple(ids.shape)}")
-        group = dp.group(model)
-        if group is not None:
-            loss = _reduced_loss(model, lambda x: _loss(model, x), ids,
-                                 grad_accum, group)
+        plan = ctx.plan(state)
+        if plan is not None:
+            loss = _mesh_loss(plan, model,
+                              lambda params, x: _loss(model, x, params), ids,
+                              grad_accum)
         elif grad_accum <= 1:
             loss = _loss(model, ids)
             loss.backward()

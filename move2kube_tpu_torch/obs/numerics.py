@@ -108,16 +108,24 @@ def group_index(tree, cfg=None) -> tuple[list[str], list[int]]:
     return names, [index[g] for g in groups]
 
 
-def summarize_tree(tree, leaf_groups=None, num_groups=None):
+def summarize_tree(tree, leaf_groups=None, num_groups=None, shards=None,
+                   gather=None):
     """Per-group ``(rms, max_abs, nonfinite)`` of a tree's floating
     tensors (``tree`` as :func:`group_index` takes it, or a list of
     tensors with ``leaf_groups`` given), each a ``[num_groups]`` tensor on
     the tensors' device. ``rms`` is over the *finite* entries (divided by
     the group's whole size, as the reference divides); ``max_abs`` is +Inf
     where any entry is non-finite; integer leaves are skipped. Each leaf
-    is reduced on its own and the partial sums folded per group, so no
-    group is ever concatenated into one copy. Nothing reads back to the
-    host."""
+    is reduced on its own and the partial sums folded per group in
+    float64, so no group is ever concatenated into one copy. Nothing
+    reads back to the host.
+
+    A tree of fsdp shards: ``shards`` flags each leaf that is this rank's
+    shard of a sharded leaf, and ``gather(t)`` stacks ``t`` of every rank
+    of the shards' group. The shards' partial sums are reduced across the
+    group (sums and counts summed, maxima maxed) before the replicated
+    leaves', counted once, join them: every rank gets the whole tree's
+    summaries."""
     import torch
 
     if leaf_groups is None or num_groups is None:
@@ -128,7 +136,7 @@ def summarize_tree(tree, leaf_groups=None, num_groups=None):
     n = max(1, int(num_groups))
     parts: list[list] = [[] for _ in range(n)]
     device = None
-    for g, leaf in zip(leaf_groups, leaves):
+    for i, (g, leaf) in enumerate(zip(leaf_groups, leaves)):
         if leaf is None or not torch.is_floating_point(leaf):
             continue
         x = leaf.detach()
@@ -147,23 +155,37 @@ def summarize_tree(tree, leaf_groups=None, num_groups=None):
         sumsq = torch.dot(safe, safe)
         # any non-finite entry makes the group's max +Inf below
         top = torch.linalg.vector_norm(x, ord=float("inf")).float()
-        parts[g].append((sumsq, top, bad, x.numel()))
+        parts[g].append((sumsq, top, bad, x.numel(), i))
     device = device if device is not None else torch.device("cpu")
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    rms, max_abs, nonfinite = [], [], []
-    for group in parts:
-        if not group:
-            rms.append(zero)
-            max_abs.append(zero)
-            nonfinite.append(zero.to(torch.int32))
-            continue
-        sumsq, top, bad, size = zip(*group)
-        count = torch.cat(list(bad)).sum().to(torch.int32)
-        rms.append(torch.sqrt(torch.stack(list(sumsq)).sum() / sum(size)))
-        max_abs.append(torch.where(count > 0, float("inf"),
-                                   torch.stack(list(top)).amax()))
-        nonfinite.append(count)
-    return torch.stack(rms), torch.stack(max_abs), torch.stack(nonfinite)
+    f64 = dict(dtype=torch.float64, device=device)
+    # per kind (shards, then replicated leaves) and group: the sum of
+    # squares, the max, the non-finite count and the size, in float64
+    flags = shards if shards is not None else [False] * len(leaves)
+    rows = []
+    for kind in (True, False):
+        for group in parts:
+            mine = [e for e in group if bool(flags[e[4]]) == kind]
+            if not mine:
+                rows.append(torch.zeros(4, **f64))
+                continue
+            sumsq, top, bad, size, _ = zip(*mine)
+            rows.append(torch.stack([
+                torch.stack(list(sumsq)).double().sum(),
+                torch.stack(list(top)).double().amax(),
+                torch.cat(list(bad)).sum(),
+                torch.full((), float(sum(size)), **f64)]))
+    acc = torch.stack(rows).view(2, n, 4)
+    # the shards' partial sums of every rank of the group, [ranks, n, 4]
+    every = (gather(acc[0]) if shards is not None and any(shards)
+             else acc[0][None])
+    sumsq = every[..., 0].sum(0) + acc[1, :, 0]
+    top = torch.maximum(every[..., 1].amax(0), acc[1, :, 1])
+    count = every[..., 2].sum(0) + acc[1, :, 2]
+    size = every[..., 3].sum(0) + acc[1, :, 3]
+    rms = torch.where(size > 0, torch.sqrt(sumsq / size.clamp(min=1)), 0.0)
+    max_abs = torch.where(count > 0, float("inf"), top)
+    return (rms.to(torch.float32), max_abs.to(torch.float32),
+            count.to(torch.int32))
 
 
 # rows of a count: a float32 sum of ones is exact up to 2**24

@@ -5,13 +5,15 @@ parallel/``.
   maps onto (one rank a card), ``initialize_distributed`` and the
   ``DeviceMesh``;
 - :mod:`.topology`: the parallelism planner (``resolve_mesh_plan``);
-- :mod:`.sharding`: the logical-axis rules the memory plan reads;
+- :mod:`.sharding`: the logical-axis rules the memory plan reads, and the
+  placement of parameter shards;
 - :mod:`.memory`: the per-card memory plan;
-- :mod:`.overlap`: the bucketed ring all-reduce and the accumulation that
-  overlaps it with the next microbatch's backward.
+- :mod:`.overlap`: the bucketed ring all-reduce, the FSDP all-gather and
+  reduce-scatter rings, and the accumulations that overlap them with the
+  next microbatch's backward.
 
-Data parallelism runs here; FSDP, tensor, sequence, expert and pipeline
-parallelism are ROADMAP Queue 1 items 9b-9e.
+Data parallelism and FSDP (ZeRO-3) run here; tensor, sequence, expert and
+pipeline parallelism are ROADMAP Queue 1 items 9c-9e.
 """
 
 from move2kube_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -101,8 +101,9 @@ def infer_mesh_config(n_devices: int, *, zero_stage: int = 0,
                       expert=expert)
 
 
-# the ROADMAP slice that brings each model axis (Queue 1 item 9)
-SLICE_OF_AXIS = {"fsdp": "9b (FSDP)", "tensor": "9c (tensor parallelism)",
+# the ROADMAP slice that brings each model axis the port does not run yet
+# (Queue 1 item 9; data and fsdp run)
+SLICE_OF_AXIS = {"tensor": "9c (tensor parallelism)",
                  "expert": "9c (expert parallelism)",
                  "seq": "9d (sequence parallelism)",
                  "pipe": "9e (pipelines)"}
@@ -116,7 +117,7 @@ def unported_axes(config: MeshConfig) -> list[str]:
 
 def check_ported_mesh(config: MeshConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP slice of each axis
-    of ``config`` the port does not run yet (data parallelism runs)."""
+    of ``config`` the port does not run yet (data and fsdp run)."""
     axes = unported_axes(config)
     if axes:
         raise NotImplementedError(
@@ -335,10 +336,15 @@ def launch_local_ranks(cmd: list[str], n: int, env=None,
     between its choice and the ranks' start.
     Unless the env sets ``OMP_NUM_THREADS``, each rank gets its share of
     the host's cores. SIGTERM and SIGINT are passed on to every rank (the preemption
-    watcher's path). The first rank to exit non-zero decides the code:
-    the others are sent SIGTERM, then SIGKILL after ``grace_s``, since a
-    survivor would wait in its next collective for the dead peer. A rank
-    killed by a signal is mirrored by this process dying of it."""
+    watcher's path). When a rank exits non-zero, the others have
+    ``grace_s`` to exit on their own (a rank that loses a peer dies of it
+    in its next collective, often before the peer that failed has
+    finished dying); the ranks still running are then sent SIGTERM, and
+    SIGKILL after ``grace_s`` more. The code of the ranks that exited on
+    their own decides, the first that is not 1 before a 1: 1 is the
+    uncaught error a rank that lost its peer dies of, and the code that
+    tells why (83 for a lost slice, a signal) may come a moment after it.
+    A rank killed by a signal is mirrored by this process dying of it."""
     base = dict(os.environ if env is None else env)
     base["M2KT_LOCAL_WORLD"] = str(n)
     # the ranks share the pod's cores, as torchrun shares them
@@ -393,9 +399,19 @@ def launch_local_ranks(cmd: list[str], n: int, env=None,
                 bad = [rc for _, rc in sorted(exits) if rc != 0]
                 finished = len(exits) == n
             if bad or finished:
-                code = bad[0] if bad else 0
                 break
-        if code:
+        if bad:
+            # the other ranks' own exits, for a moment
+            settle = time.monotonic() + grace_s
+            while time.monotonic() < settle:
+                with lock:
+                    if len(exits) == n:
+                        break
+                changed.wait(0.1)
+                changed.clear()
+            with lock:
+                bad = [rc for _, rc in sorted(exits) if rc != 0]
+            code = next((rc for rc in bad if rc != 1), bad[0])
             deadline = time.monotonic() + grace_s
             for p in procs:
                 if p.poll() is None:
@@ -410,6 +426,7 @@ def launch_local_ranks(cmd: list[str], n: int, env=None,
             signal.signal(s, h)
     if code < 0:
         sys.stdout.flush()
-        signal.signal(-code, signal.SIG_DFL)
+        if -code not in (signal.SIGKILL, signal.SIGSTOP):  # not catchable
+            signal.signal(-code, signal.SIG_DFL)
         os.kill(os.getpid(), -code)
     return code

@@ -1,6 +1,6 @@
-"""Bucketed ring all-reduce and compute-overlapped gradient accumulation:
-the port of ``move2kube_tpu/parallel/overlap.py`` (its data-parallel
-half; the FSDP prefetch is ROADMAP Queue 1 item 9b).
+"""Bucketed ring all-reduce, the FSDP rings and compute-overlapped
+gradient accumulation: the port of ``move2kube_tpu/parallel/overlap.py``
+(the collective decode matmul is ROADMAP Queue 1 item 9c).
 
 :func:`ring_all_reduce` flattens every tensor into one fp32 bucket, pads
 it to a multiple of the group size n and splits it into n chunks, then
@@ -25,14 +25,38 @@ with microbatch i's ring reduce running while microbatch i+1's forward
 and backward do: under NCCL the hops and additions are queued on a side
 stream ordered by events against the backward that produced the bucket
 and the step that reads the result; under gloo the reduce runs on a
-worker thread. The ring runs on a process group of its own
-(:func:`ring_group`), so the collectives of the main thread (BatchNorm's
-statistics, the preemption vote, the checkpoint barrier) never interleave
-with it; the worker is joined before the step returns.
+worker thread. The ring runs on process groups of its own
+(:func:`mesh_ring_group`), so the collectives of the main thread
+(BatchNorm's statistics, the preemption vote, the checkpoint barrier)
+never interleave with it; the worker is joined before the step returns.
+
+FSDP (ZeRO-3): :func:`ring_all_gather` rebuilds a leaf from its shards in
+n - 1 single-neighbour hops, each received slice written at its global
+offset, and :func:`ring_reduce_scatter` sums a full gradient over the
+group with the all-reduce's travelling partial sum plus one alignment
+hop, so rank r owns slice r (the reference's ``NamedSharding`` layout).
+:func:`prefetched_fsdp_accum_grads` gathers the sharded leaves once a
+step and overlaps microbatch k's pending reduction (a reduce-scatter a
+sharded leaf, one bucketed all-reduce for the replicated ones) with
+microbatch k+1's backward, as :func:`overlapped_accum_grads` does;
+:func:`sequential_fsdp_accum_grads` is the reference's GSPMD scan, which
+re-gathers every microbatch (``M2KT_FSDP_PREFETCH=off``, and any data x
+fsdp mesh) and reduce-scatters each full gradient inside the backward as
+soon as it is whole. Memory: both schedules hold the gathered tree (and,
+under a compute dtype, its cast copy) through a microbatch's backward;
+the prefetched one also holds the full gradients of a microbatch while
+they wait for their reduction, up to two trees of them while the
+previous microbatch's reduction overlaps the next backward, freeing each
+leaf's as it is reduced; the sequential one holds one leaf's at a time. :data:`RING_STATS` counts each kind apart: ``calls``,
+``bytes``, ``copy_s`` and ``ring_s`` the all-reduce, the ``ag_`` and
+``rs_`` keys the gathers and reduce-scatters (bytes in the leaf's own
+dtype).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 import time
 
@@ -42,13 +66,17 @@ import torch.distributed as dist
 # what the rings moved since the last reset: calls, fp32 bytes reduced,
 # and on the host path (a card's bucket in a gloo group) the seconds of
 # the two copies and of the hops and additions on the host
-RING_STATS = {"calls": 0, "bytes": 0, "copy_s": 0.0, "ring_s": 0.0}
+RING_STATS = {"calls": 0, "bytes": 0, "copy_s": 0.0, "ring_s": 0.0,
+              "ag_calls": 0, "ag_bytes": 0, "ag_copy_s": 0.0,
+              "ag_ring_s": 0.0, "rs_calls": 0, "rs_bytes": 0,
+              "rs_copy_s": 0.0, "rs_ring_s": 0.0}
 
-_RING_GROUPS: dict = {}
+_MESH_RING_GROUPS: dict = {}
 
 
 def reset_ring_stats() -> None:
-    RING_STATS.update(calls=0, bytes=0, copy_s=0.0, ring_s=0.0)
+    for key in RING_STATS:
+        RING_STATS[key] = 0.0 if key.endswith("_s") else 0
 
 
 def _leaves(tree) -> list:
@@ -86,13 +114,19 @@ def _exchange(send, recv, nxt: int, prv: int, group) -> None:
         work.wait()
 
 
-def _ring(bucket, group):
-    """The sum of ``bucket`` (1-D fp32, on the group's device) across
-    ``group`` by the reference's schedule."""
+def _neighbours(group):
+    """(n, this rank's index in ``group``, the next rank, the previous
+    rank), global ranks for the hops."""
     n = dist.get_world_size(group)
     r = dist.get_rank(group)
     ranks = dist.get_process_group_ranks(group)
-    nxt, prv = ranks[(r + 1) % n], ranks[(r - 1) % n]
+    return n, r, ranks[(r + 1) % n], ranks[(r - 1) % n]
+
+
+def _ring(bucket, group):
+    """The sum of ``bucket`` (1-D fp32, on the group's device) across
+    ``group`` by the reference's schedule."""
+    n, r, nxt, prv = _neighbours(group)
     size = bucket.numel()
     pad = (-size) % n
     if pad:
@@ -114,34 +148,109 @@ def _ring(bucket, group):
     return flat[:size] if pad else flat
 
 
+def _gather(shard, group, dim: int):
+    """The reference's ``ring_all_gather``: rank r starts with global
+    slice r of ``dim``; at hop t it receives rank r - t's slice from its
+    previous neighbour and writes it at its global offset."""
+    n, r, nxt, prv = _neighbours(group)
+    size = shard.shape[dim]
+    shape = list(shard.shape)
+    shape[dim] = n * size
+    full = shard.new_empty(shape)
+    full.narrow(dim, r * size, size).copy_(shard)
+    cur = shard.contiguous()
+    for t in range(1, n):
+        recv = torch.empty_like(cur)
+        _exchange(cur, recv, nxt, prv, group)
+        cur = recv
+        full.narrow(dim, ((r - t) % n) * size, size).copy_(cur)
+    return full
+
+
+def _reduce_scatter(full, group, dim: int):
+    """The reference's ``ring_reduce_scatter``: the all-reduce's
+    travelling partial sum in ``full``'s dtype (after n - 1 hops rank r
+    holds the sum of slice r + 1), then one hop forward, so rank r owns
+    slice r."""
+    n, r, nxt, prv = _neighbours(group)
+    size = full.shape[dim] // n
+
+    def chunk(i):
+        return full.narrow(dim, (i % n) * size, size)
+
+    total = chunk(r).contiguous()
+    recv = torch.empty_like(total)
+    for s in range(n - 1):
+        _exchange(total, recv, nxt, prv, group)
+        total = recv + chunk(r - 1 - s)
+    out = torch.empty_like(total)
+    _exchange(total, out, nxt, prv, group)
+    return out
+
+
 def _on_host(group, bucket) -> bool:
     return bucket.is_cuda and dist.get_backend(group) != "nccl"
 
 
-def _ring_bucket(bucket, group, stream=None):
-    """:func:`_ring` where the backend can run it: a card's bucket in a
-    non-NCCL group through one pinned host copy and back. ``stream``:
-    the side stream the copies run on (the current one when None)."""
-    RING_STATS["calls"] += 1
-    RING_STATS["bytes"] += bucket.numel() * 4
-    if not _on_host(group, bucket):
-        return _ring(bucket, group)
-    stream = stream or torch.cuda.current_stream(bucket.device)
+def _via_host(tensor, group, fn, prefix: str, stream=None):
+    """``fn(tensor)`` where the backend can run it: a card's tensor in a
+    non-NCCL group through one pinned host copy and back, its copy and
+    ring seconds counted under ``prefix`` in :data:`RING_STATS`.
+    ``stream``: the side stream the copies run on (the current one when
+    None)."""
+    if not _on_host(group, tensor):
+        return fn(tensor)
+    stream = stream or torch.cuda.current_stream(tensor.device)
     t0 = time.perf_counter()
-    host = torch.empty(bucket.shape, dtype=bucket.dtype, pin_memory=True)
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
     with torch.cuda.stream(stream):
-        host.copy_(bucket, non_blocking=True)
+        host.copy_(tensor, non_blocking=True)
     stream.synchronize()
     t1 = time.perf_counter()
-    reduced = _ring(host, group)
+    done = fn(host)
     t2 = time.perf_counter()
     with torch.cuda.stream(stream):
-        out = reduced.to(bucket.device, non_blocking=True)
+        out = done.to(tensor.device, non_blocking=True)
     stream.synchronize()
     t3 = time.perf_counter()
-    RING_STATS["copy_s"] += (t1 - t0) + (t3 - t2)
-    RING_STATS["ring_s"] += t2 - t1
+    RING_STATS[prefix + "copy_s"] += (t1 - t0) + (t3 - t2)
+    RING_STATS[prefix + "ring_s"] += t2 - t1
     return out
+
+
+def _ring_bucket(bucket, group, stream=None):
+    """:func:`_ring` where the backend can run it (:func:`_via_host`)."""
+    RING_STATS["calls"] += 1
+    RING_STATS["bytes"] += bucket.numel() * 4
+    return _via_host(bucket, group, lambda t: _ring(t, group), "", stream)
+
+
+def ring_all_gather(shard, group=None, dim: int = 0, stream=None):
+    """The whole leaf from every rank's ``shard`` (rank r holds global
+    slice r of ``dim``), in n - 1 single-neighbour hops; the same bits on
+    every rank. A group of one returns ``shard``."""
+    group = group or dist.group.WORLD
+    n = dist.get_world_size(group)
+    if n == 1:
+        return shard
+    RING_STATS["ag_calls"] += 1
+    RING_STATS["ag_bytes"] += n * shard.numel() * shard.element_size()
+    return _via_host(shard, group, lambda t: _gather(t, group, dim), "ag_",
+                     stream)
+
+
+def ring_reduce_scatter(full, group=None, dim: int = 0, stream=None):
+    """Sum ``full`` over ``group`` and keep this rank's slice r of
+    ``dim`` (whose extent the group's size divides), summed in the
+    reference's order and in ``full``'s dtype. A group of one returns
+    ``full``."""
+    group = group or dist.group.WORLD
+    if dist.get_world_size(group) == 1:
+        return full
+    RING_STATS["rs_calls"] += 1
+    RING_STATS["rs_bytes"] += full.numel() * full.element_size()
+    return _via_host(full, group, lambda t: _reduce_scatter(t, group, dim),
+                     "rs_", stream)
 
 
 def ring_all_reduce(tree, group=None):
@@ -156,78 +265,83 @@ def ring_all_reduce(tree, group=None):
     return _unflatten_bucket(_ring_bucket(bucket, group), meta)
 
 
-def ring_group(group=None):
-    """A process group of the same ranks and backend as ``group`` (the
-    world by default), kept for the ring alone. Collective over the
-    world the first time for each set of ranks: every rank makes it at
-    the same point of its program."""
-    group = group or dist.group.WORLD
-    ranks = tuple(dist.get_process_group_ranks(group))
-    key = (ranks, dist.get_backend(group))
-    if key not in _RING_GROUPS:
-        _RING_GROUPS[key] = dist.new_group(list(ranks), backend=key[1])
-    return _RING_GROUPS[key]
-
-
-def is_pure_data_parallel(mesh) -> bool:
-    """True when every device sits on the ``data`` axis (parameters are
-    then replicated, the precondition for the ring paths). ``mesh`` is a
-    ``DeviceMesh`` with the six axes (or anything with a ``shape`` and
-    ``mesh_dim_names``)."""
-    try:
-        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    except (AttributeError, TypeError):
-        return False
-    data = shape.get("data", 1)
-    return data > 1 and all(v == 1 for k, v in shape.items() if k != "data")
+def mesh_ring_group(mesh, axes: tuple):
+    """A process group of the ranks that share this rank's coordinates on
+    every axis of ``mesh`` (a ``DeviceMesh``) but ``axes``, kept for the
+    ring alone. Collective over the world the first time for a mesh and
+    ``axes``: every rank makes every such group, at the same point of its
+    program, and keeps its own."""
+    names = list(mesh.mesh_dim_names)
+    idx = [names.index(a) for a in axes]
+    ranks = mesh.mesh
+    rest = [i for i in range(ranks.ndim) if i not in idx]
+    size = 1
+    for i in idx:
+        size *= ranks.shape[i]
+    rows = tuple(tuple(int(r) for r in row) for row in
+                 ranks.permute(*rest, *idx).reshape(-1, size).tolist())
+    key = (rows, dist.get_backend())
+    if key not in _MESH_RING_GROUPS:
+        mine, _ = dist.new_subgroups_by_enumeration(
+            [list(row) for row in rows], backend=key[1])
+        _MESH_RING_GROUPS[key] = mine
+    return _MESH_RING_GROUPS[key]
 
 
 class _Pending:
-    """One reduce in flight: :meth:`result` returns the reduced bucket,
-    ready for the current stream."""
+    """One reduction in flight: ``run(stream) -> [tensor, ...]`` over
+    ``inputs`` (tensors of the group's ranks' backward); :meth:`result`
+    returns its outputs, ready for the current stream."""
 
-    def __init__(self, bucket, group) -> None:
+    def __init__(self, run, inputs, group) -> None:
         self._out = None
         self._error = None
         self._thread = None
         self._done = None
-        if bucket.is_cuda:
-            dev = bucket.device
+        cuda = inputs[0].is_cuda
+        side = None
+        if cuda:
+            dev = inputs[0].device
             side = torch.cuda.Stream(device=dev)
-            # the backward that produced the bucket comes first
+            # the backward that produced the inputs comes first
             side.wait_stream(torch.cuda.current_stream(dev))
-            bucket.record_stream(side)
-        if not _on_host(group, bucket) and bucket.is_cuda:
+            for t in inputs:
+                t.record_stream(side)
+        if cuda and not _on_host(group, inputs[0]):
             # NCCL: hops and additions queued on the side stream; the host
             # goes on to the next backward at once
             with torch.cuda.stream(side):
-                self._out = _ring_bucket(bucket, group)
+                self._out = run(None)
                 self._done = torch.cuda.Event()
                 self._done.record(side)
             return
 
-        def run():
+        def work():
             try:
-                self._out = _ring_bucket(
-                    bucket, group, side if bucket.is_cuda else None)
+                # every kernel of the reduction on the side stream, which
+                # waits for the backward that produced the inputs
+                with (torch.cuda.stream(side) if side is not None
+                      else contextlib.nullcontext()):
+                    self._out = run(side)
             except BaseException as e:  # noqa: BLE001 - re-raised in result()
                 self._error = e
 
-        self._thread = threading.Thread(target=run, name="m2kt-ring",
+        self._thread = threading.Thread(target=work, name="m2kt-ring",
                                         daemon=True)
         self._thread.start()
 
-    def result(self):
+    def result(self) -> list:
         if self._thread is not None:
             self._thread.join()
             if self._error is not None:
                 raise self._error
-        if self._out.is_cuda:
-            consumer = torch.cuda.current_stream(self._out.device)
-            if self._done is not None:
-                consumer.wait_event(self._done)
-            # made on the side stream, read on this one
-            self._out.record_stream(consumer)
+        for out in self._out:
+            if out.is_cuda:
+                consumer = torch.cuda.current_stream(out.device)
+                if self._done is not None:
+                    consumer.wait_event(self._done)
+                # made on the side stream, read on this one
+                out.record_stream(consumer)
         return self._out
 
 
@@ -266,10 +380,13 @@ def overlapped_accum_grads(params, loss_fn, batches, group):
         losses.append(loss.detach())
         bucket, meta = _grad_bucket(params)
         if pending is not None:
-            reduced = pending.result()
+            (reduced,) = pending.result()
             acc = reduced if acc is None else acc + reduced
-        pending = _Pending(bucket, group)
-    reduced = pending.result()
+        pending = _Pending(
+            lambda stream, bucket=bucket: [_ring_bucket(bucket, group,
+                                                        stream)],
+            [bucket], group)
+    (reduced,) = pending.result()
     acc = reduced if acc is None else acc + reduced
     k = len(losses)
     set_reduced_grads(params, acc, meta, k * n)
@@ -297,13 +414,246 @@ def reduce_grads(params, group) -> None:
                       dist.get_world_size(group))
 
 
+def is_pure_fsdp(mesh) -> bool:
+    """True when every device sits on the ``fsdp`` axis (the planner's
+    ZeRO layout: parameters sharded leaf by leaf, the batch over fsdp),
+    the precondition for :func:`prefetched_fsdp_accum_grads`."""
+    try:
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    except (AttributeError, TypeError):
+        return False
+    fsdp = shape.get("fsdp", 1)
+    return fsdp > 1 and all(v == 1 for k, v in shape.items() if k != "fsdp")
+
+
+def fsdp_prefetch_mode() -> str:
+    """``M2KT_FSDP_PREFETCH`` -> 'auto' | 'on' | 'off', the reference's
+    spellings: auto and on take the prefetched schedule whenever
+    :func:`is_pure_fsdp` holds; off takes the sequential one there too."""
+    raw = os.environ.get("M2KT_FSDP_PREFETCH", "auto").strip().lower()
+    if raw in ("on", "1", "true"):
+        return "on"
+    if raw in ("off", "0", "false"):
+        return "off"
+    return "auto"
+
+
+def fsdp_prefetched(mesh) -> bool:
+    """Whether a step on ``mesh`` takes :func:`prefetched_fsdp_accum_grads`
+    (a pure fsdp mesh, ``M2KT_FSDP_PREFETCH`` not off) rather than
+    :func:`sequential_fsdp_accum_grads`."""
+    return is_pure_fsdp(mesh) and fsdp_prefetch_mode() != "off"
+
+
+def fsdp_transient_bytes(layout, prefetched: bool, grad_accum: int,
+                         compute_dtype=torch.float32) -> dict:
+    """What a rank holds beyond its shards while a step of the fsdp
+    schedule runs, which the memory plan (the reference's: shards,
+    gradients, moments, activations) does not count, for fp32 masters
+    of ``layout`` (a :class:`~move2kube_tpu_torch.parallel.sharding.
+    ShardLayout`): the sharded leaves gathered; their copy in
+    ``compute_dtype`` with the replicated leaves' (none under fp32); and
+    the sharded leaves' full gradients: one tree (prefetched, one
+    microbatch), two (prefetched, more: one waits for its reduction while
+    the next backward runs), the largest leaf's (sequential)."""
+    import math
+
+    sizes = {n: math.prod(spec.shape) for n, spec in layout.specs.items()}
+    sharded = [sizes[n] for n in layout.sharded()]
+    gathered = 4 * sum(sharded)
+    cast = (0 if compute_dtype == torch.float32 else
+            sum(sizes.values()) * torch.finfo(compute_dtype).bits // 8)
+    full = (4 * sum(sharded) * (2 if grad_accum > 1 else 1) if prefetched
+            else 4 * max(sharded, default=0))
+    return {"schedule": "prefetched" if prefetched else "sequential",
+            "gathered_params_bytes": gathered, "cast_params_bytes": cast,
+            "full_grads_bytes": full,
+            "total_bytes": gathered + cast + full}
+
+
+def _fsdp_leaf_dims(model, n: int, axis_name: str = "fsdp") -> dict:
+    """Each parameter's dimension sharded over ``axis_name`` at extent
+    ``n`` (port dimensions, by the port's parameter name), None for a
+    replicated leaf or one whose dimension ``n`` does not divide (it
+    rides the replicated bucket): the reference's table, from the specs
+    of :func:`~move2kube_tpu_torch.parallel.sharding.param_specs`.
+    ``model``: the model at its global shapes (the meta device will
+    do)."""
+    from move2kube_tpu_torch.parallel.sharding import param_specs
+
+    return {name: spec.dim_of(axis_name)
+            for name, spec in param_specs(model, {axis_name: n}).items()}
+
+
+def _fsdp_reduce(grads, dims, group, stream):
+    """One microbatch's reduction: the replicated leaves' gradients in one
+    bucketed all-reduce, each sharded leaf's full gradient reduce-scattered
+    to this rank's slice; in ``grads``' order. Each full gradient is let go
+    (its entry of ``grads`` set to None) as soon as it is reduced, so the
+    caller's list holds no more of them than are still to reduce."""
+    rep = [i for i, d in enumerate(dims) if d is None]
+    out = [None] * len(grads)
+    if rep:
+        bucket, meta = _flatten_bucket([grads[i] for i in rep])
+        for i in rep:
+            grads[i] = None
+        for i, g in zip(rep, _unflatten_bucket(
+                _ring_bucket(bucket, group, stream), meta)):
+            out[i] = g
+    for i, d in enumerate(dims):
+        if d is not None:
+            out[i] = ring_reduce_scatter(grads[i], group, d, stream)
+            grads[i] = None
+    return out
+
+
+def _take_grads(full) -> list:
+    """The gradients the backward left on ``full`` (zeros for a leaf
+    without one, as the reference's tree holds it), cleared from the
+    leaves: the caller owns them now."""
+    grads = [t.grad if t.grad is not None else torch.zeros_like(t)
+             for t in full]
+    for t in full:
+        t.grad = None
+    return grads
+
+
+def _gather_leaves(params, dims, group) -> list:
+    """The parameters at their global shapes for the forward: each
+    sharded leaf all-gathered into a leaf tensor of its own that takes a
+    gradient, each replicated one as it is."""
+    return [p if d is None else
+            ring_all_gather(p.detach(), group, d).requires_grad_(True)
+            for p, d in zip(params, dims)]
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """A sharded leaf at its global shape for the forward
+    (:func:`ring_all_gather` of the shard); the backward reduce-scatters
+    the leaf's full gradient as soon as the backward has summed it, so the
+    shard's ``.grad`` takes this rank's slice and the full gradient is
+    freed at once (no tree of full gradients ever exists)."""
+
+    @staticmethod
+    def forward(ctx, shard, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return ring_all_gather(shard, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ring_reduce_scatter(grad, ctx.group, ctx.dim), None, None
+
+
+def _set_shard_grads(params, acc, divisor: int) -> None:
+    for p, a in zip(params, acc):
+        p.grad = (a / divisor).to(p.dtype)
+
+
+def prefetched_fsdp_accum_grads(params, dims, loss_fn, batches, group):
+    """The ZeRO mesh's counterpart of :func:`overlapped_accum_grads`.
+
+    ``params``: the model's parameters, each sharded one holding this
+    rank's slice of dimension ``dims[i]`` (None: replicated);
+    ``loss_fn(full, microbatch) -> scalar`` runs the forward on ``full``,
+    the parameters at their global shapes. The sharded leaves are
+    all-gathered once a step, an independent ring a leaf; microbatch k's
+    pending reduction (:func:`_fsdp_reduce`) runs while microbatch k+1's
+    backward does. The gathered leaves take the backward's gradients,
+    which go to the pending reduction at once and are freed when it
+    ends. The gradients land in the parameters' ``.grad`` as shards,
+    averaged over ``len(batches) x n``; the loss comes back as the
+    group's mean."""
+    params, dims = list(params), list(dims)
+    n = dist.get_world_size(group)
+    full = _gather_leaves(params, dims, group)
+    acc, pending, losses = None, None, []
+    for mb in batches:
+        for p in params:
+            p.grad = None
+        loss = loss_fn(full, mb)
+        loss.backward()
+        losses.append(loss.detach())
+        grads = _take_grads(full)
+        if pending is not None:
+            reduced = pending.result()
+            acc = reduced if acc is None else [
+                a + r for a, r in zip(acc, reduced)]
+        pending = _Pending(
+            lambda stream, grads=grads: _fsdp_reduce(grads, dims, group,
+                                                     stream),
+            grads, group)
+        del grads
+    reduced = pending.result()
+    acc = reduced if acc is None else [a + r for a, r in zip(acc, reduced)]
+    del full, pending, reduced
+    k = len(losses)
+    _set_shard_grads(params, acc, k * n)
+    return group_mean(torch.stack(losses).sum() / k, group)
+
+
+def sequential_fsdp_accum_grads(params, dims, loss_fn, batches, fsdp_group,
+                                data_group=None, batch_group=None):
+    """The reference's sequential accumulation on an fsdp mesh, where
+    GSPMD's scan re-gathers the parameters for every microbatch: each
+    microbatch gathers the sharded leaves over ``fsdp_group``, runs its
+    forward and backward, in which each sharded gradient is
+    reduce-scattered over ``fsdp_group`` as soon as it is whole
+    (:class:`_GatherLeaf`), and all-reduces the shards over
+    ``data_group`` (a data x fsdp mesh); the replicated leaves' gradients
+    are all-reduced over ``batch_group``, every rank of the batch (default
+    ``fsdp_group``).
+    Gradients and loss as :func:`prefetched_fsdp_accum_grads` gives
+    them, averaged over the microbatches and the batch group."""
+    params, dims = list(params), list(dims)
+    batch_group = batch_group or fsdp_group
+    n = dist.get_world_size(batch_group)
+    data_n = dist.get_world_size(data_group) if data_group is not None else 1
+    acc, losses = None, []
+    for mb in batches:
+        for p in params:
+            p.grad = None
+        loss = loss_fn([p if d is None else
+                        _GatherLeaf.apply(p, fsdp_group, d)
+                        for p, d in zip(params, dims)], mb)
+        # each sharded leaf's gradient is reduce-scattered over fsdp
+        # inside the backward (_GatherLeaf)
+        loss.backward()
+        losses.append(loss.detach())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        for p in params:
+            p.grad = None
+        sharded = [g for g, d in zip(grads, dims) if d is not None]
+        rep = [g for g, d in zip(grads, dims) if d is None]
+        del grads
+        if sharded and data_n > 1:
+            bucket, meta = _flatten_bucket(sharded)
+            sharded = _unflatten_bucket(_ring_bucket(bucket, data_group),
+                                        meta)
+        if rep:
+            bucket, meta = _flatten_bucket(rep)
+            rep = _unflatten_bucket(_ring_bucket(bucket, batch_group), meta)
+        sharded, rep = iter(sharded), iter(rep)
+        reduced = [next(rep) if d is None else next(sharded) for d in dims]
+        acc = reduced if acc is None else [a + r for a, r in zip(acc,
+                                                                 reduced)]
+    k = len(losses)
+    _set_shard_grads(params, acc, k * n)
+    return group_mean(torch.stack(losses).sum() / k, batch_group)
+
+
 def broadcast_model(model, group) -> None:
     """Every parameter and buffer of ``model`` from the group's first rank
     (a card's tensors through the host in a gloo group)."""
+    broadcast_tensors([*model.parameters(), *model.buffers()], group)
+
+
+def broadcast_tensors(tensors, group) -> None:
+    """Each of ``tensors`` from the group's first rank, in place."""
     src = dist.get_process_group_ranks(group)[0]
     host = dist.get_backend(group) != "nccl"
     with torch.no_grad():
-        for t in [*model.parameters(), *model.buffers()]:
+        for t in tensors:
             buf = t.detach().cpu() if host and t.is_cuda else t.detach()
             dist.broadcast(buf, src, group=group)
             if buf is not t:

@@ -27,7 +27,12 @@ lay a ``dcn_dp=K`` outer data axis over them. The ranks train data
 parallel (the ring of :mod:`move2kube_tpu_torch.parallel.overlap`) and
 the pod's process exits with their common code (83 on ``slice_loss``), so
 the supervisor's elastic re-plan shrinks both knobs after a slice loss
-and the restarted attempt re-plans for the smaller world. Global batch:
+and the restarted attempt re-plans for the smaller world.
+``M2KT_MESH_FSDP`` (the planner's explicit extents) plans an fsdp axis:
+each rank keeps its shards of the weights (``shard_params``), the step
+gathers them and reduce-scatters the gradients (the schedule that
+``M2KT_FSDP_PREFETCH`` picks, as in the trainers: the step is theirs,
+:func:`make_step`), and the checkpoint is saved sharded. Global batch:
 ``M2KT_BATCH_PER_DEVICE`` (default 4) x the planned data x fsdp extents;
 each step's batch is seeded by the step alone and each rank takes its
 rows, so two runs with the same global batch see the same data whatever
@@ -86,22 +91,21 @@ def make_batch(i: int, batch: int, device):
         np.random.default_rng(i).random((batch, DIM), np.float32)).to(device)
 
 
-def train_step(state, x, group=None):
-    """One SGD step on ``x``; with a data ``group`` (the ring's) the
-    gradients are ring-reduced and the loss is the group's mean."""
-    state.optimizer.zero_grad()
-    out = state.model(x)
-    loss = (out * out).mean()
-    loss.backward()
-    loss = loss.detach()
-    if group is not None:
-        from move2kube_tpu_torch.parallel import overlap
+def _loss(model, batch):
+    out = model(batch["x"])
+    return (out * out).mean()
 
-        overlap.reduce_grads(state.model.parameters(), group)
-        loss = overlap.group_mean(loss, group)
-    state.optimizer.step()
-    state.step += 1
-    return state, loss
+
+def make_step(mesh=None):
+    """``step(state, x) -> (state, loss)``: one SGD step on ``x`` through
+    the trainers' step (:func:`~move2kube_tpu_torch.models.train.
+    make_train_step`): on a ``mesh`` of more than one rank the data ring,
+    or the fsdp schedule for a model of shards, and the loss as the
+    group's mean."""
+    from move2kube_tpu_torch.models.train import make_train_step
+
+    step = make_train_step(_loss, mesh=mesh)
+    return lambda state, x: step(state, {"x": x})
 
 
 def main() -> None:
@@ -117,7 +121,6 @@ def main() -> None:
 
     from move2kube_tpu_torch.models import checkpoint as m2kt_ckpt
     from move2kube_tpu_torch.obs import tracing
-    from move2kube_tpu_torch.parallel import overlap
     from move2kube_tpu_torch.parallel.topology import resolve_mesh_plan
     from move2kube_tpu_torch.resilience import faults, goodput, preemption
 
@@ -146,16 +149,18 @@ def main() -> None:
     plan = resolve_mesh_plan(layout.world)
     m2kt_mesh.check_ported_mesh(plan.config)
     batch = bpd * plan.config.data * plan.config.fsdp
-    group = None
-    if layout.world > 1:
-        mesh = m2kt_mesh.make_mesh(plan, device)
-        group = overlap.ring_group(mesh.get_group("data"))
+    mesh = m2kt_mesh.make_mesh(plan, device) if layout.world > 1 else None
     if lead:
         print(f"[m2kt] device={device} plan: {plan.describe()} "
               f"devices={layout.world} global_batch={batch}", flush=True)
     state = build_state(device)
-    if group is not None:
-        overlap.broadcast_model(state.model, group)
+    if plan.config.fsdp > 1:
+        from move2kube_tpu_torch.parallel.sharding import shard_params
+
+        # every rank drew the same weights from the seed: each keeps its
+        # slice of the sharded leaves
+        shard_params(state.model, mesh)
+    train_step = make_step(mesh)
     per = batch // layout.world
     rows = slice(layout.rank * per, (layout.rank + 1) * per)
 
@@ -177,8 +182,8 @@ def main() -> None:
         for i in range(start + 1, steps + 1):
             faults.maybe_inject(i)
             t0 = time.perf_counter()
-            state, loss = train_step(state, make_batch(i, batch,
-                                                       device)[rows], group)
+            state, loss = train_step(state,
+                                     make_batch(i, batch, device)[rows])
             if lead:
                 print(f"[m2kt] step {i} loss {float(loss).hex()}",
                       flush=True)

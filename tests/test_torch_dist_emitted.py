@@ -20,9 +20,14 @@ data=8), at tiny widths, 10 steps.
   held to the JAX one and to the port's own on ``tests/
   test_torch_families.py``'s batches in ``tests/test_torch_dp_steps.py``;
   here it trains to ``done`` with a finite loss.
-- A sample whose plan for two devices has another axis (llama3-8b's
-  ZeRO-3: fsdp=2; gpt2-tp: tensor=2) exits 2 naming its ROADMAP slice.
-- ``M2KT_PLAN_REPORT`` writes the report from rank 0 alone.
+- The llama3-8b sample's world of two (fsdp=2) is
+  ``tests/test_torch_dist_emitted_fsdp.py``'s, on this file's helpers.
+- A sample whose plan for two devices has an axis the port does not run
+  yet (gpt2-tp: tensor=2; llama-moe's tensor and expert axes; llama-
+  ulysses's seq axis) exits 2 naming its ROADMAP slice, from the pod's
+  process before any rank starts.
+- ``M2KT_PLAN_REPORT`` writes the report from rank 0 alone, with every
+  rank's measured peak.
 
 Every subprocess runs in ``tmp_path`` with an env holding no ``M2KT_*``
 key but the ones it sets, under a timeout.
@@ -41,8 +46,10 @@ torch = pytest.importorskip("torch")
 from move2kube_tpu.containerizer import jax_emit  # noqa: E402
 from tests.test_torch_emitted_train import (  # noqa: E402
     GPT2_TINY,
+    LLAMA_TINY,
     _env,
     _hf_gpt2,
+    _hf_llama,
     _port_payload,
     _run,
     _service,
@@ -66,7 +73,8 @@ BERT_TINY = {"M2KT_VOCAB": 64, "M2KT_LAYERS": 2, "M2KT_HEADS": 2,
              "M2KT_MAX_LEN": 24, "M2KT_NUM_CLASSES": 3}
 RESNET_TINY = {"M2KT_IMAGE_SIZE": 32, "M2KT_NUM_CLASSES": 10}
 RUNS = {"gpt2": dict(GPT2_TINY, M2KT_PRECISION="fp32"),
-        "bert": BERT_TINY, "resnet": RESNET_TINY}
+        "bert": BERT_TINY, "resnet": RESNET_TINY,
+        "llama3-8b": dict(LLAMA_TINY, M2KT_PRECISION="fp32")}
 BPD = 2
 
 
@@ -100,6 +108,8 @@ def _world_of_two(tmp_path, sample):
         hf.mkdir()
         if sample == "gpt2":
             _hf_gpt2(hf / "pytorch_model.bin")
+        elif sample == "llama3-8b":
+            _hf_llama(hf / "pytorch_model.bin")
         else:
             torch.save(hf_bert()[0], hf / "pytorch_model.bin")
         jdir = _write(jax_emit.emit_container(svc, plan).new_files,
@@ -139,13 +149,23 @@ def test_data_parallel_samples_train_in_a_world_of_two(tmp_path, sample):
         "m2kt-plan-report.json", "m2kt-plan-report.md"]
 
 
-@pytest.mark.parametrize("sample,slice_", [("llama3-8b", "9b"),
-                                           ("gpt2-tp", "9c")])
+# llama-moe plans fsdp=2 for two devices (its tensor x expert factor, 8,
+# does not divide 2) and so trains; a world of 4 with its tensor and
+# expert axes set through the env, as the planner takes them, is refused
+AXES_CASES = [("llama-moe", "9c", {"M2KT_FORCE_DEVICES": 4,
+                                   "M2KT_MESH_TENSOR": 2,
+                                   "M2KT_MESH_EXPERT": 2}),
+              ("gpt2-tp", "9c", {}), ("llama-ulysses", "9d", {})]
+
+
+@pytest.mark.parametrize("sample,slice_,knobs", AXES_CASES,
+                         ids=[f"{a}-{b}" for a, b, _ in AXES_CASES])
 def test_a_plan_with_a_model_axis_exits_2_naming_its_slice(tmp_path, sample,
-                                                           slice_):
+                                                           slice_, knobs):
     svc, _ = _service(sample)
     payload = _port_payload(svc, tmp_path)
-    env = _env(tmp_path, M2KT_STEPS=1, M2KT_FORCE_DEVICES=2, **GPT2_TINY)
+    env = _env(tmp_path, M2KT_STEPS=1, OMP_NUM_THREADS=1,
+               **{**GPT2_TINY, "M2KT_FORCE_DEVICES": 2, **knobs})
     run = run_port_trainer(payload, env)
     assert run.returncode == 2, run.stderr[-3000:]
     assert f"ROADMAP Queue 1 item {slice_}" in run.stdout

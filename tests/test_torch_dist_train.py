@@ -58,6 +58,8 @@ TIMEOUT_S = 240
 def child_env(**knobs) -> dict:
     env = {k: v for k, v in os.environ.items() if not k.startswith("M2KT_")}
     env["PYTHONPATH"] = REPO
+    # the ranks share the box's cores: one thread each (tiny widths)
+    env["OMP_NUM_THREADS"] = "1"
     env.update({k: str(v) for k, v in knobs.items()})
     return env
 
@@ -126,7 +128,7 @@ import torch.distributed as dist
 
 n, store, ckpt, mode, out = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
                              sys.argv[4], sys.argv[5])
-rank = int(sys.argv[6])
+rank, kind = int(sys.argv[6]), sys.argv[7]
 dist.init_process_group("gloo", store=dist.FileStore(store, n), rank=rank,
                         world_size=n)
 try:
@@ -135,48 +137,109 @@ try:
     from move2kube_tpu_torch.models import checkpoint, llama
     from move2kube_tpu_torch.models import train as T
     from move2kube_tpu_torch.models.convert import init_llama
+    from move2kube_tpu_torch.parallel import overlap
     from move2kube_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
     cfg = dataclasses.replace(llama.llama_tiny(), dtype=torch.float32)
-    model = init_llama(cfg, seed=3 if mode == "save" else 9, device="cpu",
-                       dtype=torch.float32)
-    state = T.TrainState(model, T.adam(model.parameters(), 1e-3))
+    seed = 3 if mode.startswith("save") else 9
+    mesh = None
+    if n > 1:
+        mesh = make_mesh(MeshConfig(**{kind: n}), device="cpu")
+    if kind == "fsdp" and mesh is not None:
+        state = T.create_sharded_state(
+            cfg, mesh, lambda ps: T.adam(ps, 1e-3), seed=seed, device="cpu")
+        layout = state.model.fsdp_layout
+        ring = overlap.mesh_ring_group(mesh, ("fsdp",))
+    else:
+        model = init_llama(cfg, seed=seed, device="cpu", dtype=torch.float32)
+        state = T.TrainState(model, T.adam(model.parameters(), 1e-3))
+        layout = None
+    model = state.model
+
+    def whole(name, t):
+        dim = layout.dims[name] if layout is not None else None
+        if dim is None or t.ndim == 0:
+            return t
+        return overlap.ring_all_gather(t.contiguous(), ring, dim)
+
+    def digest():
+        """SHA-256 of the parameters and Adam moments at their global
+        shapes (each sharded leaf gathered), in the model's order."""
+        h = hashlib.sha256()
+        for name, p in model.named_parameters():
+            h.update(whole(name, p.detach()).numpy().tobytes())
+            for v in state.optimizer.inner.state[p].values():
+                h.update(whole(name, v).numpy().tobytes())
+        return h.hexdigest()
+
     mngr = checkpoint.CheckpointManager(ckpt, every=2)
-    if mode == "save":
-        mesh = make_mesh(MeshConfig(data=n), device="cpu") if n > 1 else None
+    doc = {}
+    if mode == "exit":
+        # the emitted trainer's loop: the default (background) save, the
+        # goodput ledger flushed when a save starts, and the exit flush
+        from move2kube_tpu_torch.resilience.goodput import GoodputTracker
+
+        gp = GoodputTracker()
+        mngr.install_exit_flush()
+    if mode.startswith("save") or mode == "exit":
         step = T.make_lm_train_step(remat=False, chunk=128, mesh=mesh)
         rng = np.random.default_rng(0)
-        for i in range(1, 3):
+        for i in range(1, 5 if mode == "save4" else 3):
             ids = torch.from_numpy(rng.integers(0, 512, (4, 16)))
             per = 4 // n
             state, _ = step(state, {"input_ids": ids[rank * per:
                                                      (rank + 1) * per]})
-            mngr.maybe_save(i, state)
+            if mngr.maybe_save(i, state) and mode == "exit":
+                gp.note_saved(i)
+                if rank == 0:
+                    gp.write(f"{out}-goodput.json")
+            if i == 2:
+                doc["sha2"] = digest()
+        if mode == "exit":
+            # one step after the save, then a slice-loss death: no close,
+            # no barrier; teardown runs the exit flush
+            ids = torch.from_numpy(rng.integers(0, 512, (4, 16)))
+            state, _ = step(state, {"input_ids": ids[rank * 2:
+                                                     (rank + 1) * 2]})
+            with open(f"{out}-{rank}.json", "w") as f:
+                json.dump(doc, f)
+            sys.exit(83)
         mngr.close()
     else:
         state, start = mngr.restore_or_init(state)
-        assert start == 2, start
-    h = hashlib.sha256()
-    for p in model.parameters():
-        h.update(p.detach().numpy().tobytes())
-        for v in state.optimizer.inner.state[p].values():
-            h.update(v.numpy().tobytes())
+        doc["start"] = start
+        # the serving read of the same step, into this rank's shards
+        sd = model.state_dict()
+        got = checkpoint.restore_variables(ckpt, sd, layout)
+        doc["variables_equal"] = sorted(got) == sorted(sd) and all(
+            torch.equal(got[k], v) for k, v in sd.items())
+    doc.update(sha=digest(), step=state.step)
     with open(f"{out}-{rank}.json", "w") as f:
-        json.dump({"sha": h.hexdigest(), "step": state.step}, f)
+        json.dump(doc, f)
 finally:
     dist.destroy_process_group()
 '''
 
 
-def _ckpt_world(tmp_path, tag, n, ckpt, mode):
+def _start_ckpt_world(tmp_path, tag, n, ckpt, mode, kind="data"):
+    """CKPT_WORKER in a gloo world of ``n`` on a ``kind`` (data or fsdp)
+    mesh, started: "save" trains 2 steps and saves step 2, "save4" 4 steps
+    and saves 2 and 4, "restore" restores the newest readable step.
+    :func:`_collect` waits for it."""
     script = tmp_path / "ckpt_worker.py"
     script.write_text(CKPT_WORKER)
     out = tmp_path / tag
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(n), str(tmp_path / f"{tag}.store"),
-         str(ckpt), mode, str(out), str(r)], cwd=tmp_path, env=child_env(),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         str(ckpt), mode, str(out), str(r), kind], cwd=tmp_path,
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
         for r in range(n)]
+    return tmp_path, tag, procs
+
+
+def _collect(world, returncode: int = 0) -> list:
+    tmp_path, tag, procs = world
     try:
         done = [p.communicate(timeout=TIMEOUT_S) for p in procs]
     finally:
@@ -185,9 +248,13 @@ def _ckpt_world(tmp_path, tag, n, ckpt, mode):
                 p.kill()
                 p.wait()
     for p, (_, err) in zip(procs, done):
-        assert p.returncode == 0, err[-3000:]
+        assert p.returncode == returncode, err[-3000:]
     return [json.loads((tmp_path / f"{tag}-{r}.json").read_text())
-            for r in range(n)]
+            for r in range(len(procs))]
+
+
+def _ckpt_world(tmp_path, tag, n, ckpt, mode, kind="data"):
+    return _collect(_start_ckpt_world(tmp_path, tag, n, ckpt, mode, kind))
 
 
 @pytest.mark.parametrize("save_n,restore_n", [(2, 1), (1, 2)])
@@ -202,6 +269,181 @@ def test_checkpoint_restores_into_a_world_of_another_size(tmp_path, save_n,
     restored = _ckpt_world(tmp_path, "restore", restore_n, ckpt, "restore")
     assert {d["sha"] for d in restored} == {saved[0]["sha"]}
     assert {d["step"] for d in restored} == {2}
+
+
+# the restore worlds of the sharded checkpoints: (world, mesh, checkpoint)
+RESTORES = {"one": (1, "data", "fsdp2"), "fsdp2": (2, "fsdp", "fsdp2"),
+            "fsdp4": (4, "fsdp", "fsdp2"), "data2": (2, "data", "fsdp2"),
+            "data-into-fsdp2": (2, "fsdp", "data2"),
+            "damaged": (2, "fsdp", "damaged"), "exit": (2, "fsdp", "exit")}
+
+
+def _start_fsdp_minitrain(tmp):
+    """Minitrain at ``M2KT_MESH_FSDP=2`` under the supervisor, twice at
+    once: SIGKILLed at step 5 ("killed"), and uninterrupted ("whole")."""
+    runs = {}
+    for tag, fault in (("killed", True), ("whole", False)):
+        work = tmp / tag
+        work.mkdir()
+        knobs = dict(M2KT_FORCE_DEVICES=2, M2KT_MESH_FSDP=2, M2KT_STEPS=8,
+                     M2KT_CKPT_DIR=work / "ckpt", M2KT_CKPT_EVERY=2)
+        if fault:
+            knobs.update(M2KT_FAULT_STEP=5, M2KT_FAULT_KIND="sigkill",
+                         M2KT_FAULT_MARKER=work / "fired")
+        runs[tag] = (work, _supervised(work, **knobs))
+    return runs
+
+
+@pytest.fixture(scope="module")
+def sharded_ckpts(tmp_path_factory):
+    """A tiny Llama trained 4 steps at fsdp=2 and saved sharded at steps 2
+    and 4, one trained 2 steps at data=2 and saved whole at step 2, and
+    one at fsdp=2 saved in the background at step 2 and dead of a slice
+    loss (exit 83) one step later (the three worlds at once); then a copy
+    of the first whose step 4 lacks rank 1's shard; then every restore
+    world of RESTORES at once. The fsdp minitrain runs
+    (:func:`_start_fsdp_minitrain`) run meanwhile."""
+    import shutil
+
+    tmp = tmp_path_factory.mktemp("sharded")
+    minitrain = _start_fsdp_minitrain(tmp)
+    ckpts = {"fsdp2": tmp / "fsdp2", "data2": tmp / "data2",
+             "damaged": tmp / "damaged", "exit": tmp / "exit"}
+    saves = [_start_ckpt_world(tmp, "save-fsdp2", 2, ckpts["fsdp2"],
+                               "save4", "fsdp"),
+             _start_ckpt_world(tmp, "save-data2", 2, ckpts["data2"], "save",
+                               "data"),
+             _start_ckpt_world(tmp, "save-exit", 2, ckpts["exit"], "exit",
+                               "fsdp")]
+    saved = dict(zip(("fsdp2", "data2"), [_collect(w) for w in saves[:2]]))
+    saved["exit"] = _collect(saves[2], returncode=SLICE_LOST_EXIT_CODE)
+    saved["exit-goodput"] = json.loads(
+        (tmp / "save-exit-goodput.json").read_text())
+    shutil.copytree(ckpts["fsdp2"], ckpts["damaged"])
+    (ckpts["damaged"] / "4" / "shard-1.pt").unlink()
+    worlds = {name: _start_ckpt_world(tmp, f"restore-{name}", n,
+                                      ckpts[ckpt], "restore", kind)
+              for name, (n, kind, ckpt) in RESTORES.items()}
+    restored = {name: _collect(w) for name, w in worlds.items()}
+    finished = {tag: (work, _finish(proc))
+                for tag, (work, proc) in minitrain.items()}
+    return ckpts, saved, restored, finished
+
+
+def test_sharded_checkpoint_layout(sharded_ckpts):
+    """Each fsdp rank's shards in a file of its own, rank 0's replicated
+    leaves and metadata beside them, nothing else; the leaves' global
+    shapes, sharded dimensions and extent in ``meta.json``."""
+    ckpts, saved, _, _ = sharded_ckpts
+    ckpt = ckpts["fsdp2"]
+    assert len({d["sha"] for d in saved["fsdp2"]}) == 1
+    assert len({d["sha2"] for d in saved["fsdp2"]}) == 1
+    assert sorted(os.listdir(ckpt)) == ["2", "4"]
+    assert sorted(os.listdir(ckpt / "4")) == [
+        "meta.json", "shard-0.pt", "shard-1.pt", "state.pt"]
+    meta = json.loads((ckpt / "4" / "meta.json").read_text())
+    assert meta["step"] == 4 and meta["sharded"]["extent"] == 2
+    leaves = meta["sharded"]["leaves"]
+    assert leaves["layers.0.qkv.weight"] == {"shape": [256, 128], "dim": 1,
+                                             "extent": 2}
+    assert leaves["embed.weight"] == {"shape": [512, 128], "dim": None,
+                                      "extent": 1}
+    shard = torch.load(ckpt / "4" / "shard-1.pt", weights_only=True)
+    assert tuple(shard["model"]["layers.0.qkv.weight"].shape) == (256, 64)
+    assert tuple(shard["optimizer"]["layers.0.qkv.weight"]["exp_avg"]
+                 .shape) == (256, 64)
+    state = torch.load(ckpt / "4" / "state.pt", weights_only=True)
+    assert "layers.0.qkv.weight" not in state["model"]
+    assert "embed.weight" in state["model"]
+
+
+@pytest.mark.parametrize("name", ["one", "fsdp2", "fsdp4", "data2"])
+def test_sharded_checkpoint_restores_into_other_worlds(sharded_ckpts, name):
+    """A checkpoint saved at fsdp=2 restores at 1, at fsdp 2 and 4 and at
+    data=2: parameters and Adam moments, gathered, equal by SHA-256; and
+    ``restore_variables`` reads it into each world's parameters (whole,
+    or each rank's shards) with the restored state's bits."""
+    _, saved, restored, _ = sharded_ckpts
+    assert {d["sha"] for d in restored[name]} == {saved["fsdp2"][0]["sha"]}
+    assert {(d["start"], d["step"]) for d in restored[name]} == {(4, 4)}
+    # restore_variables reads the sharded step whole, or into the shards
+    assert all(d["variables_equal"] for d in restored[name])
+
+
+def test_data_checkpoint_restores_into_fsdp(sharded_ckpts):
+    """Saved whole by a data=2 world, restored into fsdp=2 shards."""
+    _, saved, restored, _ = sharded_ckpts
+    assert len({d["sha"] for d in saved["data2"]}) == 1
+    assert {d["sha"] for d in restored["data-into-fsdp2"]} == {
+        saved["data2"][0]["sha"]}
+    assert {d["start"] for d in restored["data-into-fsdp2"]} == {2}
+
+
+def test_a_step_missing_a_shard_falls_back(sharded_ckpts):
+    """Step 4 without rank 1's shard is damaged: every rank restores step
+    2, the state the run had there."""
+    _, saved, restored, _ = sharded_ckpts
+    assert {(d["start"], d["sha"]) for d in restored["damaged"]} == {
+        (2, saved["fsdp2"][0]["sha2"])}
+    assert all(d["variables_equal"] for d in restored["damaged"])
+
+
+def test_sharded_save_commits_before_a_slice_loss_exit(sharded_ckpts):
+    """An fsdp=2 run saves step 2 in the background and dies of a slice
+    loss one step later: the exit flush commits step 2 (every part had
+    landed or lands in the flush), the goodput ledger's last saved step,
+    and a new world resumes from it with the state the run had there."""
+    ckpts, saved, restored, _ = sharded_ckpts
+    assert sorted(os.listdir(ckpts["exit"])) == ["2"]
+    assert saved["exit-goodput"]["last_saved_step"] == 2
+    assert len({d["sha2"] for d in saved["exit"]}) == 1
+    assert {(d["start"], d["sha"]) for d in restored["exit"]} == {
+        (2, saved["exit"][0]["sha2"])}
+
+
+def _step_files(step_dir) -> dict:
+    """Every tensor of a committed step's files, by file and path."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}", v)
+        elif torch.is_tensor(node):
+            out[prefix] = node
+
+    for name in sorted(os.listdir(step_dir)):
+        if name.endswith(".pt"):
+            walk(name, torch.load(step_dir / name, weights_only=True))
+    return out
+
+
+def test_fsdp_run_killed_after_a_save_resumes_bit_for_bit(sharded_ckpts):
+    """Minitrain at ``M2KT_MESH_FSDP=2`` under the supervisor, SIGKILLed
+    at step 5 and resumed from step 4's sharded checkpoint, ends with the
+    uninterrupted run's losses and final checkpoint, bit for bit."""
+    out = {}
+    for tag, (work, res) in sharded_ckpts[3].items():
+        assert res.returncode == 0, res.stderr[-3000:]
+        out[tag] = res.stdout
+    killed, whole = sharded_ckpts[3]["killed"][0], \
+        sharded_ckpts[3]["whole"][0]
+    assert "mesh=1x2x1x1x1x1" in out["whole"]
+    assert "resumed from step 4" in out["killed"]
+    summary = json.loads((killed / "exit.json").read_text())
+    assert [a["class"] for a in summary["attempts"]] == ["retryable", "ok"]
+
+    def losses(text):
+        return dict(re.findall(r"\[m2kt\] step (\d+) loss (\S+)", text))
+
+    for i in ("5", "6", "7", "8"):
+        assert losses(out["killed"])[i] == losses(out["whole"])[i], i
+    mine = _step_files(killed / "ckpt" / "8")
+    theirs = _step_files(whole / "ckpt" / "8")
+    assert sorted(mine) == sorted(theirs)
+    assert any(k.startswith("shard-1.pt/model/") for k in mine)
+    for key, t in mine.items():
+        assert t.numpy().tobytes() == theirs[key].numpy().tobytes(), key
 
 
 # ------------------------------------------------------------- preemption

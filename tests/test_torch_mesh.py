@@ -17,6 +17,13 @@ group, no device.
   and ``Linear``/``Conv`` shapes mapped by ``convert.flax_params``).
 - ``hbm_budget_bytes`` on every alias the reference accepts, and the
   H100 row from the port's cost model.
+- FSDP's pure functions: ``is_pure_fsdp`` and ``fsdp_prefetch_mode`` on
+  the reference's cases (``tests/test_crossentropy.py``), each leaf's
+  sharded dimension (``overlap._fsdp_leaf_dims``) against the reference's
+  on the tiny Llama, GPT-2 and BERT trees through the flax-to-port
+  dimension map, and each rank's bytes of parameters and Adam moments
+  after ``shard_params`` against the memory plan at ``{fsdp: 2}`` and
+  ``{fsdp: 4}``, to the byte.
 - The plan report: ``build_plan_report`` on the same memory and mesh plans
   gives the reference's keys and values, the chip rows apart (both sides
   budget on the same chip numbers here); ``render_plan_markdown`` and
@@ -166,7 +173,7 @@ def test_process_layout_from_the_jobset_env():
 
 
 @pytest.mark.parametrize("dims,slices", [
-    ((1, 2, 1, 1, 1, 1), ["9b"]), ((2, 1, 2, 1, 1, 1), ["9e"]),
+    ((1, 2, 1, 1, 1, 1), []), ((2, 1, 2, 1, 1, 1), ["9e"]),
     ((1, 1, 1, 2, 2, 2), ["9c", "9d", "9c"]), ((8, 1, 1, 1, 1, 1), [])])
 def test_unported_axes_name_their_slice(dims, slices):
     cfg = tmesh.MeshConfig(*dims)
@@ -368,16 +375,165 @@ def test_plan_report_dir_and_the_h100_budget(monkeypatch, tmp_path):
     assert rep["verdict"] == "fit" and "suggestion" not in rep
 
 
-@pytest.mark.parametrize("dims,pure", [
-    ((2, 1, 1, 1, 1, 1), True), ((1, 1, 1, 1, 1, 1), False),
-    ((2, 2, 1, 1, 1, 1), False), ((4, 1, 1, 1, 1, 2), False)])
-def test_is_pure_data_parallel(dims, pure):
-    """The reference's rule (its own test fails on this JAX, ROADMAP.md):
-    every device on ``data``, more than one."""
+# ---------------------------------------------------------------- fsdp
+
+FSDP_PURE = [((1, 8, 1, 1, 1, 1), True), ((8, 1, 1, 1, 1, 1), False),
+             ((2, 4, 1, 1, 1, 1), False), ((1, 4, 1, 2, 1, 1), False),
+             ((1, 1, 1, 1, 1, 1), False)]
+
+
+@pytest.mark.parametrize("dims,pure", FSDP_PURE)
+def test_is_pure_fsdp_matches_the_reference(dims, pure):
+    """``tests/test_crossentropy.py::test_is_pure_fsdp_cases`` (which
+    fails on this JAX's ``AbstractMesh``), on a mesh with a ``shape``."""
     from types import SimpleNamespace
 
-    from move2kube_tpu_torch.parallel.overlap import is_pure_data_parallel
+    from move2kube_tpu.parallel.overlap import is_pure_fsdp as jpure
+    from move2kube_tpu_torch.parallel.overlap import is_pure_fsdp
 
     mesh = SimpleNamespace(shape=dims, mesh_dim_names=tmesh.MeshConfig.AXES)
-    assert is_pure_data_parallel(mesh) is pure
-    assert is_pure_data_parallel(object()) is False
+    ref = jpure(SimpleNamespace(shape=dict(zip(tmesh.MeshConfig.AXES,
+                                               dims))))
+    assert is_pure_fsdp(mesh) is ref is pure
+    assert is_pure_fsdp(object()) is jpure(object()) is False
+
+
+def test_fsdp_prefetch_mode_spellings_match_the_reference(monkeypatch):
+    from move2kube_tpu.parallel.overlap import fsdp_prefetch_mode as jmode
+    from move2kube_tpu_torch.parallel.overlap import fsdp_prefetch_mode
+
+    monkeypatch.delenv("M2KT_FSDP_PREFETCH", raising=False)
+    assert fsdp_prefetch_mode() == jmode() == "auto"
+    for raw, want in (("on", "on"), ("1", "on"), ("TRUE", "on"),
+                      ("off", "off"), ("0", "off"), ("FALSE", "off"),
+                      (" Off ", "off"), ("banana", "auto"), ("", "auto")):
+        monkeypatch.setenv("M2KT_FSDP_PREFETCH", raw)
+        assert fsdp_prefetch_mode() == jmode() == want, raw
+
+
+def _tiny(fam):
+    """(the flax model and its init args, the port's config) of a tiny
+    family member."""
+    ids = jnp.zeros((1, 8), jnp.int32)
+    if fam == "llama":
+        return (jllama.Llama(jllama.llama_tiny()), (ids,),
+                dataclasses.replace(tllama.llama_tiny(),
+                                    dtype=torch.float32))
+    if fam == "gpt2":
+        return (jgpt2.GPT2(jgpt2.gpt2_tiny()), (ids,),
+                dataclasses.replace(tgpt2.gpt2_tiny(), dtype=torch.float32))
+    return (jbert.bert_tiny(), (ids, jnp.ones((1, 8), bool)),
+            tbert.bert_tiny(dtype=torch.float32))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("fam", ["llama", "gpt2", "bert"])
+def test_fsdp_leaf_dims_match_the_reference(fam, n):
+    """Each leaf's sharded dimension is the reference's, mapped from
+    flax's dimension to the port's (a ``Linear`` weight is the transpose
+    of flax's kernel)."""
+    from move2kube_tpu.parallel.overlap import _fsdp_leaf_dims as jdims
+    from move2kube_tpu_torch.models.convert import flax_layout
+    from move2kube_tpu_torch.parallel.overlap import _fsdp_leaf_dims
+
+    fmodel, args, cfg = _tiny(fam)
+    params = jax.eval_shape(lambda: fmodel.init(jax.random.PRNGKey(0),
+                                                *args))["params"]
+    _, _, dims = jdims(params, n, "fsdp")
+    paths = ["/".join(str(k.key) for k in path) for path, _ in
+             jax.tree_util.tree_flatten_with_path(params)[0]]
+    ref = dict(zip(paths, dims))
+    model = meta_model(cfg)
+    mine = _fsdp_leaf_dims(model, n)
+    layout = flax_layout(model)
+    assert sorted(path for path, _, _ in layout.values()) == sorted(ref)
+    sharded = 0
+    for name, (path, shape, order) in layout.items():
+        want = None if ref[path] is None else order[ref[path]]
+        assert mine[name] == want, (name, path, mine[name], ref[path])
+        sharded += want is not None
+    assert sharded
+
+
+class _OneRank:
+    """What ``shard_params`` reads of a ``DeviceMesh``: its extents and
+    this rank's coordinates."""
+
+    def __init__(self, extents: dict, coords: dict) -> None:
+        self.extents, self.coords = extents, coords
+
+    def size(self, i: int) -> int:
+        return self.extents.get(tmesh.MeshConfig.AXES[i], 1)
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("fam", ["llama", "gpt2", "bert"])
+def test_shard_bytes_equal_the_memory_plan(fam, n):
+    """Every rank of ``{fsdp: n}`` holds exactly the plan's per-device
+    ``params`` and, after an AdamW step, ``opt_state``; the shards of the
+    ranks together are the whole tree."""
+    from move2kube_tpu_torch.models import train as ttrain
+    from move2kube_tpu_torch.models.convert import init_family, init_llama
+    from move2kube_tpu_torch.models.convert import init_gpt2
+    from move2kube_tpu_torch.parallel.sharding import shard_params
+
+    _, _, cfg = _tiny(fam)
+    plan = tmem.train_memory_plan(meta_model(cfg), _ext(fsdp=n))
+    whole = None
+    for r in range(n):
+        if fam == "llama":
+            model = init_llama(cfg, device="cpu", dtype=torch.float32)
+        elif fam == "gpt2":
+            model = init_gpt2(cfg, device="cpu", dtype=torch.float32)
+        else:
+            model = init_family(cfg, device="cpu")
+        full = {k: v.clone() for k, v in model.named_parameters()}
+        layout = shard_params(model, _OneRank(_ext(fsdp=n), {"fsdp": r}))
+        params = list(model.parameters())
+        assert sum(p.numel() * p.element_size() for p in params) == \
+            plan.params
+        for name, p in model.named_parameters():
+            assert torch.equal(p.detach(), layout.take(name, full[name]))
+        opt = ttrain.adamw(params, 1e-3, 0.1)
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        opt.inner.step()
+        moments = sum(v.numel() * v.element_size()
+                      for slots in opt.inner.state.values()
+                      for k, v in slots.items() if k != "step")
+        assert moments == plan.opt_state
+        whole = full
+    assert sum(t.numel() * t.element_size() for t in whole.values()) > \
+        plan.params
+
+
+@pytest.mark.parametrize("prefetched,accum,dtype", [
+    (True, 1, torch.float32), (True, 2, torch.float32),
+    (False, 2, torch.float32), (True, 2, torch.bfloat16)])
+def test_fsdp_transient_bytes_count_the_schedules_holdings(prefetched, accum,
+                                                           dtype):
+    """The bytes a rank holds beyond the plan while a step runs, counted
+    from the tiny Llama's own tensors at fsdp=2: the gathered sharded
+    leaves, the whole tree's compute-dtype copy, and one or two trees of
+    the sharded leaves' full gradients (prefetched) or the largest one
+    (sequential)."""
+    from move2kube_tpu_torch.models.convert import init_llama
+    from move2kube_tpu_torch.parallel.overlap import fsdp_transient_bytes
+    from move2kube_tpu_torch.parallel.sharding import shard_params
+
+    _, _, cfg = _tiny("llama")
+    model = init_llama(cfg, device="cpu", dtype=torch.float32)
+    whole = {k: v.numel() * 4 for k, v in model.named_parameters()}
+    layout = shard_params(model, _OneRank(_ext(fsdp=2), {"fsdp": 0}))
+    sharded = [whole[k] for k in layout.sharded()]
+    got = fsdp_transient_bytes(layout, prefetched, accum, dtype)
+    assert got["gathered_params_bytes"] == sum(sharded)
+    assert got["cast_params_bytes"] == (
+        0 if dtype == torch.float32 else sum(whole.values()) // 2)
+    assert got["full_grads_bytes"] == (
+        sum(sharded) * (2 if accum > 1 else 1) if prefetched
+        else max(sharded))
+    assert got["schedule"] == ("prefetched" if prefetched else "sequential")

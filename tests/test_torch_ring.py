@@ -18,6 +18,7 @@ import os
 import signal
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -30,7 +31,9 @@ from jax.sharding import Mesh, PartitionSpec as P  # noqa: E402
 
 from move2kube_tpu.parallel.compat import shard_map  # noqa: E402
 from move2kube_tpu.parallel.overlap import (  # noqa: E402
+    ring_all_gather as jgather,
     ring_all_reduce as jring,
+    ring_reduce_scatter as jscatter,
 )
 from move2kube_tpu_torch.ops import _build  # noqa: E402
 
@@ -72,7 +75,11 @@ try:
     data = np.load(spec["inputs"])
     out = {}
     if spec["job"] == "ring":
-        from move2kube_tpu_torch.parallel.overlap import ring_all_reduce
+        from move2kube_tpu_torch.parallel.overlap import (
+            ring_all_gather,
+            ring_all_reduce,
+            ring_reduce_scatter,
+        )
 
         for case in spec["cases"]:
             tree = {name: torch.from_numpy(data[f"{case}/{name}"][rank]).to(
@@ -80,15 +87,44 @@ try:
                 for name, dtype in spec["leaves"][case]}
             for name, t in ring_all_reduce(tree).items():
                 out[f"{case}/{name}"] = t.float().numpy()
+        for case in spec.get("fsdp_cases", []):
+            kind, dim, dtype = case.split("-")
+            x = torch.from_numpy(data[case][rank]).to(getattr(torch, dtype))
+            fn = ring_all_gather if kind == "ag" else ring_reduce_scatter
+            got = fn(x, None, int(dim[1:]))
+            assert got.dtype == x.dtype
+            out[case] = got.float().numpy()
+        if spec.get("mesh_groups"):
+            from move2kube_tpu_torch.parallel.mesh import (
+                MeshConfig,
+                make_mesh,
+            )
+            from move2kube_tpu_torch.parallel.overlap import mesh_ring_group
+
+            for extents, axes in spec["mesh_groups"]:
+                mesh = make_mesh(MeshConfig(**extents), device="cpu")
+                group = mesh_ring_group(mesh, tuple(axes))
+                key = "group/" + "x".join(f"{a}{v}" for a, v in
+                                          sorted(extents.items()))
+                out[f"{key}/{'+'.join(axes)}"] = np.asarray(
+                    dist.get_process_group_ranks(group))
     else:
         import dataclasses
+        import os
 
         from move2kube_tpu_torch.models import bert, gpt2, llama, resnet
         from move2kube_tpu_torch.models import train as T
         from move2kube_tpu_torch.models.convert import params_from_jax
+        from move2kube_tpu_torch.obs.numerics import health_from_state
+        from move2kube_tpu_torch.parallel import overlap
         from move2kube_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+        from move2kube_tpu_torch.parallel.sharding import shard_params
 
-        mesh = make_mesh(MeshConfig(data=n), device="cpu")
+        extents = spec.get("mesh", {"data": n})
+        mesh = make_mesh(MeshConfig(**extents), device="cpu")
+        fsdp = extents.get("fsdp", 1) > 1
+        fsdp_ring = (overlap.mesh_ring_group(mesh, ("fsdp",)) if fsdp
+                     else None)
 
         def tree(prefix):
             flat = {k[len(prefix):]: data[k] for k in data.files
@@ -121,6 +157,8 @@ try:
                                           dtype=torch.float32)
                 model = resnet.ResNet(cfg, device="cpu")
             model.load_state_dict(params_from_jax(tree(fam + "/init/"), cfg))
+            os.environ["M2KT_FSDP_PREFETCH"] = case.get("prefetch", "auto")
+            layout = shard_params(model, mesh) if fsdp else None
             if fam in ("llama", "gpt2"):
                 step = T.make_lm_train_step(remat=False, grad_accum=k,
                                             chunk=case["chunk"], mesh=mesh)
@@ -129,14 +167,16 @@ try:
             else:
                 step = T.make_classifier_train_step(
                     has_batch_stats=True, grad_accum=k, mesh=mesh)
-            state = T.TrainState(model, T.Optimizer(torch.optim.SGD(
-                model.parameters(), lr=case["lr"])))
-            name = case["name"]
+            opt = T.Optimizer(torch.optim.SGD(model.parameters(),
+                                              lr=case["lr"]))
+            state = T.TrainState(model, T.instrument_optimizer(opt)
+                                 if fsdp else opt)
+            name, batches = case["name"], case.get("batches", case["name"])
             losses = []
             for t in range(2):
                 batch = {}
                 for key in case["keys"]:
-                    a = data[f"{name}/batch{t}/{key}"]
+                    a = data[f"{batches}/batch{t}/{key}"]
                     axis = 1 if k > 1 else 0
                     per = a.shape[axis] // n
                     rows = slice(rank * per, (rank + 1) * per)
@@ -146,7 +186,17 @@ try:
                 losses.append(float(loss))
             out[f"{name}/losses"] = np.asarray(losses, np.float64)
             for key, t in model.state_dict().items():
+                dim = layout.dims.get(key) if layout is not None else None
+                if fsdp:
+                    out[f"{name}/shard/{key}"] = t.numpy()
+                    if dim is not None:
+                        t = overlap.ring_all_gather(t, fsdp_ring, dim)
                 out[f"{name}/sd/{key}"] = t.numpy()
+            if fsdp:
+                out[f"{name}/grad_norm"] = np.asarray(
+                    T.grad_norm_from_state(state))
+                for field, v in health_from_state(state)._asdict().items():
+                    out[f"{name}/health/{field}"] = v.numpy()
     np.savez(out_path, **out)
 finally:
     dist.destroy_process_group()
@@ -165,6 +215,8 @@ class World:
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("M2KT_")}
         env["PYTHONPATH"] = REPO
+        # the ranks share the box's cores: one thread each (tiny widths)
+        env["OMP_NUM_THREADS"] = "1"
         self.outs = [tmp_path / f"{tag}-out-{r}.npz" for r in range(n)]
         self.procs = [subprocess.Popen(
             [sys.executable, str(script), str(r), str(n),
@@ -233,18 +285,89 @@ def _jax_ring(n: int, inputs: dict) -> dict:
             for case, t in got.items() for name, v in t.items()}
 
 
+# the FSDP rings: "<ag|rs>-d<dim>-<dtype>"; each rank's input is a shard
+# (all-gather) or a whole leaf whose dimension n divides (reduce-scatter)
+FSDP_RING_CASES = [f"{kind}-d{dim}-{dtype}" for kind in ("ag", "rs")
+                   for dim in (0, 1) for dtype in ("float32", "bfloat16")]
+
+
+def _fsdp_shape(case: str, n: int) -> tuple:
+    kind, dim, _ = case.split("-")
+    if kind == "ag":
+        return (3, 5) if dim == "d0" else (4, 3)
+    return (2 * n, 5) if dim == "d0" else (3, 2 * n)
+
+
+def _fsdp_ring_inputs(n: int) -> dict:
+    rng = np.random.default_rng(100 + n)
+    out = {}
+    for case in FSDP_RING_CASES:
+        a = rng.normal(size=(n,) + _fsdp_shape(case, n)).astype(np.float32)
+        if case.endswith("bfloat16"):  # values a bf16 leaf holds exactly
+            a = np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+        out[case] = a
+    return out
+
+
+def _jax_fsdp_rings(n: int, inputs: dict) -> dict:
+    """The reference's ``ring_all_gather`` and ``ring_reduce_scatter`` on
+    each case, all in one ``shard_map``."""
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("x",))
+    xs = {case: jnp.asarray(inputs[case], getattr(jnp, case.split("-")[2]))
+          for case in FSDP_RING_CASES}
+
+    def f(ts):
+        out = {}
+        for case, t in ts.items():
+            kind, dim, _ = case.split("-")
+            fn = jgather if kind == "ag" else jscatter
+            out[case] = fn(t[0], "x", int(dim[1:]))[None]
+        return out
+
+    got = shard_map(f, mesh=mesh, in_specs=(P("x"),), out_specs=P("x"))(xs)
+    return {case: np.asarray(v.astype(jnp.float32))
+            for case, v in got.items()}
+
+
+# mesh_ring_group's cases: (world, mesh extents, axes) and the ranks of
+# each rank's group; a rank's mesh coordinates are (data, fsdp) in
+# row-major order, rank = 2 data + fsdp on the 2 x 2 mesh
+MESH_GROUPS = [
+    (4, {"data": 2, "fsdp": 2}, ["data"]),
+    (4, {"data": 2, "fsdp": 2}, ["fsdp"]),
+    (4, {"data": 2, "fsdp": 2}, ["data", "fsdp"]),
+    (2, {"fsdp": 2}, ["fsdp"]),
+]
+MESH_GROUP_RANKS = [
+    [[0, 2], [1, 3], [0, 2], [1, 3]],
+    [[0, 1], [0, 1], [2, 3], [2, 3]],
+    [[0, 1, 2, 3]] * 4,
+    [[0, 1], [0, 1]],
+]
+
+
 @pytest.fixture(scope="module")
 def rings(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ring")
     inputs, worlds = {}, {}
     try:
         for n in (2, 3, 4):
-            inputs[n] = _ring_inputs(n)
+            inputs[n] = {**_ring_inputs(n), **_fsdp_ring_inputs(n)}
             np.savez(tmp / f"ring{n}.npz", **inputs[n])
             worlds[n] = World(tmp, f"ring{n}", n, {
                 "job": "ring", "inputs": str(tmp / f"ring{n}.npz"),
-                "cases": list(RING_CASES), "leaves": RING_CASES})
-        want = {n: _jax_ring(n, inputs[n]) for n in worlds}
+                "cases": list(RING_CASES), "leaves": RING_CASES,
+                "fsdp_cases": FSDP_RING_CASES,
+                "mesh_groups": [(extents, axes) for m, extents, axes
+                                in MESH_GROUPS if m == n]})
+        # the six references compile at once: XLA's compiles are most of
+        # this file's time, and they run outside the GIL
+        with ThreadPoolExecutor(6) as pool:
+            jobs = {n: [pool.submit(fn, n, inputs[n])
+                        for fn in (_jax_ring, _jax_fsdp_rings)]
+                    for n in worlds}
+            want = {n: {k: v for job in js for k, v in job.result().items()}
+                    for n, js in jobs.items()}
         return {n: (inputs[n], worlds[n].outputs(), want[n])
                 for n in worlds}
     finally:
@@ -266,3 +389,42 @@ def test_ring_is_bit_equal_across_ranks_and_to_the_reference(rings, n, case):
         rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
         np.testing.assert_allclose(got[0][key], inputs[key].sum(0),
                                    rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", FSDP_RING_CASES)
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_fsdp_rings_are_bit_equal_to_the_reference(rings, n, case):
+    """``ring_all_gather`` and ``ring_reduce_scatter``: every rank's
+    result has the bits of the reference's on the same device, and is the
+    whole leaf (the shards in rank order along ``dim``) or this rank's
+    slice of the sum (in the leaf's dtype: bf16 keeps 8 bits a hop)."""
+    inputs, got, want = rings[n]
+    kind, dim, dtype = case.split("-")
+    dim = int(dim[1:])
+    x = inputs[case]
+    for r in range(n):
+        assert got[r][case].tobytes() == want[case][r].tobytes(), (case, r)
+        if kind == "ag":
+            np.testing.assert_array_equal(
+                got[r][case], np.concatenate(list(x), axis=dim))
+        else:
+            size = x.shape[1 + dim] // n
+            exact = np.take(x.sum(0), np.arange(r * size, (r + 1) * size),
+                            axis=dim)
+            bound = (n * 2.0 ** -8 * np.abs(x).sum(0) if dtype == "bfloat16"
+                     else 1e-6 * np.abs(x).sum(0))
+            bound = np.take(bound, np.arange(r * size, (r + 1) * size),
+                            axis=dim)
+            assert np.all(np.abs(got[r][case] - exact) <= bound), (case, r)
+
+
+@pytest.mark.parametrize("case", range(len(MESH_GROUPS)))
+def test_mesh_ring_group_holds_the_ranks_off_its_axes(rings, case):
+    """``mesh_ring_group(mesh, axes)``: each rank's group is the ranks that
+    share its coordinates on every other axis of the mesh, in rank
+    order (the rings' neighbours)."""
+    n, extents, axes = MESH_GROUPS[case]
+    _, got, _ = rings[n]
+    key = ("group/" + "x".join(f"{a}{v}" for a, v in sorted(extents.items()))
+           + "/" + "+".join(axes))
+    assert [got[r][key].tolist() for r in range(n)] == MESH_GROUP_RANKS[case]

@@ -161,9 +161,9 @@ def test_resumed_losses_equal_an_uninterrupted_run(supervised):
             printed[int(parts[2])] = parts[4]
     assert sorted(printed) == list(range(1, 9))
     state = minitrain.build_state("cpu")
+    train_step = minitrain.make_step()
     for i in range(1, 9):
-        state, loss = minitrain.train_step(
-            state, minitrain.make_batch(i, 4, "cpu"))
+        state, loss = train_step(state, minitrain.make_batch(i, 4, "cpu"))
         assert float(loss).hex() == printed[i], i
 
 
