@@ -36,7 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the engine (its default, the async pipeline with one pass a window);
    the kernels' launch counts show every prefill and decode step went
    through them
-5a. async: the serving slice's model and requests on the synchronous
+5a. async: the serving slice's model cut to SERVE_LAYERS (8) of its 32
+   layers and its requests on the synchronous
    loop, the async pipeline with one and with four passes a window: the
    streams identical, the launches exactly each run's passes; each mode's
    ms a decode pass at 8 of 8 slots (host clock, device busy, dispatch
@@ -63,10 +64,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the verify window), chunked prefill (the chunked prompt's every logit
    row against the whole prefill's, every stream equal) and int8-kv with
    the prefix cache (the quant gate)
-8. the fleet slice: full-depth Llama-8B in bf16 on the fleet replica's
-   engine paths: prefix traffic on a shared 1000-token system prompt
-   (TTFT of hits and of the cold prompt), spec decode with a 16-layer
-   draft (streams equal to plain bf16) and a 256-token chunked prefill
+8. the fleet slice: Llama-8B's widths at SERVE_LAYERS (8) layers in bf16
+   on the fleet replica's engine paths: prefix traffic on a shared
+   1000-token system prompt (TTFT of hits and of the cold prompt), spec
+   decode with a draft of half the layers (streams equal to plain bf16) and a 256-token chunked prefill
    beside 7 running streams (their streams equal, the chunked prompt's
    logits within the route gate of its whole prefill's); every run's
    launch counts checked exactly against the engine's own pass counters
@@ -1446,9 +1447,32 @@ def _mode_runs(torch, model, econf, reqs, label, modes=ASYNC_MODES):
     return streams, stats, launches
 
 
+# the async phase and the fleet slice run on the slice's model cut to
+# SERVE_LAYERS of its 32 layers, sharing their tensors, to hold the
+# script inside its time limit on the slower hosts; the fleet router
+# slice runs at full depth
+SERVE_LAYERS = 8
+
+
+def _cut_depth(model, layers: int):
+    """A Llama on ``model``'s embedding, final norm, head and first
+    ``layers`` blocks (the same tensors)."""
+    from torch import nn
+
+    from move2kube_tpu_torch import Llama
+
+    cut = Llama(dataclasses.replace(model.cfg, num_layers=layers),
+                device="meta")
+    cut.embed, cut.final_norm = model.embed, model.final_norm
+    cut.lm_head = model.lm_head
+    cut.layers = nn.ModuleList(list(model.layers)[:layers])
+    return cut
+
+
 def async_phase(torch, model) -> dict:
-    """The async decode pipeline on the card. Full-depth Llama-8B (the
-    serving slice's model and requests, bf16, 8 x 2048 slots):
+    """The async decode pipeline on the card. Llama-8B's widths at
+    SERVE_LAYERS layers (the serving slice's model cut, its requests,
+    bf16, 8 x 2048 slots):
     synchronous, async N=1 and async N=4 with identical streams and
     launches exactly their passes; each mode's ms a decode pass at 8 of 8
     slots on the host's clock and in device busy time, and its dispatch
@@ -1761,13 +1785,15 @@ def _ttfts(tracer):
 
 
 def fleet_slice_phase(torch, model) -> dict:
-    """The fleet replica's engine at full width: Llama-8B (32 layers),
-    bf16, flash, ``EngineConfig(max_batch=8, max_seq=2048, block_size=16)``,
-    seed-0 weights (``model``). Three runs, each on a fresh engine after a
+    """The fleet replica's engine at full width: Llama-8B's widths (the
+    serving slice's model cut to SERVE_LAYERS layers), bf16, flash,
+    ``EngineConfig(max_batch=8, max_seq=2048, block_size=16)``, seed-0
+    weights (``model``). Three runs, each on a fresh engine after a
     warm-up, each with its launch counts checked exactly against the
     engine's passes: prefix traffic (16 requests on a shared 1000-token
-    system prompt, 15 hits), spec decode (k=4, a 16-layer draft sharing
-    the target's tensors, streams identical to the plain engine's) and
+    system prompt, 15 hits), spec decode (k=4, a draft of half the
+    target's layers sharing its tensors, streams identical to the plain
+    engine's) and
     chunked prefill (a 256-token prompt in 4 chunks beside 7 running
     streams, identical to the run without chunking; the chunked prompt's
     logits within ROUTE_GATE_REL of its whole prefill's). Returns the
@@ -4600,6 +4626,9 @@ EMIT_CHILD_TIMEOUT_S = 420
 # the served requests: 4 prompts from seed 2, 64..512 tokens, 16 new
 # tokens each (the second streamed), and one whose deadline cannot be met
 EMIT_PROMPT_SEED, EMIT_NEW = 2, 16
+# the emitted server's anomaly watchdog checks its triggers this often
+# (``serve_gpu.py``'s diagnostic loop)
+EMIT_DIAG_PERIOD_S = 5.0
 DETERMINISTIC_PRELUDE = (
     "import runpy, torch; torch.use_deterministic_algorithms(True); "
     "torch.backends.cuda.matmul.allow_tf32 = False; "
@@ -4655,16 +4684,17 @@ def _free_port() -> int:
 
 def _hf_llama(cfg, path: str) -> None:
     """An HF-layout ``LlamaForCausalLM`` state dict of ``cfg``'s widths,
-    drawn from numpy seed EMIT_HF_SEED, saved as ``path``."""
-    import numpy as np
+    drawn on the card from a generator seeded with EMIT_HF_SEED, saved as
+    ``path``."""
     import torch
 
-    rng = np.random.default_rng(EMIT_HF_SEED)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(EMIT_HF_SEED)
     hd = cfg.d_model // cfg.num_heads
 
     def draw(*shape):
-        return torch.from_numpy(
-            rng.standard_normal(shape, np.float32) * np.float32(EMIT_HF_STD))
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * EMIT_HF_STD).cpu()
 
     sd = {"model.embed_tokens.weight": draw(cfg.vocab_size, cfg.d_model),
           "model.norm.weight": torch.ones(cfg.d_model),
@@ -4768,13 +4798,21 @@ def _serve_child(label, payload, env, prompts, stream_index, deadline):
     meet; read ``/stats`` and the metrics port's ``/metrics``, POST
     ``/drain``, SIGTERM it, and require exit 0. Returns (streams, stats,
     metrics text, seconds to /healthz, the prompts' seconds on the
-    client's clock)."""
+    client's clock, the diagnostic bundles under ``M2KT_DIAG_DIR`` that
+    the server captured before the shed request). The shed request's SLO
+    burn may rightly be captured, so it is sent only after the watchdog
+    has checked its triggers at least once since the listener came up,
+    and the bundles are read after the server exited (its captures
+    joined), each with its capture time from its manifest; a bundle with
+    no manifest counts as captured before."""
     import signal
 
     t0 = time.perf_counter()
     child = _Child(label, [sys.executable, "serve_gpu.py"], env, payload)
     try:
         line = child.wait_for("[m2kt] serving on :", EMIT_CHILD_TIMEOUT_S)
+        # the watchdog starts before the listener
+        t_listen = time.time()
         base = f"http://127.0.0.1:{int(line.split(':')[1].split()[0])}"
         code, _ = _http(base + "/healthz")
         t_ready = time.perf_counter() - t0
@@ -4800,7 +4838,11 @@ def _serve_child(label, payload, env, prompts, stream_index, deadline):
                 raise RuntimeError(f"emit: {label} request {i}: {code} "
                                    f"{body[:300]}")
         t_req = time.perf_counter() - t_req
+        t_shed = float("inf")
         if deadline:
+            time.sleep(max(0.0, t_listen + EMIT_DIAG_PERIOD_S + 1.0
+                           - time.time()))
+            t_shed = time.time()
             code, body = _http(
                 base + "/generate", {"prompt": prompts[0],
                                      "max_new_tokens": EMIT_NEW},
@@ -4819,7 +4861,17 @@ def _serve_child(label, payload, env, prompts, stream_index, deadline):
         rc = child.finish(120)
         if rc != 0:
             raise RuntimeError(f"emit: {label} exited {rc}")
-        return streams, stats, metrics, t_ready, t_req
+        diag = env.get("M2KT_DIAG_DIR", "")
+        early = []
+        for name in sorted(os.listdir(diag)) if os.path.isdir(diag) else []:
+            manifest = os.path.join(diag, name, "manifest.json")
+            at = 0.0
+            if os.path.isfile(manifest):
+                with open(manifest) as f:
+                    at = json.load(f)["captured_unix"]
+            if at < t_shed:
+                early.append(name)
+        return streams, stats, metrics, t_ready, t_req, early
     finally:
         child.stop()
 
@@ -4896,7 +4948,8 @@ def emit_phase(torch) -> dict:
     at its defaults and with windows of 4 passes, serves 4 requests (one
     streamed) and sheds one with a 504, its streams equal to an
     in-process synchronous engine's, its passes what the requests imply
-    and no diagnostic bundle captured; (5) the emitted server on the
+    and no diagnostic bundle captured before the shed request; (5) the
+    emitted server on the
     trainer's checkpoint, streams equal to an engine on
     ``restore_variables`` of it. Returns the
     launches of this phase's main path: the emitted trainer's and the
@@ -4923,10 +4976,12 @@ def emit_phase(torch) -> dict:
         emit_container,
         write_payload,
     )
+    from move2kube_tpu_torch.models.compile_cache import topology_fingerprint
     from move2kube_tpu_torch.models.convert import (
         infer_num_layers,
         llama_params_from_torch,
     )
+    from move2kube_tpu_torch.ops import _build
     from move2kube_tpu_torch.ops.attention import KERNELS
 
     t_phase = time.perf_counter()
@@ -4951,8 +5006,15 @@ def emit_phase(torch) -> dict:
             log(f"emit: {kind} payload {n} files under {path}")
         base = {k: v for k, v in os.environ.items()
                 if not k.startswith("M2KT_") and k != "PYTHONPATH"}
+        # every emitted program's kernel cache is seeded from this
+        # process's builds (its start-up loads them, no nvcc run)
+        prewarm = os.path.join(work, "prewarm")
+        os.makedirs(prewarm)
+        os.symlink(_build.build_dir(), os.path.join(prewarm,
+                                                    topology_fingerprint()))
         base.update({
             "CUBLAS_WORKSPACE_CONFIG": os.environ["CUBLAS_WORKSPACE_CONFIG"],
+            "M2KT_PREWARM_DIR": prewarm,
             "M2KT_COMPILE_CACHE_DIR": os.path.join(work, "kernels"),
             "M2KT_PREEMPT_FILE": os.path.join(work, "preempt"),
             "M2KT_FLIGHT_PATH": os.path.join(work, "flight.json"),
@@ -5071,15 +5133,17 @@ def emit_phase(torch) -> dict:
         # pipeline, one pass a window), then with windows of 4 passes
         prompts = _emit_requests(llama_8b().vocab_size)
         full = llama_8b()
-        diag = os.path.join(work, "diag")
         servers = {}
         for n_sub in (1, 4):
             label = "server" if n_sub == 1 else f"server N={n_sub}"
+            # a diagnostic directory of its own: the first server's shed
+            # request may rightly be captured there
             senv = dict(base, M2KT_SERVE_PORT="0", M2KT_WEIGHTS_PORT="0",
-                        M2KT_METRICS_PORT=str(_free_port()))
+                        M2KT_METRICS_PORT=str(_free_port()),
+                        M2KT_DIAG_DIR=os.path.join(work, f"diag-{n_sub}"))
             if n_sub > 1:
                 senv["M2KT_DECODE_SUBSTEPS"] = str(n_sub)
-            streams, stats, metrics, t_ready, t_req = _serve_child(
+            streams, stats, metrics, t_ready, t_req, bundles = _serve_child(
                 label, payload["serve"], senv, prompts, 1, n_sub == 1)
             # a request alone in the engine decodes its EMIT_NEW - 1
             # tokens in whole windows; the warm request's one in one
@@ -5101,11 +5165,12 @@ def emit_phase(torch) -> dict:
             for name, n in served["launches"].items():
                 launches[name] += n
             # the warm request reaches no record, so the anomaly watchdog
-            # has no SLO burn to capture at start
-            bundles = sorted(os.listdir(diag)) if os.path.isdir(diag) else []
+            # has no SLO burn to capture at start: no bundle captured
+            # before the shed request
             if bundles:
                 raise RuntimeError(f"emit: {label}: diagnostic bundles "
-                                   f"{bundles} after serving")
+                                   f"{bundles} captured before the shed "
+                                   "request")
             resident, peak = (_metric(
                 metrics, 'm2kt_serve_hbm_peak_bytes{executable="decode",'
                 f'category="{cat}"}}') for cat in ("args", "total"))
@@ -5120,7 +5185,7 @@ def emit_phase(torch) -> dict:
                 f"resident {resident / 1e9:.3f} GB at a decode pass's start,"
                 f" its peak {peak / 1e9:.3f} GB; passes {stats['passes']}, "
                 f"launches {served['launches']}; no diagnostic bundle "
-                f"({CARD})")
+                f"captured before the shed request ({CARD})")
             servers[label] = (streams, served, t_req)
         model = init_llama(dataclasses.replace(full, max_len=2048,
                                                attn_impl="flash"),
@@ -5149,7 +5214,7 @@ def emit_phase(torch) -> dict:
         tenv = dict(base, M2KT_SERVE_PORT="0", M2KT_WEIGHTS_PORT="0",
                     M2KT_LAYERS=str(EMIT_LAYERS), M2KT_CKPT_DIR=ckpt,
                     M2KT_METRICS_PORT=str(_free_port()))
-        streams, stats, _, _, _ = _serve_child(
+        streams, stats, _, _, _, _ = _serve_child(
             "server-ckpt", payload["serve"], tenv, prompts[:2], -1, False)
         for name, n in _traffic("emit: checkpoint server", stats,
                                 EMIT_LAYERS)["launches"].items():
@@ -5195,19 +5260,13 @@ def _emit_gpt2_trainer(payload: str, base: dict, work: str) -> dict:
     index 0): it brings up NCCL in a world of one, prints the JAX
     trainer's one-device plan line, trains 10 steps and, with
     ``M2KT_PLAN_REPORT``, writes the plan report on the H100 budget; its
-    kernels are seeded from this process's builds. Returns its launches,
-    held to its 10 steps and the cost model's held one."""
-    from move2kube_tpu_torch.models.compile_cache import topology_fingerprint
-    from move2kube_tpu_torch.ops import _build
-
-    prewarm = os.path.join(work, "prewarm")
-    os.makedirs(prewarm)
-    os.symlink(_build.build_dir(), os.path.join(prewarm,
-                                                topology_fingerprint()))
+    kernels are seeded from this process's builds (``base``'s
+    ``M2KT_PREWARM_DIR``). Returns its launches, held to its 10 steps and
+    the cost model's held one."""
     report = os.path.join(work, "plan-report")
     env = dict(base, M2KT_NUM_HOSTS="1", M2KT_NUM_SLICES="1",
                JOB_COMPLETION_INDEX="0", M2KT_STEPS=str(EMIT_GPT2_STEPS),
-               M2KT_PLAN_REPORT=report, M2KT_PREWARM_DIR=prewarm,
+               M2KT_PLAN_REPORT=report,
                M2KT_COMPILE_CACHE_DIR=os.path.join(work, "gpt2-kernels"),
                M2KT_METRICS_PORT=str(_free_port()),
                M2KT_EXIT_FILE=os.path.join(work, "gpt2-exit.json"),
@@ -6020,6 +6079,362 @@ def fsdp_phase(torch) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# item 9c: two tensor ranks of Llama-8B's widths (a), two expert ranks of
+# the MoE Llama at Mixtral's widths (b), sharing the one card through gloo
+TP_RANKS, TP_ACCUM, TP_STEPS, TP_LAYERS, TP_SEQ = 2, 2, 3, 2, 2048
+TP_MOE_STEPS, TP_MOE_LAYERS = 2, 1
+TP_CHILD_TIMEOUT_S = 420
+# fp32 against one rank on the same batch: the row-split products, the
+# column entries' summed gradients and the vocab-parallel loss sum over
+# the ranks in another order. Every leaf's gradient, cut or whole, is
+# held to one rank's each step (TP_GRAD_REL of its norm), and every
+# leaf's parameters after the last step (TP_PARAM_REL of its update:
+# AdamW moves an entry whose gradient is rounding noise by up to the
+# learning rate in either run, about 1e-3 of the update on the card; a
+# skipped or stale update is about 1)
+TP_LOSS_REL = 1e-5
+TP_GRAD_REL = 1e-4
+TP_PARAM_REL = 1e-2
+TP_LR = 1e-4
+
+
+def _tp_cfgs():
+    """(a) Llama-8B's widths cut to TP_LAYERS layers; (b) the MoE Llama at
+    Mixtral's widths (d 4096, 32/8 heads, mlp 14336, 8 experts, top 2)
+    cut to TP_MOE_LAYERS."""
+    from move2kube_tpu_torch import llama_8b
+
+    dense = dataclasses.replace(llama_8b(), num_layers=TP_LAYERS,
+                                max_len=TP_SEQ, attn_impl="flash")
+    moe = dataclasses.replace(dense, num_layers=TP_MOE_LAYERS, moe_experts=8,
+                              moe_top_k=2)
+    return {"a": (dense, {"tensor": TP_RANKS}, TP_STEPS, ("bf16", "fp32")),
+            "b": (moe, {"expert": TP_RANKS}, TP_MOE_STEPS, ("fp32",))}
+
+
+def _tp_run(torch, cfg, mode, ids, mesh, steps, on_step):
+    """``steps`` steps (fp32 masters, ``mode``'s policy, AdamW at TP_LR,
+    remat, grad_accum TP_ACCUM) of ``cfg`` on ``ids`` [steps, k, 1, seq]:
+    this rank's parts over ``mesh`` (``create_sharded_state``, seed SEED),
+    or with no mesh ``init_llama``'s whole tree from the same seed;
+    ``on_step(t, state, loss, ms)`` after each synchronised step."""
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        create_sharded_state,
+        init_llama,
+        make_lm_train_step,
+        policy,
+    )
+
+    pol = policy(mode)
+
+    def make_opt(params):
+        return pol.wrap_optimizer(adamw(params, TP_LR, weight_decay=0.1))
+
+    if mesh is not None:
+        state = create_sharded_state(cfg, mesh, make_opt, seed=SEED,
+                                     device="cuda")
+    else:
+        model = init_llama(cfg, seed=SEED, device="cuda",
+                           dtype=torch.float32)
+        state = TrainState(model, make_opt(model.parameters()))
+    step = make_lm_train_step(grad_accum=TP_ACCUM, precision=pol, mesh=mesh)
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, {"input_ids": ids[t]})
+        torch.cuda.synchronize()
+        on_step(t, state, float(loss), (time.perf_counter() - t0) * 1e3)
+    return state
+
+
+def tp_rank_child() -> int:
+    """One rank of :func:`tp_phase`'s worlds (``python chip_smoke.py
+    --tp-rank OUT``; the launcher's env names the rank and the
+    rendezvous): both ranks on ``cuda:0`` in a gloo group. For (a) at
+    tensor=2 under the bf16 policy and fp32, and (b) at expert=2 in fp32:
+    the steps, counted (launches, ring bytes and seconds, peak); after
+    each step the digests of the leaves whole on both ranks and (fp32) a
+    host copy of this rank's gradient of every leaf, and of its
+    parameters after the last step. Then, the world's state freed, the
+    same steps on one rank's whole tree from the same seed on the same
+    batch: after each step this rank's gradient of every leaf, cut or
+    whole, against its slice of one rank's (the worst relative distance
+    of the cut leaves and of the whole ones), after the last its
+    parameters (in units of the update). Prints one ``TP_RESULT`` JSON
+    line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import numpy as np
+    import torch.distributed as dist
+
+    from move2kube_tpu_torch import reset_launch_counts
+    from move2kube_tpu_torch.models.convert import meta_model
+    from move2kube_tpu_torch.ops.attention import KERNELS
+    from move2kube_tpu_torch.parallel import overlap
+    from move2kube_tpu_torch.parallel.memory import train_memory_plan
+    from move2kube_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        initialize_distributed,
+        make_mesh,
+    )
+    from move2kube_tpu_torch.parallel.sharding import layout_of
+
+    initialize_distributed("cuda:0", backend="gloo")
+    result = {}
+    try:
+        for key, (cfg, axes, steps, modes) in _tp_cfgs().items():
+            mesh = make_mesh(MeshConfig(**axes), device="cuda")
+            extents = {**dict.fromkeys(MeshConfig.AXES, 1), **axes}
+            plan = train_memory_plan(
+                meta_model(cfg), extents, seq_len=TP_SEQ, batch_per_chip=1,
+                d_model=cfg.d_model, num_layers=cfg.num_layers,
+                vocab_size=cfg.vocab_size)
+            ids = torch.from_numpy(np.random.default_rng(SEED + 31).integers(
+                0, cfg.vocab_size, (steps, TP_ACCUM, 1, TP_SEQ))).cuda()
+            for mode in modes:
+                run = {"steps": [], "plan": {"params": plan.params,
+                                             "opt_state": plan.opt_state,
+                                             "total": plan.total}}
+                parts = []
+
+                def on_step(t, state, loss, ms, run=run, parts=parts,
+                            mode=mode, steps=steps):
+                    lay = layout_of(state.model)
+                    whole = [_device_digest(torch, p) for n, p in
+                             state.model.named_parameters()
+                             if not lay.cuts[n]]
+                    run["steps"].append({
+                        "loss": loss, "ms": ms, "whole": whole,
+                        "ring": dict(overlap.RING_STATS)})
+                    if mode == "fp32":
+                        named = list(state.model.named_parameters())
+                        parts.append({n: p.grad.to("cpu", copy=True)
+                                      for n, p in named})
+                        if t == steps - 1:
+                            parts.append({n: p.detach().to("cpu", copy=True)
+                                          for n, p in named})
+
+                reset_launch_counts()
+                overlap.reset_ring_stats()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state = _tp_run(torch, cfg, mode, ids, mesh, steps, on_step)
+                run["run_s"] = time.perf_counter() - t0
+                run["launches"] = {k.name: k.launches for k in KERNELS}
+                run["peak"] = torch.cuda.max_memory_allocated()
+                run["params_bytes"], run["moment_bytes"] = _fsdp_resident(
+                    state)
+                lay = layout_of(state.model)
+                run["cut"] = len(lay.sharded())
+                del state
+                gc.collect()
+                torch.cuda.empty_cache()
+                if mode == "fp32":
+                    # one rank's whole tree on the same batch, here
+                    t0 = time.perf_counter()
+                    init = _tp_init(torch, cfg, lay)
+                    worst = []
+
+                    def one_step(t, state, loss, ms, run=run, lay=lay,
+                                 parts=parts, init=init, worst=worst,
+                                 steps=steps):
+                        named = dict(state.model.named_parameters())
+                        # the worst (distance, leaf) of the cut leaves
+                        # and of the whole ones
+                        w = {"cut": (0.0, ""), "whole": (0.0, "")}
+                        for n, part in parts[t].items():
+                            ref = lay.take(n, named[n].grad)
+                            err = float(torch.linalg.vector_norm(
+                                part.cuda() - ref)) / max(float(
+                                    torch.linalg.vector_norm(ref)), 1e-30)
+                            kind = "cut" if lay.cuts[n] else "whole"
+                            w[kind] = max(w[kind], (err, n))
+                        worst.append(w)
+                        run["steps"][t]["one_loss"] = loss
+                        if t < steps - 1:
+                            return
+                        w = (0.0, "")
+                        for n, part in parts[-1].items():
+                            ref = lay.take(n, named[n].detach())
+                            upd = float(torch.linalg.vector_norm(
+                                ref - init[n].cuda()))
+                            err = float(torch.linalg.vector_norm(
+                                part.cuda() - ref)) / max(upd, 1e-30)
+                            w = max(w, (err, n))
+                        run["params"] = w
+
+                    state = _tp_run(torch, cfg, mode, ids, None, steps,
+                                    one_step)
+                    run["worst"] = worst
+                    run["one_s"] = time.perf_counter() - t0
+                    del state, parts, init
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                result[f"{key}-{mode}"] = run
+            dist.barrier()
+        print("TP_RESULT " + json.dumps(result), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _tp_init(torch, cfg, lay) -> dict:
+    """This rank's part of every leaf of ``init_llama(cfg, SEED)``'s tree,
+    on the host: where each update is measured from."""
+    from move2kube_tpu_torch import init_llama
+
+    model = init_llama(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    out = {n: lay.take(n, p.detach()).cpu()
+           for n, p in model.named_parameters()}
+    del model
+    return out
+
+
+def tp_phase(torch) -> dict:
+    """Item 9c on the one card: two ranks share ``cuda:0`` in a gloo world.
+    (a) Llama-8B's widths cut to TP_LAYERS layers at tensor=2 (each rank
+    16 query and 4 KV heads, its gate/up columns, its vocab rows of the
+    embedding and the head), 1 row of TP_SEQ tokens, grad_accum TP_ACCUM,
+    TP_STEPS steps under the bf16 policy and fp32; (b) the MoE Llama at
+    Mixtral's widths cut to TP_MOE_LAYERS layer at expert=2 (4 experts a
+    rank), TP_MOE_STEPS steps fp32. Gates: each rank's resident parameter
+    and Adam moment bytes equal the memory plan's per-device ``params``
+    and ``opt_state`` to the byte; after every step the leaves whole on
+    both ranks have one digest on both ranks; in fp32 after every step
+    each rank's gradient of every leaf, cut or whole, is its slice of
+    one rank's on the same batch (TP_GRAD_REL of its norm) and the loss
+    one rank's (TP_LOSS_REL), and after the last step each rank's every
+    leaf is its slice of one rank's (TP_PARAM_REL of its update); each
+    rank's flash launches are its passes x layers.
+    Reports each rank's peak against the plan's, the step's wall time
+    and the activation all-reduces' bytes and seconds (host copies and
+    gloo apart). Returns both ranks' launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="m2kt-tp-")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("M2KT_") and k != "PYTHONPATH"}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               M2KT_LOCAL_WORLD=str(TP_RANKS), M2KT_DIST_TIMEOUT_S="300")
+    try:
+        ranks = [_Child(f"tp rank {r}", [
+            sys.executable, os.path.join(here, "chip_smoke.py"),
+            "--tp-rank", os.path.join(work, "rank")],
+            dict(env, M2KT_LOCAL_RANK=str(r)), here)
+            for r in range(TP_RANKS)]
+        rcs = []
+        for child in ranks:
+            rcs.append(child.finish(TP_CHILD_TIMEOUT_S if not any(rcs)
+                                    else 30))
+        if any(rcs):
+            raise RuntimeError(f"tp: ranks exited {rcs}")
+        res = [json.loads(next(x for x in c.lines if x.startswith(
+            "TP_RESULT ")).split(" ", 1)[1]) for c in ranks]
+        cfgs = _tp_cfgs()
+        launches = {}
+        for run in res[0]:
+            key = run.split("-")[0]
+            cfg, axes, steps, _ = cfgs[key]
+            want = _want_train_launches(steps * TP_ACCUM, cfg.num_layers)
+            plan = res[0][run]["plan"]
+            for r, doc in enumerate(res):
+                d = doc[run]
+                if (d["params_bytes"], d["moment_bytes"]) != (
+                        plan["params"], plan["opt_state"]):
+                    raise RuntimeError(
+                        f"tp: rank {r} {run} holds {d['params_bytes']} B of "
+                        f"parameters and {d['moment_bytes']} B of Adam "
+                        f"moments; the plan at {axes} says {plan['params']} "
+                        f"and {plan['opt_state']}")
+                _check_launches(f"tp: rank {r} {run}", d["launches"], want)
+                for name, n in d["launches"].items():
+                    launches[name] = launches.get(name, 0) + n
+                for t, step in enumerate(d["steps"]):
+                    if "one_loss" not in step:
+                        continue
+                    loss_err = abs(step["loss"] - step["one_loss"]) / abs(
+                        step["one_loss"])
+                    err, leaf = max(d["worst"][t].values())
+                    if loss_err > TP_LOSS_REL or err > TP_GRAD_REL:
+                        raise RuntimeError(
+                            f"tp: rank {r} {run} step {t + 1}: loss "
+                            f"{step['loss']} against one rank's "
+                            f"{step['one_loss']} ({loss_err:.2e} > "
+                            f"{TP_LOSS_REL}?), worst gradient {leaf} "
+                            f"{err:.2e} of its norm (> {TP_GRAD_REL}?)")
+                if "params" in d and d["params"][0] > TP_PARAM_REL:
+                    raise RuntimeError(
+                        f"tp: rank {r} {run}: after step {steps} "
+                        f"{d['params'][1]} is {d['params'][0]:.2e} of its "
+                        f"update from one rank's (> {TP_PARAM_REL})")
+            for t in range(steps):
+                digests = {tuple(doc[run]["steps"][t]["whole"])
+                           for doc in res}
+                if len(digests) != 1:
+                    raise RuntimeError(f"tp: {run} step {t + 1}: the leaves "
+                                       "whole on both ranks differ")
+            steps_doc = res[0][run]["steps"]
+            totals = [x["ring"] for x in steps_doc]
+            r2 = {k: totals[1][k] - totals[0][k] for k in totals[0]}
+            peaks = [doc[run]["peak"] for doc in res]
+            gates = ""
+            if "worst" in res[0][run]:
+                gates = (
+                    "; fp32 against one rank on the same batch: losses "
+                    + ", ".join(f"{x['loss']:.6f}/{x['one_loss']:.6f}"
+                                for x in steps_doc)
+                    + "; the worst gradient a step, cut leaves "
+                    + ", ".join("{1} {0:.2e}".format(*max(
+                        doc[run]["worst"][t]["cut"] for doc in res))
+                        for t in range(steps))
+                    + ", whole leaves "
+                    + ", ".join("{1} {0:.2e}".format(*max(
+                        doc[run]["worst"][t]["whole"] for doc in res))
+                        for t in range(steps))
+                    + f" of its norm (gates {TP_LOSS_REL}, {TP_GRAD_REL}); "
+                    "after the last step the worst leaf "
+                    + "{1} {0:.2e} of its update".format(
+                        *max(doc[run]["params"] for doc in res))
+                    + f" (gate {TP_PARAM_REL})"
+                    + "; the run " + ", ".join(
+                        f"{doc[run]['run_s']:.1f}" for doc in res)
+                    + " s a rank, one rank's run and the comparisons "
+                    + ", ".join(f"{doc[run]['one_s']:.1f}" for doc in res)
+                    + " s")
+            log(f"tp: {run} {axes}, {steps} steps x {TP_ACCUM} microbatches "
+                f"of 1 x {TP_SEQ}: {res[0][run]['cut']} leaves cut; step "
+                "wall " + ", ".join(f"{x['ms']:.1f}" for x in steps_doc)
+                + f" ms; rank 0 step 2: activation all-reduces "
+                f"{r2['tp_calls']} calls {r2['tp_bytes'] / 1e9:.3f} GB (host "
+                f"copies {r2['tp_copy_s'] * 1e3:.1f} ms, gloo hops and "
+                f"additions {r2['tp_ring_s'] * 1e3:.1f} ms), gradient "
+                f"all-reduces {r2['calls']} calls {r2['bytes'] / 1e9:.3f} GB "
+                f"(host copies {r2['copy_s'] * 1e3:.1f} ms, gloo "
+                f"{r2['ring_s'] * 1e3:.1f} ms), all-gathers {r2['ag_calls']}"
+                f" ({r2['ag_copy_s'] * 1e3:.1f} + {r2['ag_ring_s'] * 1e3:.1f}"
+                f" ms); peak {peaks} B a rank against the plan's "
+                f"{plan['total']} B (drift "
+                + ", ".join(f"{plan['total'] / p:.3f}" for p in peaks)
+                + f"); each rank holds the plan's {plan['params']} B of "
+                f"parameters and {plan['opt_state']} B of moments; whole "
+                f"leaves one digest on both ranks after every step"
+                f"{gates} ({CARD})")
+        log(f"tp: phase {time.perf_counter() - t_phase:.1f} s ({CARD})")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -6048,7 +6463,8 @@ def main() -> int:
     gpt2_kernels = gpt2_kernels_phase(torch)
     parity_phase(torch)
     launches, model = slice_phase(torch)
-    async_launches = async_phase(torch, model)
+    serve_model = _cut_depth(model, SERVE_LAYERS)
+    async_launches = async_phase(torch, serve_model)
     for name in ("flash_fwd", "paged_decode"):
         launches[name] += async_launches[name]
     obs_serve, obs_int8 = obs_serve_phase(torch, model)
@@ -6060,7 +6476,7 @@ def main() -> int:
         int8_launches["paged_decode_int8"] += part["paged_decode_int8"]
     t_fleet = time.perf_counter()
     fleet_parity_phase(torch)
-    fleet_paged = fleet_slice_phase(torch, model)
+    fleet_paged = fleet_slice_phase(torch, serve_model)
     log(f"fleet phases: {time.perf_counter() - t_fleet:.1f} s; the fleet "
         f"slice's three runs launched paged_decode {fleet_paged} times")
     t_router = time.perf_counter()
@@ -6068,7 +6484,7 @@ def main() -> int:
     router = fleet_router_slice_phase(torch, model)
     # the fleet's engines and threads leave reference cycles that hold
     # the model: collect them, so the later phases' peaks are their own
-    del model
+    del model, serve_model
     gc.collect()
     torch.cuda.empty_cache()
     log(f"fleet router phases: {time.perf_counter() - t_router:.1f} s")
@@ -6117,7 +6533,9 @@ def main() -> int:
     mesh = mesh_phase(torch)
     # item 9b: two ZeRO-3 ranks of Llama-8B's width on the one card
     fsdp = fsdp_phase(torch)
-    for part in (mesh, fsdp):
+    # item 9c: two tensor ranks, then two expert ranks, on the one card
+    tp = tp_phase(torch)
+    for part in (mesh, fsdp, tp):
         launches["flash_fwd"] += part["flash_fwd"]
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
             train_launches[name] += part[name]
@@ -6181,4 +6599,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank_child())
     if sys.argv[1:2] == ["--fsdp-rank"]:
         sys.exit(fsdp_rank_child())
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_child())
     sys.exit(main())

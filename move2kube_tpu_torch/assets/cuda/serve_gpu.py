@@ -845,6 +845,8 @@ def main() -> None:
         if telem_srv is not None:
             telem_srv.set_ledger(usage_ledger)
     # anomaly-triggered auto-profiling (M2KT_DIAG, default on)
+    watchdog, diag_thread = None, None
+    diag_stop = threading.Event()
     if m2kt_obs.diag_enabled():
         watchdog = m2kt_obs.DiagWatchdog(
             registry=m2kt_obs.default_registry(),
@@ -854,15 +856,15 @@ def main() -> None:
             ledger=usage_ledger)
 
         def _diag_loop() -> None:
-            while True:
-                time.sleep(5.0)
+            while not diag_stop.wait(5.0):
                 try:
                     watchdog.check()
                 except Exception:  # noqa: BLE001 - diagnostics are advisory
                     pass
 
-        threading.Thread(target=_diag_loop, daemon=True,
-                         name="m2kt-diag").start()
+        diag_thread = threading.Thread(target=_diag_loop, daemon=True,
+                                       name="m2kt-diag")
+        diag_thread.start()
 
     def _begin_drain() -> bool:
         # shared by POST /drain and SIGTERM: flip /readyz, refuse new
@@ -1061,6 +1063,14 @@ def main() -> None:
           f"quant={SERVE_QUANT} kernels={SERVE_KERNELS} spec_k={SPEC_K} "
           f"async={ASYNC_DECODE} substeps={DECODE_SUBSTEPS}", flush=True)
     httpd.serve_forever()
+    # no thread may run torch while the interpreter tears down: a
+    # capture's torch.profiler trace (the watchdog fires on the SLO's fast
+    # burn, after a shed request) still running at exit crashed the
+    # process (SIGSEGV) after a clean drain
+    diag_stop.set()
+    if diag_thread is not None:
+        diag_thread.join(30)
+        watchdog.wait(60)
     server.close()
 
 

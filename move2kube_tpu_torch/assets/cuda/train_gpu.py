@@ -26,10 +26,14 @@ its rows of it; gradients are ring-reduced (``parallel/overlap.py``). On
 a plan with an fsdp axis (the llama3-8b sample's ZeRO-3 mesh) each rank
 builds only its shards of the parameters (``create_sharded_state``), the
 optimizer's moments are shards too, the step gathers the parameters and
-reduce-scatters the gradients, and the checkpoint is saved sharded. A
-plan with a tensor, seq, expert or pipe axis above 1, and ring or Ulysses
-attention, exit 2 naming the ROADMAP slice (Queue 1 items 9c-9e) that
-brings it. A pipelined workload planned on one device trains its
+reduce-scatters the gradients, and the checkpoint is saved sharded. On
+a plan with a tensor or expert axis (the gpt2-tp sample's Megatron
+split, the llama-moe sample's experts) each rank builds its parts over
+every axis the same way and the Llama, GPT-2 and MoE forwards split
+their heads, vocab rows and experts; the tensor and expert ranks of one
+batch coordinate train the same rows. A plan with a seq or pipe axis
+above 1, and ring or Ulysses attention, exit 2 naming the ROADMAP slice
+(Queue 1 items 9d-9e) that brings it. A pipelined workload planned on one device trains its
 plain model, as the JAX trainer falls back to it. Rank 0 prints the step
 lines; each pod's first rank serves the telemetry and writes the
 goodput, usage and flight files.
@@ -224,9 +228,11 @@ def build(device, global_batch: int, mesh):
     attn_default = "ring" if MESH["seq"] > 1 else "flash"
     model_cfg = None
     state = None
-    # an fsdp plan: each rank builds only its shards (ZeRO-3)
-    sharded = (mesh is not None
-               and m2kt_mesh.mesh_config_of(mesh).fsdp > 1)
+    # an fsdp, tensor or expert plan: each rank builds only its parts
+    # (ZeRO-3, Megatron)
+    mesh_cfg = m2kt_mesh.mesh_config_of(mesh) if mesh is not None else None
+    sharded = mesh_cfg is not None and max(
+        mesh_cfg.fsdp, mesh_cfg.tensor, mesh_cfg.expert) > 1
 
     def on_device(batch):
         return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}

@@ -41,11 +41,13 @@ In a ``torch.distributed`` world of n every rank restores (the directory
 is the pod's or a shared volume). Under data parallelism every tensor is
 replicated, so rank 0 writes one copy, the whole state. A model of fsdp
 shards (:func:`~move2kube_tpu_torch.parallel.sharding.layout_of`) is
-saved sharded: the first data rank of each fsdp coordinate r writes
-``shard-<r>.pt``, its shards of the parameters and of the optimizer's
-moments, and rank 0 writes ``state.pt`` with the replicated leaves, the
-buffers and the rest of the optimizer's state; ``meta.json`` lists each
-leaf's global shape, its sharded dimension and the extent. Every rank
+saved sharded: the first data rank of each coordinate on the other axes
+(fsdp, tensor, expert; file r the r-th coordinate, row-major) writes
+``shard-<r>.pt``, its parts of the parameters and of the optimizer's
+moments, and rank 0 writes ``state.pt`` with the whole leaves, the
+buffers and the rest of the optimizer's state; ``meta.json`` lists the
+axes of the files and each leaf's global shape and its cut on each axis,
+in global order (a fused projection's cut as its blocks). Every rank
 writes into one temporary directory, each shard under a name of its own
 that is renamed to ``shard-<r>.pt`` once it is whole, and rank 0's writer
 thread commits the step by rename once its own files are written and
@@ -85,6 +87,7 @@ import time
 
 import torch
 
+from move2kube_tpu_torch.parallel.sharding import Cut, place_cuts
 from move2kube_tpu_torch.resilience.faults import (
     META_FILE,
     PAYLOAD_FILE,
@@ -249,16 +252,37 @@ class _SavedStep:
                 raise ValueError(f"{step_dir}: shard {r} holds no model")
             parts.append(part)
         self.model = dict(self.model)
+        # each file's coordinates on the axes of distinct parts (a step
+        # written before tensor and expert cuts: fsdp alone)
+        axes = sharded.get("axes") or [["fsdp", len(parts)]]
+        coords = []
+        for index in range(len(parts)):
+            c = {}
+            for axis, extent in reversed(axes):
+                c[axis] = index % extent
+                index //= extent
+            coords.append(c)
         for name, info in sharded["leaves"].items():
-            dim = info["dim"]
-            if dim is None:
+            cuts = (tuple(Cut.from_json(c) for c in info["cuts"])
+                    if "cuts" in info else
+                    () if info["dim"] is None else
+                    (Cut("fsdp", info["dim"], info["extent"],
+                         (info["shape"][info["dim"]],)),))
+            if not cuts:
                 continue
-            self.model[name] = torch.cat([p["model"][name] for p in parts],
-                                         dim)
+            # one copy of each part: the files whose coordinate is 0 on
+            # every axis the leaf is not cut over
+            cut_axes = {c.axis for c in cuts}
+            mine = [(parts[i], c) for i, c in enumerate(coords)
+                    if all(v == 0 for a, v in c.items()
+                           if a not in cut_axes)]
+            self.model[name] = _assemble(
+                info["shape"], cuts, [(p["model"][name], c) for p, c in mine])
             self._opt[name] = {
-                slot: torch.cat([p["optimizer"][name][slot] for p in parts],
-                                dim)
-                for slot in parts[0]["optimizer"].get(name, {})}
+                slot: _assemble(info["shape"], cuts,
+                                [(p["optimizer"][name][slot], c)
+                                 for p, c in mine])
+                for slot in mine[0][0]["optimizer"].get(name, {})}
 
     def inner_state(self, names: list, take) -> dict:
         """The torch optimizer's state dict for a model whose parameters
@@ -278,6 +302,15 @@ class _SavedStep:
                 and tuple(v.shape) == shape else v
                 for k, v in slots.items()}
         return {"state": state, "param_groups": inner["param_groups"]}
+
+
+def _assemble(shape, cuts, parts):
+    """A leaf of global ``shape`` from its ``(part, coordinates)``
+    pairs."""
+    full = torch.empty(tuple(shape), dtype=parts[0][0].dtype)
+    for part, coords in parts:
+        place_cuts(full, part, cuts, coords)
+    return full
 
 
 def _global_shapes(model) -> dict:
@@ -453,7 +486,7 @@ def _sharded_part(state, loader, layout) -> dict:
         rest_opt[i] = {k: v for k, v in slots.items()
                        if k not in shard_opt[name]}
     part = {"shard": None, "state": None,
-            "shard_rank": layout.rank}
+            "shard_rank": layout.part_index()}
     if layout.data_rank == 0:
         part["shard"] = {"model": shard_model, "optimizer": shard_opt}
     if _rank() == 0:
@@ -468,9 +501,17 @@ def _sharded_part(state, loader, layout) -> dict:
             shape = leaves[n]["shape"] if n in leaves else list(t.shape)
             arrays[f"model/{n}"] = {"shape": shape, "dtype": str(t.dtype)}
         part["state"] = state_pt
+        axes = layout.part_axes()
+        extent = 1
+        for _, e in axes:
+            extent *= e
+        sharded = {"extent": extent, "leaves": leaves}
+        if [a for a, _ in axes] != ["fsdp"]:
+            # the files' axes, when they are not fsdp's alone
+            sharded["axes"] = [list(a) for a in axes]
         part["meta"] = {"format": 2, "kind": "train_state",
                         "loader": full["loader"], "arrays": arrays,
-                        "sharded": {"extent": layout.n, "leaves": leaves}}
+                        "sharded": sharded}
     return part
 
 

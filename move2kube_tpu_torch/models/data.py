@@ -491,19 +491,24 @@ def make_loader(path: str, global_batch: int, device=None,
     :class:`PrefetchLoader` unless ``prefetch=False`` (or
     ``M2KT_PREFETCH=0``): the inner loader stays on the host and the pump
     thread owns the copy, overlapping it with the running step. A
-    ``mesh`` with a model axis above 1 raises (ROADMAP Queue 1 items
-    9c-9e); on a data x fsdp mesh each rank takes its rows, rank r of the
-    world (fsdp inner) the r-th block, as the reference shards the batch
-    over ``("data", "fsdp")``."""
+    ``mesh`` with a seq or pipe axis above 1 raises (ROADMAP Queue 1
+    items 9d-9e); on a data x fsdp mesh each rank takes its rows, rank r
+    of the world (fsdp inner) the r-th block, as the reference shards the
+    batch over ``("data", "fsdp")``, and the tensor and expert ranks of
+    one batch coordinate take the same rows
+    (:func:`~move2kube_tpu_torch.parallel.mesh.batch_layout`)."""
     dev = resolve_device(device)
+    layout = current_layout()
     if mesh is not None:
         from move2kube_tpu_torch.parallel.mesh import (
+            batch_layout,
             check_ported_mesh,
             mesh_config_of,
         )
 
-        check_ported_mesh(mesh_config_of(mesh))
-    layout = current_layout()
+        cfg = mesh_config_of(mesh)
+        check_ported_mesh(cfg)
+        layout = batch_layout(layout, cfg)
     if path and os.path.exists(path):
         use_prefetch = (prefetch
                         and os.environ.get("M2KT_PREFETCH", "1") != "0")

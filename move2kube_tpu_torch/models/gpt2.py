@@ -20,6 +20,20 @@ paged cache goes through ``paged_decode_attention`` (GPT-2 is MHA, so
 the kernels' GQA group is 1), an int8 cache included. Positions index a
 learned table of ``n_positions`` rows, so no position may reach it: the
 serving engine refuses a ``max_seq`` past it.
+
+Tensor parallelism (``mp`` set by a training step on a tensor mesh, as
+for the port's ``Llama``): each rank runs its heads. ``c_attn`` holds the
+rank's rows of each of its three thirds (its query, key and value
+heads) and ``c_fc`` its rows, entered through ``overlap.column_entry``;
+the row-split ``attn_out`` and ``mlp_out`` are summed over the tensor
+group by ``overlap.row_exit``, and their biases added once, after the
+sum. ``wte`` and ``wpe``, each when its rows divide, are masked lookups
+summed over the group, and the tied head follows ``wte`` (the
+vocab-parallel loss when it is split, the whole head otherwise). The
+gradient rule: ``c_attn``'s and ``c_fc``'s biases are whole by the rules
+and each rank adds only its slice, so the step sums their gradients over
+the tensor group; the LayerNorms and the row-split layers' biases sit on
+replicated values and are not reduced.
 """
 
 from __future__ import annotations
@@ -33,7 +47,17 @@ from torch.utils.checkpoint import checkpoint
 
 from move2kube_tpu_torch._device import resolve_device
 from move2kube_tpu_torch.models.layers import LayerNorm
-from move2kube_tpu_torch.models.llama import _lora_delta, paged_attention_step
+from move2kube_tpu_torch.models.llama import (
+    _lora_delta,
+    masked_lookup,
+    paged_attention_step,
+    tensor_split,
+)
+from move2kube_tpu_torch.parallel import overlap
+from move2kube_tpu_torch.parallel.sharding import (
+    RULES,
+    with_logical_constraint,
+)
 from move2kube_tpu_torch.ops.attention import flash_attention
 from move2kube_tpu_torch.serving.kvcache import PAGE_KEYS
 
@@ -73,7 +97,21 @@ def _check_supported(cfg: GPT2Config) -> None:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
+def _bias_cut(bias, parts: int, t: int, r: int):
+    """Rank r of t's slice of each of a whole bias's ``parts`` equal
+    parts, in order (the rows its weight holds)."""
+    size = bias.shape[0] // parts
+    cut = size // t
+    return torch.cat([bias.narrow(0, i * size + r * cut, cut)
+                      for i in range(parts)])
+
+
 class GPT2Block(nn.Module):
+    mp = None  # ModelParallel on a tensor mesh (module docstring)
+    # whole leaves a tensor rank uses a slice of (the module docstring's
+    # gradient rule)
+    tensor_partial = ("c_attn.bias", "c_fc.bias")
+
     def __init__(self, cfg: GPT2Config) -> None:
         super().__init__()
         self.cfg = cfg
@@ -92,6 +130,9 @@ class GPT2Block(nn.Module):
         cfg = self.cfg
         b, s, d = x.shape
         hd = cfg.head_dim
+        mp = self.mp if cache is None else None
+        if tensor_split(mp):
+            return self._split_forward(x, mp)
         qkv = self.c_attn(self.ln_1(x).to(x.dtype))
         q, k, v = (t.reshape(b, s, cfg.num_heads, hd).contiguous()
                    for t in qkv.split(d, dim=-1))
@@ -104,12 +145,39 @@ class GPT2Block(nn.Module):
         h = self.mlp_out(F.gelu(h, approximate="tanh"))
         return x + h, (k, v)
 
+    def _split_forward(self, x, mp):
+        """The block on this tensor rank's heads (module docstring)."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        t, r, group = mp.t, mp.t_rank, mp.tensor
+        heads, dl = cfg.num_heads // t, d // t
+        h = overlap.column_entry(self.ln_1(x).to(x.dtype), group)
+        qkv = F.linear(h, self.c_attn.weight,
+                       _bias_cut(self.c_attn.bias, 3, t, r))
+        qkv = with_logical_constraint(qkv, mp, RULES,
+                                      ("batch", None, "heads"), (b, s, 3 * d))
+        q, k, v = (u.reshape(b, s, heads, cfg.head_dim).contiguous()
+                   for u in qkv.split(dl, dim=-1))
+        o = flash_attention(q, k, v, causal=True)
+        y = overlap.row_exit(F.linear(o.reshape(b, s, dl),
+                                      self.attn_out.weight), group)
+        x = x + (y + self.attn_out.bias)
+        h = overlap.column_entry(self.ln_2(x).to(x.dtype), group)
+        h = F.linear(h, self.c_fc.weight, _bias_cut(self.c_fc.bias, 1, t, r))
+        h = with_logical_constraint(h, mp, RULES, ("batch", None, "mlp"),
+                                    (b, s, 4 * d))
+        y = overlap.row_exit(F.linear(F.gelu(h, approximate="tanh"),
+                                      self.mlp_out.weight), group)
+        return x + (y + self.mlp_out.bias), (k, v)
+
 
 class GPT2(nn.Module):
     """The decoder. Parameters are created uninitialised on ``device``
     (the card by default): weights come from
     :func:`~move2kube_tpu_torch.models.convert.init_gpt2` or from
     ``load_state_dict``."""
+
+    mp = None  # ModelParallel on a tensor mesh (module docstring)
 
     def __init__(self, cfg: GPT2Config, device=None) -> None:
         super().__init__()
@@ -151,7 +219,7 @@ class GPT2(nn.Module):
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :]
-        x = self.wte(input_ids) + self.wpe(positions)
+        x = self._embed(input_ids, positions)
         kvs = []
         for block in self.h:
             if remat:
@@ -167,6 +235,26 @@ class GPT2(nn.Module):
         if return_kv:
             return logits, kvs
         return logits
+
+    def _embed(self, input_ids, positions):
+        """``wte[ids] + wpe[positions]``; on a tensor mesh each table that
+        is this rank's rows is a masked lookup, and their sum over the
+        group is one all-reduce."""
+        mp = self.mp
+        if not tensor_split(mp):
+            return self.wte(input_ids) + self.wpe(positions)
+        whole, split = [], []
+        for table, idx, rows in ((self.wte, input_ids, self.cfg.vocab_size),
+                                 (self.wpe, positions, self.cfg.n_positions)):
+            if table.weight.shape[0] == rows:
+                whole.append(table(idx))
+            else:
+                split.append(masked_lookup(idx, table.weight, mp))
+        x = whole[0] + whole[1] if len(whole) == 2 else None
+        if split:
+            part = overlap.row_exit(sum(split[1:], split[0]), mp.tensor)
+            x = part if not whole else whole[0] + part
+        return x
 
     def _head(self, x, lora=None):
         """The tied head in fp32 on the fp32 hidden state (the embedding

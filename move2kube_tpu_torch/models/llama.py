@@ -30,6 +30,26 @@ block's MLP is :class:`~move2kube_tpu_torch.models.moe.MoEMlp` (named
 train step through ``Llama.moe_aux`` (see :meth:`Llama.forward`). Ring
 and ulysses attention are not ported yet (ROADMAP.md, Queue 1 item 9)
 and raise ``NotImplementedError``.
+
+Tensor parallelism (a training step on a mesh with a tensor axis sets
+``mp``, a :class:`~move2kube_tpu_torch.parallel.sharding.ModelParallel`,
+on the model's modules, and the model holds its
+:class:`~move2kube_tpu_torch.parallel.sharding.ShardLayout` parts): each
+tensor rank runs its heads, Megatron's split. The normed input enters
+the split region through ``overlap.column_entry``; the rank's ``qkv``
+rows are its query and KV heads, attention runs on them, and the
+row-split ``attn_out`` (its columns of those heads) is summed over the
+tensor group by ``overlap.row_exit``. ``gate_up`` holds the rank's cut
+of the gate half and of the up half. ``down`` is whole by the reference's
+rules (no row-split token matches it); it runs row-split on this rank's
+columns of the whole weight (no gather of the activation), and the same
+``row_exit`` sums it. The embedding, when its vocab divides, is this
+rank's rows: a masked lookup summed over the group; the head is then the
+vocab-parallel loss's (``ops/crossentropy.py``). The gradient rule: a
+leaf the rules keep whole but that a rank uses only a slice of
+(``down`` here) has its gradient summed over the tensor group by the
+step; a leaf computed whole on replicated inputs (the norms, an MoE
+router) already has the same gradient on every rank and is not reduced.
 """
 
 from __future__ import annotations
@@ -43,6 +63,11 @@ from torch.utils.checkpoint import checkpoint
 
 from move2kube_tpu_torch._device import resolve_device
 from move2kube_tpu_torch.models.moe import MoEMlp
+from move2kube_tpu_torch.parallel import overlap
+from move2kube_tpu_torch.parallel.sharding import (
+    RULES,
+    with_logical_constraint,
+)
 from move2kube_tpu_torch.ops.attention import (
     flash_attention,
     paged_decode_attention,
@@ -166,7 +191,33 @@ def _dense_attention(q, k, v, mask):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def masked_lookup(ids, weight, mp):
+    """This tensor rank's share of the embedding of ``ids`` from its rows
+    ``weight`` (``[V/t, d]``, rank r's rows ``[r V/t, (r+1) V/t)``): the
+    rows it holds, zeros for the others."""
+    rows = weight.shape[0]
+    local = ids - mp.t_rank * rows
+    hit = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(hit, local, torch.zeros_like(local)), weight)
+    return x * hit[..., None].to(x.dtype)
+
+
+def vocab_parallel_embed(ids, weight, mp):
+    """The embedding of ``ids`` from the tensor ranks' rows: each rank's
+    :func:`masked_lookup`, summed over the tensor group."""
+    return overlap.row_exit(masked_lookup(ids, weight, mp), mp.tensor)
+
+
+def tensor_split(mp) -> bool:
+    return mp is not None and mp.t > 1
+
+
 class LlamaBlock(nn.Module):
+    mp = None  # ModelParallel on a tensor or expert mesh (module docstring)
+    # whole leaves a tensor rank uses a slice of: their gradients are
+    # summed over the tensor group (the module docstring's rule)
+    tensor_partial = ("down.weight",)
+
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
         self.cfg = cfg
@@ -194,34 +245,50 @@ class LlamaBlock(nn.Module):
         the MoE load-balancing loss (None for a dense MLP)."""
         cfg = self.cfg
         hd = cfg.head_dim
-        h = self.attn_norm(x)
-        q, k, v = self.qkv(h).split(
-            [self.q_size, self.kv_size, self.kv_size], dim=-1)
-        b, s, _ = q.shape
-        q = _rope(q.reshape(b, s, cfg.num_heads, hd), positions,
-                  cfg.rope_theta)
-        k = _rope(k.reshape(b, s, cfg.num_kv_heads, hd), positions,
-                  cfg.rope_theta)
-        v = v.reshape(b, s, cfg.num_kv_heads, hd)
+        mp = self.mp if cache is None else None
+        t = mp.t if tensor_split(mp) else 1
+        group = mp.tensor if t > 1 else None
+        heads, kv_heads = cfg.num_heads // t, cfg.num_kv_heads // t
+        q_size, kv_size = heads * hd, kv_heads * hd
+        h = overlap.column_entry(self.attn_norm(x), group)
+        qkv = self.qkv(h)
+        b, s, _ = qkv.shape
+        qkv = with_logical_constraint(
+            qkv, mp, RULES, ("batch", None, "heads"),
+            (b, s, self.q_size + 2 * self.kv_size))
+        q, k, v = qkv.split([q_size, kv_size, kv_size], dim=-1)
+        q = _rope(q.reshape(b, s, heads, hd), positions, cfg.rope_theta)
+        k = _rope(k.reshape(b, s, kv_heads, hd), positions, cfg.rope_theta)
+        v = v.reshape(b, s, kv_heads, hd)
         if cache is not None:
             o = paged_attention_step(q, k, v, positions[:, 0], cache)
-            o = o.reshape(b, 1, self.q_size)
+            o = o.reshape(b, 1, q_size)
         elif cfg.attn_impl == "flash":
             o = flash_attention(q, k, v.contiguous(), causal=True)
-            o = o.reshape(b, s, self.q_size)
+            o = o.reshape(b, s, q_size)
         else:
-            rep = cfg.num_heads // cfg.num_kv_heads
+            rep = heads // kv_heads
             o = _dense_attention(q, k.repeat_interleave(rep, dim=2),
                                  v.repeat_interleave(rep, dim=2), mask)
-            o = o.reshape(b, s, self.q_size)
-        x = x + self.attn_out(o)
+            o = o.reshape(b, s, q_size)
+        # row-split output projection: the tensor group's sum
+        x = x + overlap.row_exit(self.attn_out(o), group)
         h = self.mlp_norm(x)
         if cfg.moe_experts > 0:
             y, aux = self.moe(h)
             return x + y, (k, v), aux
-        gate, up = self.gate_up(h).chunk(2, dim=-1)
-        x = x + self.down(F.silu(gate) * up)
-        return x, (k, v), None
+        gate_up = self.gate_up(overlap.column_entry(h, group))
+        gate_up = with_logical_constraint(
+            gate_up, mp, RULES, ("batch", None, "mlp"),
+            (b, s, 2 * cfg.mlp_dim))
+        gate, up = gate_up.chunk(2, dim=-1)
+        act = F.silu(gate) * up
+        if group is None:
+            return x + self.down(act), (k, v), None
+        # down is whole: this rank's columns of it, row-split
+        cols = cfg.mlp_dim // t
+        w = self.down.weight.narrow(1, mp.t_rank * cols, cols)
+        return x + overlap.row_exit(F.linear(act, w), group), (k, v), None
 
 
 class Llama(nn.Module):
@@ -229,6 +296,8 @@ class Llama(nn.Module):
     (the card by default): weights come from
     :func:`~move2kube_tpu_torch.models.convert.init_llama` or from
     ``load_state_dict``."""
+
+    mp = None  # ModelParallel on a tensor or expert mesh (module docstring)
 
     def __init__(self, cfg: LlamaConfig, device=None) -> None:
         super().__init__()
@@ -293,7 +362,11 @@ class Llama(nn.Module):
             raise ValueError("remat recomputes the blocks in the backward; "
                              "it does not return their K/V")
         b, s = input_ids.shape
-        x = self.embed(input_ids)
+        w = self.embed.weight
+        if tensor_split(self.mp) and w.shape[0] != self.cfg.vocab_size:
+            x = vocab_parallel_embed(input_ids, w, self.mp)
+        else:
+            x = self.embed(input_ids)
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         mask = None

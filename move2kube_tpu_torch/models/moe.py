@@ -16,6 +16,30 @@ routing depends on the whole call's tokens (the count ``T`` and the
 cumulative order), so a decode pass's idle rows take part in it, as they
 do in the JAX engine.
 
+On a mesh (``mp``, a :class:`~move2kube_tpu_torch.parallel.sharding.
+ModelParallel`, set by the training step):
+
+- Routing over the reference's token set. Where the reference's step
+  sees the global batch (its GSPMD step and its sequential scan),
+  ``mp.route`` is the batch group (data x fsdp): each rank exchanges its
+  per-expert counts over it in rank order, capacity comes from the global
+  token count, a token's queue position is its local cumulative count
+  plus the counts of the earlier ranks, and ``frac_tokens`` and
+  ``frac_probs`` are global means (``overlap.sum_over``, whose backward
+  sums the gradients back), so the aux loss is the reference's. Each rank
+  computes only its own tokens' rows: the expert MLP is row-wise, so its
+  slots are numbered from its own first token (``min(T, C)`` of them) and
+  no ``[E, C_global, d]`` buffer exists. Where the reference routes per
+  device (its ``shard_map`` paths: pure data with accumulation, the
+  prefetched fsdp step) ``mp.route`` is None and so is the port's.
+- The expert axis. A rank holds ``E/ep`` experts (rank r's ``[r E/ep,
+  (r+1) E/ep)``), each with its ``mlp`` columns of the tensor axis, and
+  dispatches only to them. The input and the gates enter through
+  ``overlap.column_entry`` and the combine's partial sum leaves through
+  ``overlap.row_exit``, both over the (tensor, expert) group, so the
+  router, computed whole on the replicated tokens, has the same gradient
+  on every rank.
+
 The expert weights are ``[E, d, m]`` / ``[E, m, d]`` parameters named as
 flax names them (``w_in``, ``w_gate``, ``w_out``) and held in the
 model's type; the router is an fp32 ``nn.Linear`` named ``router``, run
@@ -33,13 +57,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from move2kube_tpu_torch.parallel import overlap
+from move2kube_tpu_torch.parallel.sharding import ModelParallel
 from move2kube_tpu_torch.serving.quant import QuantLinear
 
 
-def top_k_routing(router_logits, num_experts: int, top_k: int,
-                  capacity: int):
-    """``router_logits [T, E]`` -> ``(dispatch [T, E, C], combine [T, E,
-    C], aux)``, dispatch and combine fp32, aux an fp32 scalar."""
+def _route(router_logits, num_experts: int, top_k: int, capacity: int,
+           route=None):
+    """``(dispatch [T, E, S], gates [T, E], aux)``: S = ``capacity`` slots
+    for this call's tokens alone; over a ``route`` group (module
+    docstring) the tokens of every rank of it count, and S = ``min(T,
+    capacity)`` slots numbered from this rank's first token."""
     probs = torch.softmax(router_logits.float(), dim=-1)
     topk_p, topk_idx = torch.topk(probs, top_k, dim=-1)
     topk_p = topk_p / torch.clamp_min(topk_p.sum(-1, keepdim=True), 1e-9)
@@ -49,14 +77,37 @@ def top_k_routing(router_logits, num_experts: int, top_k: int,
                          * topk_p[:, j:j + 1])
     mask = gates > 0
     position = torch.cumsum(mask.int(), dim=0) - 1
-    keep = mask & (position < capacity)
-    slot = torch.where(keep, position, torch.full_like(position, capacity))
-    dispatch = F.one_hot(slot.long(), capacity + 1).float()[..., :capacity]
-    combine = dispatch * gates[..., None]
-    frac_tokens = mask.float().mean(dim=0)
-    frac_probs = probs.mean(dim=0)
+    tokens = probs.shape[0]
+    if route is None:
+        keep = mask & (position < capacity)
+        slots = capacity
+        frac_tokens = mask.float().mean(dim=0)
+        frac_probs = probs.mean(dim=0)
+    else:
+        counts = mask.float().sum(dim=0)
+        # every rank's counts in rank order, [n, E]: exact in fp32
+        every = overlap.ring_all_gather(counts[None], route, 0)
+        r = torch.distributed.get_rank(route)
+        total = every.shape[0] * tokens
+        before = every[:r].sum(dim=0).long()
+        keep = mask & (position + before < capacity)
+        slots = min(tokens, capacity)
+        frac_tokens = every.sum(dim=0) / total
+        frac_probs = overlap.sum_over(probs.sum(dim=0), route) / total
+    slot = torch.where(keep, position, torch.full_like(position, slots))
+    dispatch = F.one_hot(slot.long(), slots + 1).float()[..., :slots]
     aux = num_experts * torch.sum(frac_tokens * frac_probs)
-    return dispatch, combine, aux
+    return dispatch, gates, aux
+
+
+def top_k_routing(router_logits, num_experts: int, top_k: int,
+                  capacity: int, route=None):
+    """``router_logits [T, E]`` -> ``(dispatch [T, E, C], combine [T, E,
+    C], aux)``, dispatch and combine fp32, aux an fp32 scalar; over a
+    ``route`` group the slots are this rank's (:func:`_route`)."""
+    dispatch, gates, aux = _route(router_logits, num_experts, top_k,
+                                  capacity, route)
+    return dispatch, dispatch * gates[..., None], aux
 
 
 def capacity_for(tokens: int, num_experts: int, top_k: int,
@@ -69,6 +120,8 @@ class MoEMlp(nn.Module):
     """``x [b, s, d] -> (y [b, s, d], aux)``. The expert products run in
     the experts' weight type (the model's compute type, or the training
     step's cast view of the masters)."""
+
+    mp = None  # ModelParallel on a mesh (module docstring)
 
     def __init__(self, d_model: int, num_experts: int, mlp_dim: int,
                  top_k: int = 2, capacity_factor: float = 1.25,
@@ -90,17 +143,32 @@ class MoEMlp(nn.Module):
         return F.linear(xt.float(), w.float())
 
     def forward(self, x):
+        """The layer over the route group's tokens (this call's off a
+        mesh), on this rank's experts and ``mlp`` columns (module
+        docstring); off a mesh every group is None and every collective
+        the identity."""
+        mp = self.mp or ModelParallel()
         b, s, d = x.shape
         tokens = b * s
-        capacity = capacity_for(tokens, self.num_experts, self.top_k,
+        n = (torch.distributed.get_world_size(mp.route)
+             if mp.route is not None else 1)
+        capacity = capacity_for(tokens * n, self.num_experts, self.top_k,
                                 self.capacity_factor)
         xt = x.reshape(tokens, d)
-        dispatch, combine, aux = top_k_routing(
-            self.router_logits(xt), self.num_experts, self.top_k, capacity)
+        dispatch, gates, aux = _route(self.router_logits(xt),
+                                      self.num_experts, self.top_k, capacity,
+                                      mp.route)
+        local = self.w_in.shape[0]
+        lo = mp.ep_rank * local
+        gates = overlap.column_entry(gates, mp.te)[:, lo:lo + local]
+        dispatch = dispatch[:, lo:lo + local]
+        combine = dispatch * gates[..., None]
+        xt = overlap.column_entry(xt, mp.te)
         dt = self.w_in.dtype
         xe = torch.einsum("tec,td->ecd", dispatch.to(dt), xt.to(dt))
         h = torch.bmm(xe, self.w_in)
         g = torch.bmm(xe, self.w_gate)
         ye = torch.bmm(F.silu(g) * h, self.w_out)
         yt = torch.einsum("tec,ecd->td", combine.to(dt), ye)
+        yt = overlap.row_exit(yt, mp.te)
         return yt.reshape(b, s, d).to(x.dtype), aux

@@ -69,9 +69,24 @@ their loss on the gathered parameters, and a conv family, whose leaves
 all stay whole, takes the data path over the batch group. No
 ``torch.distributed.fsdp``, no DDP, no ``all_gather_into_tensor`` or
 ``reduce_scatter_tensor``: the rings' point-to-point hops are the one
-gather and reduction path. A mesh with a tensor, expert, seq or
-pipe axis above 1 raises ``NotImplementedError`` naming its ROADMAP
-slice (9c-9e). ``scan_steps``
+gather and reduction path.
+
+Tensor and expert parallelism: on a mesh with a tensor or expert axis the
+model holds its parts over every axis (:func:`create_sharded_state`), the
+step gives its modules a :class:`~move2kube_tpu_torch.parallel.sharding.
+ModelParallel`, and the Llama, GPT-2 and MoE forwards split their heads,
+columns, vocab rows and experts (their docstrings), issuing the
+collectives GSPMD inserts in the reference. The step runs the sequential
+schedule, as the reference's model-parallel step does; the gradient
+reduction and reduce-scatter stay over the batch group (data x fsdp) and
+the fsdp group, and the gradients of the whole leaves a tensor rank uses
+a slice of are summed over the tensor group. Each leaf starts from the
+first rank of the ranks that hold the same copy of it. The optimizer's
+grad norm, guard and health summaries count each part once. An MoE
+routes the global batch's tokens where the reference's step sees the
+global batch (``models/moe.py``). A mesh with a seq or pipe axis above 1
+raises ``NotImplementedError`` naming its ROADMAP slice (9d-9e).
+``scan_steps``
 (k optimizer steps in one compiled call) has no counterpart: the caller
 runs the step k times. Each step updates the state in place and returns
 it.
@@ -159,13 +174,13 @@ class Optimizer:
       TensorHealthState` on the parameters' device), both taken before
       the guard, so a skipped update is recorded too. Nothing is read
       back to the host.
-    - ``sharding``: over fsdp shards (set by the step), the norm is the
-      square root of the group's sum of squares, each shard and each
-      replicated leaf counted once; the health summaries are reduced
-      across the group (sums summed, maxima maxed, counts summed), so
-      every rank records the whole tree's numbers; and the guard's
-      verdict is the group's (any rank's non-finite gradient rejects the
-      update on every rank).
+    - ``sharding``: over parts (set by the step on a mesh that cuts
+      leaves over fsdp, tensor or expert), the norm is the square root of
+      the group's sum of squares, each part and each whole leaf counted
+      once; the health summaries are reduced across the group (sums
+      summed, maxima maxed, counts summed), so every rank records the
+      whole tree's numbers; and the guard's verdict is the group's (any
+      rank's non-finite gradient rejects the update on every rank).
 
     The health groups need the parameters' names: :meth:`bind` takes them
     from the model (a :class:`TrainState` binds its own).
@@ -237,13 +252,15 @@ class Optimizer:
             n = len(self.health_names)
         grads = [p.grad if p.grad is not None
                  else p.new_zeros(()).expand_as(p) for p in params]
-        shards = gather = None
+        shards = gather = owners = None
         if self.sharding is not None:
-            shards = [self.sharding.is_shard(p) for p in params]
-            gather = self.sharding.gather
+            shards = [self.sharding.kind(p) for p in params]
+            gather, owners = self.sharding.gather, self.sharding.owners
         self.health = numericslib.TensorHealthState(
-            *numericslib.summarize_tree(grads, groups, n, shards, gather),
-            *numericslib.summarize_tree(params, groups, n, shards, gather))
+            *numericslib.summarize_tree(grads, groups, n, shards, gather,
+                                        owners),
+            *numericslib.summarize_tree(params, groups, n, shards, gather,
+                                        owners))
 
     def step(self) -> bool:
         """Apply the update held in the parameters' ``.grad``; returns
@@ -354,8 +371,9 @@ def create_sharded_state(cfg, mesh, optimizer_fn, seed: int = 0,
                          device=None, dtype: torch.dtype = torch.float32,
                          params: dict | None = None,
                          rules=None) -> TrainState:
-    """A :class:`TrainState` whose parameters are this rank's fsdp shards
-    on ``mesh`` (ZeRO-3): the reference's ``create_sharded_state``.
+    """A :class:`TrainState` whose parameters are this rank's parts on
+    ``mesh`` (its fsdp shards, ZeRO-3, and its tensor and expert cuts):
+    the reference's ``create_sharded_state``.
 
     A Llama or GPT-2 (``cfg``'s type) is built on the meta device, and
     each leaf is then materialised on ``device`` (the card by default)
@@ -417,19 +435,25 @@ def create_sharded_state(cfg, mesh, optimizer_fn, seed: int = 0,
 
 
 class _ShardedTree:
-    """How the optimizer's records read a tree of fsdp shards: which
-    parameters are shards, and the fsdp group they are shards over. A
-    shard counts once across the group and a replicated leaf once on its
-    rank; every reduction goes through the ring's all-gather, so every
-    rank reads the same bits."""
+    """How the optimizer's records read a tree of parts: each parameter's
+    kind (the mesh axes it is cut over, an empty set for a whole leaf),
+    the ring group of every rank that holds a distinct part (the mesh's
+    axes above 1 but data) and each of its ranks' coordinates. A part
+    counts once, on the ranks whose coordinate is 0 on every axis the
+    leaf is not cut over; every reduction goes through the ring's
+    all-gather, so every rank reads the same bits."""
 
-    def __init__(self, shard_ids: set, group, device) -> None:
-        self.shard_ids = shard_ids
+    def __init__(self, kinds: dict, group, coords: list, device) -> None:
+        self.kinds = kinds
         self.group = group
+        self.coords = coords
         self.device = device
 
     def is_shard(self, p) -> bool:
-        return id(p) in self.shard_ids
+        return bool(self.kinds.get(id(p)))
+
+    def kind(self, p):
+        return self.kinds.get(id(p)) or False
 
     def gather(self, t):
         """``t`` of every rank of the group, stacked on a new first
@@ -438,18 +462,23 @@ class _ShardedTree:
 
         return overlap.ring_all_gather(t.unsqueeze(0), self.group, 0)
 
+    def owners(self, kinds) -> torch.Tensor:
+        """``[ranks, kinds]``: 1 where a rank's part of a kind counts."""
+        rows = [[float(all(c.get(a, 0) == 0 for a in c
+                           if not (kind and a in kind)))
+                 for kind in kinds] for c in self.coords]
+        return torch.tensor(rows, device=self.device)
+
     def global_norm(self, params) -> torch.Tensor:
         """``optax.global_norm`` of the whole tree's gradients."""
-        shard_sq, rep_sq = [], []
+        kinds = list(dict.fromkeys(self.kind(p) for p in params))
+        sq = [[] for _ in kinds]
         for p in params:
-            sq = torch.linalg.vector_norm(p.grad.float()) ** 2
-            (shard_sq if self.is_shard(p) else rep_sq).append(sq)
-        zero = params[0].grad.new_zeros((), dtype=torch.float32)
-        total = self.gather(torch.stack(shard_sq).sum() if shard_sq
-                            else zero).sum()
-        if rep_sq:
-            total = total + torch.stack(rep_sq).sum()
-        return torch.sqrt(total)
+            sq[kinds.index(self.kind(p))].append(
+                torch.linalg.vector_norm(p.grad.float()) ** 2)
+        local = torch.stack([torch.stack(v).sum() for v in sq])
+        every = self.gather(local)
+        return torch.sqrt((every * self.owners(kinds)).sum())
 
     def any_rank(self, flag: bool) -> bool:
         """True when ``flag`` holds on any rank of the group (a MAX)."""
@@ -460,54 +489,60 @@ class _ShardedTree:
 class _MeshPlan:
     """What a step runs on a mesh of more than one rank.
 
-    - ``batch``: the ring group of every rank of the batch (data x fsdp);
-      the data path (9a) reduces over it, and so do a sharded model's
-      replicated leaves.
+    - ``batch``: the ring group of every rank of the batch (data x fsdp;
+      None when the batch is one rank's); the data path (9a) reduces
+      over it, and so do a sharded model's whole leaves.
     - ``layout``: the model's :class:`~move2kube_tpu_torch.parallel.
-      sharding.ShardLayout` when it holds fsdp shards, else None.
-    - ``fsdp``, ``data``: the ring groups of this rank's fsdp and data
-      axes (None at extent 1).
+      sharding.ShardLayout` when it holds parts, else None.
+    - ``fsdp``, ``data``, ``tensor``: the ring groups of this rank's
+      fsdp, data and tensor axes (None at extent 1).
     - ``prefetch``: the pure-fsdp schedule
       (:func:`~move2kube_tpu_torch.parallel.overlap.
-      prefetched_fsdp_accum_grads`) rather than the sequential one."""
+      prefetched_fsdp_accum_grads`) rather than the sequential one.
+    - ``partial``: the whole leaves a tensor rank uses a slice of, whose
+      gradients are summed over the tensor group."""
 
     def __init__(self, batch, layout=None, fsdp=None, data=None,
-                 prefetch=False) -> None:
+                 prefetch=False, tensor=None, partial=()) -> None:
         self.batch, self.layout = batch, layout
         self.fsdp, self.data, self.prefetch = fsdp, data, prefetch
+        self.tensor, self.partial = tensor, set(partial)
 
 
 class _MeshContext:
     """A step's mesh context, made at the first step: the ring groups of
-    the batch and of the fsdp and data axes, each model met broadcast
-    once (a data-parallel model from the batch group's first rank; a
-    sharded one its replicated leaves and buffers over the batch group,
-    its shards over the data group), its BatchNorm layers given the batch
-    group, and a sharded model's optimizer told which of its parameters
-    are shards. None without a mesh or on a mesh of one."""
+    the batch and of each axis above 1, each model met broadcast once
+    (each leaf from the first rank of the group of ranks that hold the
+    same copy of it: the axes it is not cut over), its BatchNorm layers
+    given the batch group, its modules given a :class:`~move2kube_tpu_
+    torch.parallel.sharding.ModelParallel` on a tensor or expert mesh,
+    and a sharded model's optimizer told which of its parameters are
+    parts of which axes. None without a mesh or on a mesh of one."""
 
-    def __init__(self, mesh) -> None:
+    def __init__(self, mesh, grad_accum: int = 1) -> None:
         self.mesh = mesh
-        self._groups = None
+        self.grad_accum = grad_accum
+        self._groups: dict = {}
         self._synced: set[int] = set()
 
-    def _ring_groups(self, cfg):
+    def group(self, axes: tuple):
+        """The ring group of this rank's ``axes`` (those above 1; None
+        when none is)."""
         from move2kube_tpu_torch.parallel import overlap
+        from move2kube_tpu_torch.parallel.mesh import mesh_config_of
 
-        if self._groups is None:
-            data = (overlap.mesh_ring_group(self.mesh, ("data",))
-                    if cfg.data > 1 else None)
-            fsdp = (overlap.mesh_ring_group(self.mesh, ("fsdp",))
-                    if cfg.fsdp > 1 else None)
-            batch = (overlap.mesh_ring_group(self.mesh, ("data", "fsdp"))
-                     if data is not None and fsdp is not None
-                     else data or fsdp)
-            self._groups = (batch, fsdp, data)
-        return self._groups
+        cfg = mesh_config_of(self.mesh)
+        axes = tuple(a for a in axes if getattr(cfg, a) > 1)
+        if not axes:
+            return None
+        if axes not in self._groups:
+            self._groups[axes] = overlap.mesh_ring_group(self.mesh, axes)
+        return self._groups[axes]
 
     def plan(self, state) -> _MeshPlan | None:
         if self.mesh is None:
             return None
+        from move2kube_tpu_torch.models import convert
         from move2kube_tpu_torch.parallel import overlap
         from move2kube_tpu_torch.parallel.mesh import (
             check_ported_mesh,
@@ -521,49 +556,128 @@ class _MeshContext:
         check_ported_mesh(cfg)  # raises, naming an unported axis's slice
         model = state.model
         layout = layout_of(model)  # None too for a conv family's
-        if layout is None and cfg.fsdp > 1 and any(
-                d is not None for d in overlap._fsdp_leaf_dims(
-                    model, cfg.fsdp).values()):
+        cut = self._cut_axes(model, layout, cfg)
+        if cut & {"tensor", "expert"} and type(
+                getattr(model, "cfg", None)) not in convert.LM_EMBEDS:
+            raise NotImplementedError(
+                "the rules split this model over tensor or expert; its "
+                "forward does not: they split the Llama and GPT-2 families")
+        if layout is None and cut:
             raise ValueError(
-                "an fsdp mesh trains a sharded model: build the state with "
+                "a mesh that cuts the model's leaves (fsdp, tensor, expert) "
+                "trains a sharded model: build the state with "
                 "create_sharded_state (or shard_params before the "
                 "optimizer's first step)")
-        batch, fsdp, data = self._ring_groups(cfg)
+        batch = self.group(("data", "fsdp"))
+        fsdp, data = self.group(("fsdp",)), self.group(("data",))
+        tensor = self.group(("tensor",))
         if id(model) not in self._synced:
             self._sync(model, layout, cfg)
             self._synced.add(id(model))
+        prefetch = layout is not None and overlap.fsdp_prefetched(self.mesh)
+        self._attach(model, cfg, batch, tensor, prefetch)
         if layout is None:
             return _MeshPlan(batch)
-        shards = {id(p) for n, p in model.named_parameters()
-                  if layout.dims[n] is not None}
-        state.optimizer.sharding = _ShardedTree(
-            shards, fsdp, next(model.parameters()).device)
-        return _MeshPlan(batch, layout, fsdp, data,
-                         overlap.fsdp_prefetched(self.mesh))
+        state.optimizer.sharding = self._sharded_tree(model, layout, cfg)
+        # the whole leaves a tensor rank uses only its slice of: each
+        # block names its own (``tensor_partial``)
+        names = dict(model.named_parameters())
+        partial = [f"{m_name}.{leaf}" for m_name, m in model.named_modules()
+                   for leaf in getattr(m, "tensor_partial", ())
+                   if tensor is not None and f"{m_name}.{leaf}" in names]
+        return _MeshPlan(batch, layout, fsdp, data, prefetch, tensor,
+                         partial)
+
+    @staticmethod
+    def _cut_axes(model, layout, cfg) -> set:
+        """The axes the rules cut the model's leaves over on this mesh."""
+        from move2kube_tpu_torch.parallel.mesh import MeshConfig
+        from move2kube_tpu_torch.parallel.sharding import param_specs
+
+        if layout is not None:
+            return set().union(*(layout.axes_of(n) for n in layout.cuts))
+        if max(cfg.fsdp, cfg.tensor, cfg.expert) == 1:
+            return set()
+        out = set()
+        for spec in param_specs(model, dict(zip(MeshConfig.AXES,
+                                                cfg.dims()))).values():
+            for entry in spec.axes:
+                out.update(entry if isinstance(entry, tuple) else (entry,))
+        return out & {"fsdp", "tensor", "expert"}
+
+    def _attach(self, model, cfg, batch, tensor, prefetch) -> None:
+        """The model's :class:`ModelParallel`: its tensor and expert
+        groups, and the MoE route group: the batch group where the
+        reference's step routes the global batch (its GSPMD step, its
+        sequential scan), none on its per-device ``shard_map`` paths (pure
+        data with accumulation, the prefetched fsdp step with it)."""
+        from move2kube_tpu_torch.parallel.sharding import (
+            ModelParallel,
+            attach_model_parallel,
+        )
+
+        if not hasattr(model, "mp"):
+            return
+        per_device = self.grad_accum > 1 and (
+            prefetch or (cfg.data > 1 and cfg.total() == cfg.data))
+        mp = getattr(model, "mp", None)
+        if mp is None:
+            mesh = self.mesh
+            mp = ModelParallel(
+                tensor=tensor, t=cfg.tensor,
+                t_rank=mesh.get_local_rank("tensor") if cfg.tensor > 1 else 0,
+                expert=self.group(("expert",)), ep=cfg.expert,
+                ep_rank=mesh.get_local_rank("expert") if cfg.expert > 1
+                else 0, te=self.group(("tensor", "expert")))
+            attach_model_parallel(model, mp)
+        mp.route = None if per_device else batch
+
+    def _sharded_tree(self, model, layout, cfg) -> _ShardedTree:
+        from move2kube_tpu_torch.parallel.mesh import MeshConfig
+
+        axes = tuple(a for a in MeshConfig.AXES
+                     if a != "data" and getattr(cfg, a) > 1)
+        group = self.group(axes)
+        coords = []
+        for flat in range(self.mesh.mesh.numel() // max(1, cfg.data)):
+            c, rest = {}, flat
+            for a in reversed(axes):
+                c[a] = rest % getattr(cfg, a)
+                rest //= getattr(cfg, a)
+            coords.append(c)
+        kinds = {id(p): layout.axes_of(n) for n, p in
+                 model.named_parameters()}
+        return _ShardedTree(kinds, group, coords,
+                            next(model.parameters()).device)
 
     def _sync(self, model, layout, cfg) -> None:
         from move2kube_tpu_torch.parallel import overlap
+        from move2kube_tpu_torch.parallel.mesh import MeshConfig
 
+        axes = tuple(a for a in MeshConfig.AXES if getattr(cfg, a) > 1)
+        by_group: dict = {}
+        for n, p in model.named_parameters():
+            cut = layout.axes_of(n) if layout is not None else frozenset()
+            copies = tuple(a for a in axes if a not in cut)
+            by_group.setdefault(copies, []).append(p)
+        by_group.setdefault(axes, []).extend(model.buffers())
+        for copies, tensors in by_group.items():
+            group = self.group(copies)
+            if group is not None and tensors:
+                overlap.broadcast_tensors(tensors, group)
+        # BatchNorm's statistics run on the main thread while a pending
+        # ring reduction may run on the batch's ring group: they take the
+        # mesh's own group
         mesh = self.mesh
-        batch = (mesh.get_group("data") if cfg.fsdp == 1 else
+        stats = (mesh.get_group("data") if cfg.fsdp == 1 else
                  mesh.get_group("fsdp") if cfg.data == 1 else None)
-        if batch is None:
+        if stats is None:
             import torch.distributed as dist
 
-            batch = dist.group.WORLD
-        if layout is None:
-            overlap.broadcast_model(model, batch)
-        else:
-            whole = [p for n, p in model.named_parameters()
-                     if layout.dims[n] is None]
-            overlap.broadcast_tensors([*whole, *model.buffers()], batch)
-            if cfg.data > 1:
-                overlap.broadcast_tensors(
-                    [p for n, p in model.named_parameters()
-                     if layout.dims[n] is not None], mesh.get_group("data"))
+            stats = dist.group.WORLD
         for m in model.modules():
             if hasattr(m, "stats_group"):
-                m.stats_group = batch
+                m.stats_group = stats
 
 
 class _Applied:
@@ -598,8 +712,12 @@ def _mesh_loss(plan, model, loss_of, batch, grad_accum: int):
         if grad_accum <= 1:
             loss = loss_of(whole, batch)
             loss.backward()
-            overlap.reduce_grads(params, plan.batch)
+            if plan.batch is not None:
+                overlap.reduce_grads(params, plan.batch)
             return overlap.group_mean(loss.detach(), plan.batch)
+        if plan.batch is None:  # the batch is this rank's (expert copies)
+            return _accumulate(model, (loss_of(whole, mb) for mb in batch),
+                               grad_accum)
         return overlap.overlapped_accum_grads(
             params, lambda mb: loss_of(whole, mb), batch, plan.batch)
     names = [n for n, _ in named]
@@ -612,8 +730,15 @@ def _mesh_loss(plan, model, loss_of, batch, grad_accum: int):
     if plan.prefetch:
         return overlap.prefetched_fsdp_accum_grads(params, dims, loss_fn,
                                                    micro, plan.fsdp)
-    return overlap.sequential_fsdp_accum_grads(
+    loss = overlap.sequential_fsdp_accum_grads(
         params, dims, loss_fn, micro, plan.fsdp, plan.data, plan.batch)
+    if plan.partial:
+        # the gradient rule: a whole leaf each tensor rank used a slice of
+        part = [p for n, p in named if n in plan.partial]
+        for p, g in zip(part, overlap.ring_all_reduce(
+                [p.grad for p in part], plan.tensor)):
+            p.grad = g
+    return loss
 
 
 def _accumulate(model, micro_losses, grad_accum: int) -> torch.Tensor:
@@ -638,7 +763,7 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
     sharded model's loss function is handed the model on its gathered
     parameters), update. The families' steps below and minitrain's are
     this one."""
-    ctx = _MeshContext(mesh)
+    ctx = _MeshContext(mesh, grad_accum)
 
     def step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
@@ -767,7 +892,7 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
       (the module's docstring); each rank's ``input_ids`` are its rows.
 
     The batch runs where the model's parameters lie."""
-    ctx = _MeshContext(mesh)
+    ctx = _MeshContext(mesh, grad_accum)
 
     def _loss(model, ids, params=None):
         if params is None:
@@ -777,11 +902,17 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
             # gathered fp32 masters are cast here, after the gather
             params = precision.cast_params(params)
         head_w = lm_head_weight(params)
-        if head_w.shape[0] > chunk:
+        mp = getattr(model, "mp", None)
+        # this tensor rank's head rows: the vocab-parallel loss
+        split = (mp is not None and mp.t > 1
+                 and head_w.shape[0] != model.cfg.vocab_size)
+        if split or head_w.shape[0] > chunk:
             hidden = torch.func.functional_call(
                 model, params, (ids,), {"return_hidden": True,
                                         "remat": remat})
-            loss = linear_lm_loss(hidden, head_w, ids, chunk)
+            loss = linear_lm_loss(hidden, head_w, ids, chunk,
+                                  mp.tensor if split else None,
+                                  mp.t_rank if split else 0)
         else:
             logits = torch.func.functional_call(model, params, (ids,),
                                                 {"remat": remat})

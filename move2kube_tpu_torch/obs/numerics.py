@@ -109,7 +109,7 @@ def group_index(tree, cfg=None) -> tuple[list[str], list[int]]:
 
 
 def summarize_tree(tree, leaf_groups=None, num_groups=None, shards=None,
-                   gather=None):
+                   gather=None, owners=None):
     """Per-group ``(rms, max_abs, nonfinite)`` of a tree's floating
     tensors (``tree`` as :func:`group_index` takes it, or a list of
     tensors with ``leaf_groups`` given), each a ``[num_groups]`` tensor on
@@ -125,7 +125,11 @@ def summarize_tree(tree, leaf_groups=None, num_groups=None, shards=None,
     of the shards' group. The shards' partial sums are reduced across the
     group (sums and counts summed, maxima maxed) before the replicated
     leaves', counted once, join them: every rank gets the whole tree's
-    summaries."""
+    summaries. A tree cut over several mesh axes: each flag is the leaf's
+    kind (the set of axes it is cut over; falsy: whole), and
+    ``owners(kinds)`` gives a ``[ranks, kinds]`` 0/1 tensor, the ranks
+    whose part of a kind counts (one copy of each part; every rank when
+    None)."""
     import torch
 
     if leaf_groups is None or num_groups is None:
@@ -161,10 +165,11 @@ def summarize_tree(tree, leaf_groups=None, num_groups=None, shards=None,
     # per kind (shards, then replicated leaves) and group: the sum of
     # squares, the max, the non-finite count and the size, in float64
     flags = shards if shards is not None else [False] * len(leaves)
+    kinds = [k for k in dict.fromkeys(flags) if k] or [True]
     rows = []
-    for kind in (True, False):
+    for kind in kinds + [False]:
         for group in parts:
-            mine = [e for e in group if bool(flags[e[4]]) == kind]
+            mine = [e for e in group if (flags[e[4]] or False) == kind]
             if not mine:
                 rows.append(torch.zeros(4, **f64))
                 continue
@@ -174,14 +179,19 @@ def summarize_tree(tree, leaf_groups=None, num_groups=None, shards=None,
                 torch.stack(list(top)).double().amax(),
                 torch.cat(list(bad)).sum(),
                 torch.full((), float(sum(size)), **f64)]))
-    acc = torch.stack(rows).view(2, n, 4)
-    # the shards' partial sums of every rank of the group, [ranks, n, 4]
-    every = (gather(acc[0]) if shards is not None and any(shards)
-             else acc[0][None])
-    sumsq = every[..., 0].sum(0) + acc[1, :, 0]
-    top = torch.maximum(every[..., 1].amax(0), acc[1, :, 1])
-    count = every[..., 2].sum(0) + acc[1, :, 2]
-    size = every[..., 3].sum(0) + acc[1, :, 3]
+    acc = torch.stack(rows).view(len(kinds) + 1, n, 4)
+    # the parts' partial sums of every rank of the group, [ranks, kinds,
+    # n, 4], each kind's counted on its owners alone
+    every = (gather(acc[:-1]) if shards is not None and any(shards)
+             else acc[:-1][None])
+    mask = (owners(kinds).to(**f64)[..., None, None]
+            if owners is not None and every.shape[0] > 1
+            else torch.ones(every.shape[:2], **f64)[..., None, None])
+    sumsq = (every[..., 0] * mask[..., 0]).sum((0, 1)) + acc[-1, :, 0]
+    top = torch.maximum(torch.where(mask[..., 0] > 0, every[..., 1],
+                                    0.0).amax(dim=(0, 1)), acc[-1, :, 1])
+    count = (every[..., 2] * mask[..., 0]).sum((0, 1)) + acc[-1, :, 2]
+    size = (every[..., 3] * mask[..., 0]).sum((0, 1)) + acc[-1, :, 3]
     rms = torch.where(size > 0, torch.sqrt(sumsq / size.clamp(min=1)), 0.0)
     max_abs = torch.where(count > 0, float("inf"), top)
     return (rms.to(torch.float32), max_abs.to(torch.float32),

@@ -20,6 +20,11 @@ fallback: the chunk is an argument, and the train step folds the head
 whenever the vocab spans more than one chunk (what the ladder's ``auto``
 does).
 
+On a tensor mesh whose head rows divide the vocab,
+:func:`fused_linear_cross_entropy` with a ``group`` runs the same loop on
+this rank's rows and merges the ranks' logsumexps (Megatron's
+vocab-parallel loss).
+
 Weight layout: the port's head is ``lm_head.weight`` ``[V, D]``
 (``nn.Linear``), so :func:`fused_linear_cross_entropy` takes ``[V, D]``
 where the JAX function takes ``[D, V]``; its gradient comes back ``[V,
@@ -119,16 +124,18 @@ def fused_cross_entropy(logits, labels,
 
 class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, hidden, weight, labels, chunk: int):
+    def forward(ctx, hidden, weight, labels, chunk: int, group, lo: int):
         n = hidden.shape[0]
         v = weight.shape[0]
         h32 = hidden.float()
-        labels = labels.long()
+        labels = labels.long() - lo
         lse, picked = _online_lse(
-            n, v, chunk, lambda lo: h32 @ weight[lo:lo + chunk].float().T,
+            n, v, chunk, lambda c: h32 @ weight[c:c + chunk].float().T,
             labels, hidden.device)
+        if group is not None:
+            lse, picked = _merge_ranks(lse, picked, group)
         ctx.save_for_backward(hidden, weight, labels, lse)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.group = chunk, group
         return (lse - picked).mean()
 
     @staticmethod
@@ -141,25 +148,57 @@ class _FusedLinearCE(torch.autograd.Function):
         scale = g.float() / n
         dh = torch.zeros(h32.shape, dtype=torch.float32, device=h32.device)
         dw = torch.empty_like(weight)
-        for lo in range(0, v, chunk):
-            wc = weight[lo:lo + chunk].float()
-            p = _softmax_minus_onehot(h32 @ wc.T, lse, labels, lo, scale)
+        for c in range(0, v, chunk):
+            wc = weight[c:c + chunk].float()
+            p = _softmax_minus_onehot(h32 @ wc.T, lse, labels, c, scale)
             dh += p @ wc
-            dw[lo:lo + chunk] = (p.T @ h32).to(dw.dtype)
-        return dh.to(hidden.dtype), dw, None, None
+            dw[c:c + chunk] = (p.T @ h32).to(dw.dtype)
+        if ctx.group is not None:
+            from move2kube_tpu_torch.parallel import overlap
+
+            dh = overlap.all_reduce_tensor(dh, ctx.group)
+        return dh.to(hidden.dtype), dw, None, None, None, None
+
+
+def _merge_ranks(lse, picked, group):
+    """The whole vocab's logsumexp and target logit from every rank's over
+    its rows. Every rank's pair is gathered in rank order and merged in
+    that order, so every rank gets the same bits; one rank owns each
+    target, the others add exact zeros."""
+    from move2kube_tpu_torch.parallel import overlap
+
+    every = overlap.ring_all_gather(torch.stack([lse, picked])[None],
+                                    group, 0)
+    top = every[:, 0].amax(dim=0)
+    total = torch.zeros_like(top)
+    for r in range(every.shape[0]):
+        total = total + torch.exp(every[r, 0] - top)
+    picked = every[0, 1]
+    for r in range(1, every.shape[0]):
+        picked = picked + every[r, 1]
+    return top + torch.log(total), picked
 
 
 def fused_linear_cross_entropy(hidden, weight, labels,
-                               chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+                               chunk: int = DEFAULT_CHUNK, group=None,
+                               rank: int = 0) -> torch.Tensor:
     """CE of ``hidden @ weight^T`` against ``labels`` without ever building
     the ``[N, V]`` logits. ``hidden``: ``[..., D]``; ``weight``: ``[V, D]``
     (the ``nn.Linear`` layout, the transpose of the JAX function's
     ``[D, V]``). Products and the logsumexp run in fp32; the gradients
-    come back in ``hidden``'s and ``weight``'s types."""
+    come back in ``hidden``'s and ``weight``'s types.
+
+    With a ``group``, the head's rows are split over it (Megatron's
+    vocab-parallel loss): ``weight`` is this rank's rows ``[V/t, D]``,
+    rank r's ``[r V/t, (r+1) V/t)``. Each rank runs the loop on its rows,
+    the ranks' logsumexps merge in rank order (the same bits on every
+    rank), the backward is softmax minus one-hot on the local rows, and
+    the hidden state's gradient is summed over the group."""
     v = weight.shape[0]
     c = pick_chunk(v, chunk)
     flat = hidden.reshape(-1, hidden.shape[-1])
-    return _FusedLinearCE.apply(flat, weight, labels.reshape(-1), c)
+    return _FusedLinearCE.apply(flat, weight, labels.reshape(-1), c, group,
+                                rank * v)
 
 
 def lm_head_weight(params: dict):
@@ -175,9 +214,11 @@ def lm_head_weight(params: dict):
     return None
 
 
-def linear_lm_loss(hidden, weight, input_ids,
-                   chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+def linear_lm_loss(hidden, weight, input_ids, chunk: int = DEFAULT_CHUNK,
+                   group=None, rank: int = 0) -> torch.Tensor:
     """Next-token-prediction loss straight from the pre-head hidden
-    states ``[b, s, D]``: shift, flatten, head-folded chunked CE."""
+    states ``[b, s, D]``: shift, flatten, head-folded chunked CE (on this
+    rank's head rows over ``group``, as in
+    :func:`fused_linear_cross_entropy`)."""
     return fused_linear_cross_entropy(hidden[:, :-1, :], weight,
-                                      input_ids[:, 1:], chunk=chunk)
+                                      input_ids[:, 1:], chunk, group, rank)

@@ -102,10 +102,8 @@ def infer_mesh_config(n_devices: int, *, zero_stage: int = 0,
 
 
 # the ROADMAP slice that brings each model axis the port does not run yet
-# (Queue 1 item 9; data and fsdp run)
-SLICE_OF_AXIS = {"tensor": "9c (tensor parallelism)",
-                 "expert": "9c (expert parallelism)",
-                 "seq": "9d (sequence parallelism)",
+# (Queue 1 item 9; data, fsdp, tensor and expert run)
+SLICE_OF_AXIS = {"seq": "9d (sequence parallelism)",
                  "pipe": "9e (pipelines)"}
 
 
@@ -117,7 +115,8 @@ def unported_axes(config: MeshConfig) -> list[str]:
 
 def check_ported_mesh(config: MeshConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP slice of each axis
-    of ``config`` the port does not run yet (data and fsdp run)."""
+    of ``config`` the port does not run yet (data, fsdp, tensor and
+    expert run)."""
     axes = unported_axes(config)
     if axes:
         raise NotImplementedError(
@@ -187,6 +186,26 @@ def current_layout() -> ProcessLayout:
     local_world = world // hosts
     return ProcessLayout(world, rank, local_world, rank % local_world, hosts,
                          rank // local_world)
+
+
+def batch_layout(layout: ProcessLayout, config: MeshConfig
+                 ) -> ProcessLayout:
+    """The layout of the batch's ranks: the reference shards the batch
+    over ``(data, fsdp)`` only, so the ranks of one batch coordinate (the
+    inner pipe, tensor, seq and expert axes, consecutive ranks) take the
+    same rows. Raises where a host's ranks do not hold whole groups of
+    them (every rank of a group must read its host's shard)."""
+    inner = config.pipe * config.tensor * config.seq * config.expert
+    if inner == 1:
+        return layout
+    if layout.local_world % inner:
+        raise ValueError(
+            f"{layout.local_world} ranks a host do not hold whole groups "
+            f"of the {inner} ranks of one batch coordinate")
+    return ProcessLayout(layout.world // inner, layout.rank // inner,
+                         layout.local_world // inner,
+                         layout.local_rank // inner, layout.hosts,
+                         layout.host)
 
 
 def rendezvous(env=None) -> str | None:

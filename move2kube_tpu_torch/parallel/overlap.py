@@ -1,6 +1,7 @@
-"""Bucketed ring all-reduce, the FSDP rings and compute-overlapped
-gradient accumulation: the port of ``move2kube_tpu/parallel/overlap.py``
-(the collective decode matmul is ROADMAP Queue 1 item 9c).
+"""Bucketed ring all-reduce, the FSDP rings, compute-overlapped gradient
+accumulation, the collectives of a model split over tensor and expert
+ranks and the collective decode matmul: the port of
+``move2kube_tpu/parallel/overlap.py``.
 
 :func:`ring_all_reduce` flattens every tensor into one fp32 bucket, pads
 it to a multiple of the group size n and splits it into n chunks, then
@@ -51,6 +52,20 @@ leaf's as it is reduced; the sequential one holds one leaf's at a time. :data:`R
 ``bytes``, ``copy_s`` and ``ring_s`` the all-reduce, the ``ag_`` and
 ``rs_`` keys the gathers and reduce-scatters (bytes in the leaf's own
 dtype).
+
+Tensor and expert parallelism (Megatron's two operators, as
+``torch.autograd.Function``s over the same ring): :func:`column_entry`
+(identity forward, ring all-reduce of the input's gradient backward)
+enters a region where each rank computes its own heads, columns or
+experts, and :func:`row_exit` (ring all-reduce forward, identity
+backward) leaves it, summing the ranks' partial products;
+:func:`gather_split` all-gathers a split activation (its backward keeps
+this rank's slice) and :func:`sum_over` sums a value every rank then uses
+(its backward sums the gradients back). GSPMD inserts these collectives
+in the reference; here the model calls them. Their bytes and seconds are
+``RING_STATS``' ``tp_`` keys. :func:`collective_decode_matmul` is the
+reference's row-parallel decode product with the reduce-scatter's hops
+interleaved with the per-chunk partial products.
 """
 
 from __future__ import annotations
@@ -69,9 +84,16 @@ import torch.distributed as dist
 RING_STATS = {"calls": 0, "bytes": 0, "copy_s": 0.0, "ring_s": 0.0,
               "ag_calls": 0, "ag_bytes": 0, "ag_copy_s": 0.0,
               "ag_ring_s": 0.0, "rs_calls": 0, "rs_bytes": 0,
-              "rs_copy_s": 0.0, "rs_ring_s": 0.0}
+              "rs_copy_s": 0.0, "rs_ring_s": 0.0, "tp_calls": 0,
+              "tp_bytes": 0, "tp_copy_s": 0.0, "tp_ring_s": 0.0}
 
 _MESH_RING_GROUPS: dict = {}
+
+# pinned host buffers of the host path, free for reuse, by (group, shape,
+# dtype); a buffer in use is out of the list, so two threads never share
+# one
+_HOST_BUFFERS: dict = {}
+_HOST_LOCK = threading.Lock()
 
 
 def reset_ring_stats() -> None:
@@ -202,27 +224,37 @@ def _via_host(tensor, group, fn, prefix: str, stream=None):
         return fn(tensor)
     stream = stream or torch.cuda.current_stream(tensor.device)
     t0 = time.perf_counter()
-    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-    with torch.cuda.stream(stream):
-        host.copy_(tensor, non_blocking=True)
-    stream.synchronize()
-    t1 = time.perf_counter()
-    done = fn(host)
-    t2 = time.perf_counter()
-    with torch.cuda.stream(stream):
-        out = done.to(tensor.device, non_blocking=True)
-    stream.synchronize()
+    key = (group, tuple(tensor.shape), tensor.dtype)
+    with _HOST_LOCK:
+        free = _HOST_BUFFERS.get(key)
+        host = free.pop() if free else None
+    if host is None:
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    try:
+        with torch.cuda.stream(stream):
+            host.copy_(tensor, non_blocking=True)
+        stream.synchronize()
+        t1 = time.perf_counter()
+        done = fn(host)
+        t2 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            out = done.to(tensor.device, non_blocking=True)
+        stream.synchronize()
+    finally:
+        with _HOST_LOCK:
+            _HOST_BUFFERS.setdefault(key, []).append(host)
     t3 = time.perf_counter()
     RING_STATS[prefix + "copy_s"] += (t1 - t0) + (t3 - t2)
     RING_STATS[prefix + "ring_s"] += t2 - t1
     return out
 
 
-def _ring_bucket(bucket, group, stream=None):
+def _ring_bucket(bucket, group, stream=None, prefix: str = ""):
     """:func:`_ring` where the backend can run it (:func:`_via_host`)."""
-    RING_STATS["calls"] += 1
-    RING_STATS["bytes"] += bucket.numel() * 4
-    return _via_host(bucket, group, lambda t: _ring(t, group), "", stream)
+    RING_STATS[prefix + "calls"] += 1
+    RING_STATS[prefix + "bytes"] += bucket.numel() * 4
+    return _via_host(bucket, group, lambda t: _ring(t, group), prefix,
+                     stream)
 
 
 def ring_all_gather(shard, group=None, dim: int = 0, stream=None):
@@ -396,7 +428,9 @@ def overlapped_accum_grads(params, loss_fn, batches, group):
 
 def group_mean(value, group):
     """The mean of a scalar tensor over ``group``, through the ring (so
-    every rank reads the same bits)."""
+    every rank reads the same bits); ``value`` itself for no group."""
+    if group is None:
+        return value
     n = dist.get_world_size(group)
     if n == 1:
         return value
@@ -458,8 +492,12 @@ def fsdp_transient_bytes(layout, prefetched: bool, grad_accum: int,
     the next backward runs), the largest leaf's (sequential)."""
     import math
 
-    sizes = {n: math.prod(spec.shape) for n, spec in layout.specs.items()}
-    sharded = [sizes[n] for n in layout.sharded()]
+    # each leaf at its size on this rank before the fsdp cut (the
+    # tensor-local leaf the gather yields)
+    sizes = {n: math.prod(spec.shape) // math.prod(
+        c.extent for c in layout.cuts[n] if c.axis != "fsdp")
+        for n, spec in layout.specs.items()}
+    sharded = [sizes[n] for n, d in layout.dims.items() if d is not None]
     gathered = 4 * sum(sharded)
     cast = (0 if compute_dtype == torch.float32 else
             sum(sizes.values()) * torch.finfo(compute_dtype).bits // 8)
@@ -593,7 +631,9 @@ def prefetched_fsdp_accum_grads(params, dims, loss_fn, batches, group):
 
 def sequential_fsdp_accum_grads(params, dims, loss_fn, batches, fsdp_group,
                                 data_group=None, batch_group=None):
-    """The reference's sequential accumulation on an fsdp mesh, where
+    """The reference's sequential accumulation on an fsdp mesh (and on any
+    mesh with a tensor or expert axis, whose model-parallel step the
+    reference runs the same way), where
     GSPMD's scan re-gathers the parameters for every microbatch: each
     microbatch gathers the sharded leaves over ``fsdp_group``, runs its
     forward and backward, in which each sharded gradient is
@@ -601,12 +641,12 @@ def sequential_fsdp_accum_grads(params, dims, loss_fn, batches, fsdp_group,
     (:class:`_GatherLeaf`), and all-reduces the shards over
     ``data_group`` (a data x fsdp mesh); the replicated leaves' gradients
     are all-reduced over ``batch_group``, every rank of the batch (default
-    ``fsdp_group``).
+    ``fsdp_group``; None, or a group of one: the batch is this rank's).
     Gradients and loss as :func:`prefetched_fsdp_accum_grads` gives
     them, averaged over the microbatches and the batch group."""
     params, dims = list(params), list(dims)
     batch_group = batch_group or fsdp_group
-    n = dist.get_world_size(batch_group)
+    n = dist.get_world_size(batch_group) if batch_group is not None else 1
     data_n = dist.get_world_size(data_group) if data_group is not None else 1
     acc, losses = None, []
     for mb in batches:
@@ -630,7 +670,7 @@ def sequential_fsdp_accum_grads(params, dims, loss_fn, batches, fsdp_group,
             bucket, meta = _flatten_bucket(sharded)
             sharded = _unflatten_bucket(_ring_bucket(bucket, data_group),
                                         meta)
-        if rep:
+        if rep and n > 1:
             bucket, meta = _flatten_bucket(rep)
             rep = _unflatten_bucket(_ring_bucket(bucket, batch_group), meta)
         sharded, rep = iter(sharded), iter(rep)
@@ -658,3 +698,173 @@ def broadcast_tensors(tensors, group) -> None:
             dist.broadcast(buf, src, group=group)
             if buf is not t:
                 t.copy_(buf)
+
+
+# ---------------------------------------------- tensor and expert parallel
+
+def all_reduce_tensor(x, group):
+    """``x`` summed over ``group`` by the ring (fp32 sums, the same bits
+    on every rank), in ``x``'s dtype; counted under ``RING_STATS``' ``tp_``
+    keys."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    flat = x.detach().reshape(-1).float()
+    out = _ring_bucket(flat, group, prefix="tp_")
+    return out.view(x.shape).to(x.dtype)
+
+
+class _ColumnEntry(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_tensor(grad, ctx.group), None
+
+
+class _RowExit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_tensor(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_tensor(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_tensor(grad, ctx.group), None
+
+
+class _GatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        ctx.size = x.shape[dim]
+        RING_STATS["tp_calls"] += 1
+        RING_STATS["tp_bytes"] += (dist.get_world_size(group) * x.numel()
+                                   * x.element_size())
+        return _via_host(x.contiguous(), group,
+                         lambda t: _gather(t, group, dim), "tp_")
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = dist.get_rank(ctx.group)
+        return grad.narrow(ctx.dim, r * ctx.size, ctx.size), None, None
+
+
+def column_entry(x, group):
+    """Megatron's f: ``x`` as it is into a region where each rank of
+    ``group`` computes its own part; the backward sums the ranks'
+    gradients of ``x``. A group of one (or None) is the identity."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _ColumnEntry.apply(x, group)
+
+
+def row_exit(x, group):
+    """Megatron's g: the sum over ``group`` of each rank's partial
+    product ``x``; the backward hands each rank the gradient as it is."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _RowExit.apply(x, group)
+
+
+def sum_over(x, group):
+    """The sum of ``x`` over ``group``, which every rank then uses alike;
+    the backward sums the ranks' gradients back to each input."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _SumOver.apply(x, group)
+
+
+def gather_split(x, group, dim: int):
+    """The whole activation from each rank's contiguous slice ``x`` of
+    ``dim`` (rank r's slice r); the backward keeps this rank's slice of
+    the gradient."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _GatherSplit.apply(x, group, dim)
+
+
+# ------------------------------------------------ collective decode matmul
+
+def has_model_axis(mesh) -> bool:
+    """True when ``mesh`` (a ``DeviceMesh``) splits parameters across a
+    ``model`` axis: the precondition for the collective-overlapped decode
+    matmul. The port's :func:`~move2kube_tpu_torch.parallel.mesh.
+    make_mesh` never names one, as the reference's does not."""
+    try:
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    except (AttributeError, TypeError):
+        return False
+    return shape.get("model", 1) > 1
+
+
+def _hop(send, group):
+    """``send`` to the next rank of ``group``, the previous rank's in
+    return (a card's tensor through the host in a gloo group)."""
+    _, _, nxt, prv = _neighbours(group)
+    host = _on_host(group, send)
+    buf = send.cpu() if host else send.contiguous()
+    recv = torch.empty_like(buf)
+    _exchange(buf, recv, nxt, prv, group)
+    return recv.to(send.device) if host else recv
+
+
+def _overlapped_matmul_shard(x, w, group):
+    """The shard-local body: ``x`` ``[batch, in/n]`` (this rank's columns)
+    against ``w`` ``[in/n, out]`` (its rows). The output columns are cut
+    into n chunks (padded to a multiple of n); the reduce-scatter's
+    travelling partial sum takes each hop's chunk product as it arrives,
+    so after n - 1 hops rank r owns finished chunk r + 1; n - 1 more hops
+    all-gather the ``[batch, out]`` row, the same on every rank."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x @ w
+    r = dist.get_rank(group)
+    out = w.shape[1]
+    pad = (-out) % n
+    if pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    cols = w.reshape(w.shape[0], n, -1)
+
+    def part(idx):
+        return x.float() @ cols[:, idx % n].float()
+
+    total = part(r)
+    for s in range(n - 1):
+        total = _hop(total, group) + part(r - 1 - s)
+    chunks = total.new_zeros((n,) + tuple(total.shape))
+    chunks[(r + 1) % n] = total
+    for s in range(n - 1):
+        total = _hop(total, group)
+        chunks[(r - s) % n] = total
+    y = chunks.permute(1, 0, 2).reshape(x.shape[0], -1)
+    if pad:
+        y = y[:, :out]
+    return y.to(x.dtype)
+
+
+def collective_decode_matmul(group, x, w):
+    """``x @ w`` with ``w``'s contraction dimension split over ``group``:
+    ``x`` ``[batch, in]`` replicated, ``w`` this rank's rows ``[in/n,
+    out]`` (rank r's slice r). Returns the whole product on every rank;
+    the sum over the group rides the overlapped ring of
+    :func:`_overlapped_matmul_shard`."""
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    rows = w.shape[0]
+    if x.shape[1] != rows * n:
+        raise ValueError(f"x has {x.shape[1]} columns; w's {rows} rows "
+                         f"x {n} ranks")
+    return _overlapped_matmul_shard(x[:, r * rows:(r + 1) * rows], w, group)

@@ -32,7 +32,11 @@ and the restarted attempt re-plans for the smaller world.
 each rank keeps its shards of the weights (``shard_params``), the step
 gathers them and reduce-scatters the gradients (the schedule that
 ``M2KT_FSDP_PREFETCH`` picks, as in the trainers: the step is theirs,
-:func:`make_step`), and the checkpoint is saved sharded. Global batch:
+:func:`make_step`), and the checkpoint is saved sharded.
+``M2KT_MESH_TENSOR`` and ``M2KT_MESH_EXPERT`` plan those axes: the
+rules cut none of this model's leaves over them (its kernels are not
+Megatron projections), so the ranks of one batch coordinate train the
+same rows as copies, as the reference's GSPMD step runs it. Global batch:
 ``M2KT_BATCH_PER_DEVICE`` (default 4) x the planned data x fsdp extents;
 each step's batch is seeded by the step alone and each rank takes its
 rows, so two runs with the same global batch see the same data whatever
@@ -154,15 +158,18 @@ def main() -> None:
         print(f"[m2kt] device={device} plan: {plan.describe()} "
               f"devices={layout.world} global_batch={batch}", flush=True)
     state = build_state(device)
-    if plan.config.fsdp > 1:
+    cfg = plan.config
+    if max(cfg.fsdp, cfg.tensor, cfg.expert) > 1:
         from move2kube_tpu_torch.parallel.sharding import shard_params
 
         # every rank drew the same weights from the seed: each keeps its
-        # slice of the sharded leaves
+        # part of each leaf the rules cut
         shard_params(state.model, mesh)
     train_step = make_step(mesh)
-    per = batch // layout.world
-    rows = slice(layout.rank * per, (layout.rank + 1) * per)
+    # the tensor and expert ranks of one batch coordinate take its rows
+    rows_of = m2kt_mesh.batch_layout(layout, cfg)
+    per = batch // rows_of.world
+    rows = slice(rows_of.rank * per, (rows_of.rank + 1) * per)
 
     ckpt = m2kt_ckpt.from_env(default_every=1)
     start = 0

@@ -185,6 +185,26 @@ PASS_KINDS = ("prefill", "decode", "verify", "chunk", "draft_prefill",
               "draft_decode", "audit")
 
 
+def select_decode_matmul(mesh=None):
+    """The decode projections' product for this deployment (the
+    reference's ``select_decode_matmul``): on a ``DeviceMesh`` with a
+    ``model`` axis, unless ``M2KT_SERVE_KERNELS=off``, the
+    collective-overlapped ring matmul over that axis's group
+    (:func:`~move2kube_tpu_torch.parallel.overlap.
+    collective_decode_matmul`, ``w`` this rank's rows); the plain ``x @
+    w`` otherwise. Nothing calls it yet, as nothing calls the
+    reference engine's: no mesh the port makes names a ``model`` axis,
+    and the engine takes no mesh until one does."""
+    from move2kube_tpu_torch.parallel import overlap
+
+    if (mesh is not None and overlap.has_model_axis(mesh)
+            and os.environ.get("M2KT_SERVE_KERNELS", "").strip().lower()
+            != "off"):
+        group = mesh.get_group("model")
+        return lambda x, w: overlap.collective_decode_matmul(group, x, w)
+    return lambda x, w: x @ w
+
+
 def _default_buckets(max_seq: int) -> tuple[int, ...]:
     buckets, b = [], 32
     while b < max_seq:

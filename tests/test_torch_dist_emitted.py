@@ -23,9 +23,10 @@ data=8), at tiny widths, 10 steps.
 - The llama3-8b sample's world of two (fsdp=2) is
   ``tests/test_torch_dist_emitted_fsdp.py``'s, on this file's helpers.
 - A sample whose plan for two devices has an axis the port does not run
-  yet (gpt2-tp: tensor=2; llama-moe's tensor and expert axes; llama-
-  ulysses's seq axis) exits 2 naming its ROADMAP slice, from the pod's
-  process before any rank starts.
+  yet (llama-ulysses's seq axis) exits 2 naming its ROADMAP slice, from
+  the pod's process before any rank starts. The tensor and expert
+  samples (gpt2-tp, llama-moe) are ``tests/test_torch_dist_emitted_tp.
+  py``'s, on this file's helpers.
 - ``M2KT_PLAN_REPORT`` writes the report from rank 0 alone, with every
   rank's measured peak.
 
@@ -74,7 +75,10 @@ BERT_TINY = {"M2KT_VOCAB": 64, "M2KT_LAYERS": 2, "M2KT_HEADS": 2,
 RESNET_TINY = {"M2KT_IMAGE_SIZE": 32, "M2KT_NUM_CLASSES": 10}
 RUNS = {"gpt2": dict(GPT2_TINY, M2KT_PRECISION="fp32"),
         "bert": BERT_TINY, "resnet": RESNET_TINY,
-        "llama3-8b": dict(LLAMA_TINY, M2KT_PRECISION="fp32")}
+        "llama3-8b": dict(LLAMA_TINY, M2KT_PRECISION="fp32"),
+        "gpt2-tp": dict(GPT2_TINY, M2KT_PRECISION="fp32"),
+        "llama-moe": dict(LLAMA_TINY, M2KT_PRECISION="fp32",
+                          M2KT_MOE_EXPERTS="4")}
 BPD = 2
 
 
@@ -93,22 +97,36 @@ def _ported(cwd, env, hf, ckpt):
     return env
 
 
-def _world_of_two(tmp_path, sample):
+def _world_of_two(tmp_path, sample, world: int = 2, knobs=None,
+                  batch_ranks: int = 2):
+    """The port's trainer in a world of ``world`` ranks (``knobs``: more
+    env) beside the JAX trainer on one device at ``batch_ranks`` times
+    the per-device batch: the same global batch (per-device batch x data
+    x fsdp)."""
     svc, plan = _service(sample)
     payload = _port_payload(svc, tmp_path)
     env = _env(tmp_path, M2KT_STEPS=10, M2KT_CKPT_EVERY=100,
                **dict(RUNS[sample], M2KT_BATCH_PER_DEVICE=BPD))
-    two = dict(env, M2KT_FORCE_DEVICES="2", M2KT_PLAN_REPORT=str(
-        tmp_path / "report"))
-    one = dict(env, M2KT_BATCH_PER_DEVICE=str(2 * BPD))
+    two = dict(env, M2KT_FORCE_DEVICES=str(world), M2KT_PLAN_REPORT=str(
+        tmp_path / "report"), **(knobs or {}))
+    one = dict(env, M2KT_BATCH_PER_DEVICE=str(batch_ranks * BPD))
     if sample == "resnet":
         return run_port_trainer(payload, two), None
+    elif sample == "llama-moe":
+        # no HF converter takes an MoE: both sides start from one flax
+        # init, each in its own checkpoint format
+        jdir = _write(jax_emit.emit_container(svc, plan).new_files,
+                      tmp_path / "jax")
+        two = dict(two, M2KT_CKPT_DIR=str(tmp_path / "ckpt-port"))
+        one = dict(one, M2KT_CKPT_DIR=str(tmp_path / "ckpt-jax"))
+        _moe_step0(tmp_path / "ckpt-jax", tmp_path / "ckpt-port")
+        ref = lambda: run_jax_trainer(jdir, one)  # noqa: E731
     else:
         hf = tmp_path / "hf"
         hf.mkdir()
-        if sample == "gpt2":
+        if sample.startswith("gpt2"):
             _hf_gpt2(hf / "pytorch_model.bin")
-        elif sample == "llama3-8b":
+        elif sample.startswith("llama"):
             _hf_llama(hf / "pytorch_model.bin")
         else:
             torch.save(hf_bert()[0], hf / "pytorch_model.bin")
@@ -121,6 +139,39 @@ def _world_of_two(tmp_path, sample):
         mine = pool.submit(run_port_trainer, payload, two)
         want = pool.submit(ref)
         return mine.result(), want.result()
+
+
+def _moe_step0(jax_ckpt, port_ckpt) -> None:
+    """The tiny MoE Llama's flax init (``RUNS["llama-moe"]``'s widths) as
+    each trainer's step-0 params-only checkpoint."""
+    import jax
+    import jax.numpy as jnp
+
+    from move2kube_tpu.models import checkpoint as jckpt
+    from move2kube_tpu.models import llama as jllama
+    from move2kube_tpu_torch.models import checkpoint as tckpt
+    from move2kube_tpu_torch.models import llama as tllama
+    from move2kube_tpu_torch.models.convert import params_from_jax
+
+    knobs = RUNS["llama-moe"]
+    widths = dict(vocab_size=int(knobs["M2KT_VOCAB"]),
+                  d_model=int(knobs["M2KT_DMODEL"]),
+                  num_layers=int(knobs["M2KT_LAYERS"]),
+                  num_heads=int(knobs["M2KT_HEADS"]),
+                  num_kv_heads=int(knobs["M2KT_KV_HEADS"]),
+                  mlp_dim=int(knobs["M2KT_MLP_DIM"]),
+                  moe_experts=int(knobs["M2KT_MOE_EXPERTS"]))
+    model = jllama.Llama(jllama.LlamaConfig(dtype=jnp.float32, **widths))
+    params = jax.device_get(model.init(jax.random.PRNGKey(0), jnp.zeros(
+        (2, 32), jnp.int32)))["params"]
+    mngr = jckpt.CheckpointManager(str(jax_ckpt), every=1)
+    mngr.maybe_save(0, {"params": jax.tree.map(jnp.asarray, params)},
+                    force=True)
+    mngr.close()
+    mngr = tckpt.CheckpointManager(str(port_ckpt), every=1)
+    mngr.maybe_save(0, {"params": params_from_jax(params, tllama.LlamaConfig(
+        dtype=torch.float32, **widths))}, force=True)
+    mngr.close()
 
 
 @pytest.mark.parametrize("sample", ["gpt2", "bert", "resnet"])
@@ -149,13 +200,9 @@ def test_data_parallel_samples_train_in_a_world_of_two(tmp_path, sample):
         "m2kt-plan-report.json", "m2kt-plan-report.md"]
 
 
-# llama-moe plans fsdp=2 for two devices (its tensor x expert factor, 8,
-# does not divide 2) and so trains; a world of 4 with its tensor and
-# expert axes set through the env, as the planner takes them, is refused
-AXES_CASES = [("llama-moe", "9c", {"M2KT_FORCE_DEVICES": 4,
-                                   "M2KT_MESH_TENSOR": 2,
-                                   "M2KT_MESH_EXPERT": 2}),
-              ("gpt2-tp", "9c", {}), ("llama-ulysses", "9d", {})]
+# gpt2-tp and llama-moe train their tensor and expert axes
+# (tests/test_torch_dist_emitted_tp.py); a seq axis is refused
+AXES_CASES = [("llama-ulysses", "9d", {})]
 
 
 @pytest.mark.parametrize("sample,slice_,knobs", AXES_CASES,

@@ -174,7 +174,9 @@ def test_process_layout_from_the_jobset_env():
 
 @pytest.mark.parametrize("dims,slices", [
     ((1, 2, 1, 1, 1, 1), []), ((2, 1, 2, 1, 1, 1), ["9e"]),
-    ((1, 1, 1, 2, 2, 2), ["9c", "9d", "9c"]), ((8, 1, 1, 1, 1, 1), [])])
+    ((1, 1, 1, 1, 2, 1), ["9d"]), ((8, 1, 1, 1, 1, 1), []),
+    ((1, 1, 1, 2, 1, 1), []), ((1, 1, 1, 1, 1, 2), []),
+    ((1, 2, 1, 2, 1, 2), []), ((1, 1, 2, 2, 2, 2), ["9e", "9d"])])
 def test_unported_axes_name_their_slice(dims, slices):
     cfg = tmesh.MeshConfig(*dims)
     if not slices:
@@ -219,11 +221,32 @@ MEM_CASES = {
                           {"x": jnp.zeros((1, 32, 32, 3)), "train": False}),
                  tresnet.resnet50, {}),
 }
+def _mixtral(mod, dtype):
+    """Mixtral's widths (8 experts, top 2) cut to 2 layers."""
+    return mod.LlamaConfig(
+        vocab_size=32000, d_model=4096, num_layers=2, num_heads=32,
+        num_kv_heads=8, mlp_dim=14336, max_len=4096, moe_experts=8,
+        moe_top_k=2, attn_impl="flash", dtype=dtype)
+
+
+MEM_CASES["mixtral-2l"] = (
+    lambda: (jllama.Llama(_mixtral(jllama, jnp.bfloat16)),
+             {"input_ids": jnp.zeros((1, 8), jnp.int32)}),
+    lambda: _mixtral(tllama, torch.bfloat16),
+    {"seq_len": 4096, "d_model": 4096, "num_layers": 2,
+     "vocab_size": 32000})
 MEM_EXTENTS = {"data8": _ext(data=8), "fsdp2": _ext(fsdp=2),
-               "fsdp64": _ext(fsdp=64)}
+               "fsdp64": _ext(fsdp=64), "tensor2": _ext(tensor=2),
+               "fsdp2xtensor2": _ext(fsdp=2, tensor=2),
+               "expert2": _ext(expert=2),
+               "fsdp2xtensor2xexpert4": _ext(fsdp=2, tensor=2, expert=4)}
+# the tensor and expert cells: the gpt2-tp and llama-moe samples' axes
 MEM_PAIRS = ([("llama3-8b", "fsdp64"), ("llama3-8b", "data8")]
              + [(m, e) for m in ("gpt2-small", "bert-base", "resnet50")
-                for e in ("data8", "fsdp2")])
+                for e in ("data8", "fsdp2")]
+             + [("llama3-8b", "tensor2"), ("llama3-8b", "fsdp2xtensor2"),
+                ("gpt2-small", "tensor2"), ("mixtral-2l", "expert2"),
+                ("mixtral-2l", "fsdp2xtensor2xexpert4")])
 
 
 def _plans(model, ext, top_n=5):
@@ -537,3 +560,79 @@ def test_fsdp_transient_bytes_count_the_schedules_holdings(prefetched, accum,
         sum(sharded) * (2 if accum > 1 else 1) if prefetched
         else max(sharded))
     assert got["schedule"] == ("prefetched" if prefetched else "sequential")
+
+
+# ------------------------------------------------ two-axis layouts (9c)
+
+def _tiny_specs(fam, extents):
+    from move2kube_tpu_torch.parallel.sharding import leaf_cuts, param_specs
+
+    cfg = (tllama.llama_tiny() if fam == "llama" else
+           dataclasses.replace(tllama.llama_tiny(), moe_experts=4)
+           if fam == "moe" else tgpt2.gpt2_tiny())
+    model = meta_model(cfg)
+    specs = param_specs(model, extents)
+    return cfg, specs, leaf_cuts(specs, extents, cfg)
+
+
+@pytest.mark.parametrize("fam,leaf,blocks", [
+    ("llama", "layers.0.qkv.weight", (128, 64, 64)),
+    ("llama", "layers.0.gate_up.weight", (256, 256)),
+    ("gpt2", "h.0.c_attn.weight", (64, 64, 64))])
+def test_a_tensor_rank_holds_its_heads_of_a_fused_leaf(fam, leaf, blocks):
+    """Each tensor rank's rows of a fused projection are its slice of
+    each block (its query and KV heads, its gate and up columns), as
+    many as the reference's contiguous cut; the parts put back together
+    are the leaf."""
+    from move2kube_tpu_torch.parallel.sharding import place_cuts, take_cuts
+
+    _, specs, cuts = _tiny_specs(fam, _ext(tensor=2, fsdp=2))
+    shape = specs[leaf].shape
+    assert [c.axis for c in cuts[leaf]] == ["tensor", "fsdp"]
+    assert cuts[leaf][0].blocks == blocks and cuts[leaf][0].dim == 0
+    full = torch.arange(float(shape[0] * shape[1])).reshape(shape)
+    back = torch.zeros_like(full)
+    for t in range(2):
+        for f in range(2):
+            coords = {"tensor": t, "fsdp": f}
+            part = take_cuts(full, cuts[leaf], coords)
+            assert part.numel() * 4 == full.numel()
+            rows, off = [], 0
+            for b in blocks:
+                rows += list(range(off + t * b // 2, off + (t + 1) * b // 2))
+                off += b
+            cols = slice(f * shape[1] // 2, (f + 1) * shape[1] // 2)
+            assert torch.equal(part, full[rows][:, cols])
+            place_cuts(back, part, cuts[leaf], coords)
+    assert torch.equal(back, full)
+
+
+@pytest.mark.parametrize("fam,extents,cut", [
+    ("llama", _ext(tensor=2), {"embed.weight": ["tensor"],
+                               "lm_head.weight": ["tensor"],
+                               "layers.0.down.weight": [],
+                               "layers.0.attn_out.weight": ["tensor"]}),
+    ("gpt2", _ext(tensor=2), {"wte.weight": ["tensor"],
+                              "wpe.weight": ["tensor"],
+                              "h.0.c_attn.bias": [],
+                              "h.0.mlp_out.weight": ["tensor"]}),
+    ("moe", _ext(tensor=2, expert=2), {
+        "layers.0.moe.w_in": ["expert", "tensor"],
+        "layers.0.moe.w_out": ["expert", "tensor"],
+        "layers.0.moe.router.weight": []})])
+def test_the_rules_cut_each_leaf_over_its_axes(fam, extents, cut):
+    _, _, cuts = _tiny_specs(fam, extents)
+    for leaf, axes in cut.items():
+        assert [c.axis for c in cuts[leaf]] == axes, leaf
+
+
+@pytest.mark.parametrize("extents,match", [
+    (_ext(tensor=4), "num_kv_heads=2"), (_ext(tensor=3), "num_heads=4"),
+    (_ext(expert=3), "moe_experts=4")])
+def test_an_extent_that_does_not_divide_the_model_is_refused(extents,
+                                                             match):
+    from move2kube_tpu_torch.parallel.sharding import check_model_parallel
+
+    cfg = dataclasses.replace(tllama.llama_tiny(), moe_experts=4)
+    with pytest.raises(ValueError, match=match):
+        check_model_parallel(cfg, extents)
