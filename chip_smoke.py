@@ -3539,24 +3539,25 @@ def obs_serve_phase(torch, model) -> tuple[dict, dict]:
 def _attention_impl(cfg, impl: str):
     """``cfg`` with its attention on the kernels (``"flash"``) or on the
     plain dense path (``"dense"``). Llama has a dense ``attn_impl``;
-    GPT-2 has none (its blocks always call ``flash_attention``), so for
-    it the plain version, ``reference_attention``, is swapped in for the
+    GPT-2 has none (its blocks call ``flash_attention`` through the Llama
+    module's dispatch, ``llama.causal_attention``), so for it the plain
+    version, ``reference_attention``, is swapped in there for the
     duration: the dense side of a parity check."""
     from move2kube_tpu_torch import GPT2Config
-    from move2kube_tpu_torch.models import gpt2
+    from move2kube_tpu_torch.models import llama
     from move2kube_tpu_torch.ops.attention import reference_attention
 
     if not isinstance(cfg, GPT2Config):
         yield dataclasses.replace(cfg, attn_impl=impl)
         return
-    saved = gpt2.flash_attention
+    saved = llama.flash_attention
     if impl == "dense":
-        gpt2.flash_attention = lambda q, k, v, causal: reference_attention(
+        llama.flash_attention = lambda q, k, v, causal: reference_attention(
             q, k, v, causal, q.shape[-1] ** -0.5)
     try:
         yield cfg
     finally:
-        gpt2.flash_attention = saved
+        llama.flash_attention = saved
 
 
 def gpt2_kernels_phase(torch) -> dict:
@@ -5323,7 +5324,7 @@ def _emit_gpt2_trainer(payload: str, base: dict, work: str) -> dict:
 # through pinned host memory), grad_accum 2 through the overlapped path;
 # the global batch is 4 rows of 1024 tokens a microbatch, 2 a rank
 MESH_RANKS, MESH_BATCH, MESH_ACCUM, MESH_STEPS = 2, 4, 2, 3
-MESH_CHILD_TIMEOUT_S = 420
+MESH_CHILD_TIMEOUT_S = 600
 # fp32, two ranks against one rank on the same global batch: the same
 # arithmetic with the sums over the batch in another order. The loss
 # within 1e-5 relative (tests/test_torch_dp_steps.py holds the same
@@ -5446,6 +5447,7 @@ def mesh_rank_child() -> int:
                            out + ".pt")
             del model
             torch.cuda.empty_cache()
+        result["seq"] = seq_rank_work(torch, layout, out)
         print("MESH_RESULT " + json.dumps(result), flush=True)
     finally:
         import torch.distributed as dist
@@ -5589,7 +5591,12 @@ def mesh_phase(torch) -> dict:
                     f"{x['ms']:.1f}" for x in one_steps)
                 + f" ms a step, {one_busy:.1f} ms busy of "
                 f"{one_steps[-1]['ms']:.1f} ({CARD})")
-        log(f"mesh: phase {time.perf_counter() - t_phase:.1f} s ({CARD})")
+        # item 9d in the same world
+        seq = seq_phase_checks(torch, work, res, layers)
+        for name, n in seq.items():
+            launches[name] += n
+        log(f"mesh: phase {time.perf_counter() - t_phase:.1f} s, seq "
+            f"included ({CARD})")
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -5600,6 +5607,469 @@ def _mesh_init_params(torch) -> dict:
 
     return dict(init_gpt2(gpt2_small(), seed=SEED, device="cuda",
                           dtype=torch.float32).named_parameters())
+
+
+# seq_phase (item 9d), run inside mesh_phase's two-rank world (one spawn,
+# one CUDA start-up and one set of kernel loads for both):
+# (a) GPT-2 small at full width and depth, gpt2-longctx's model
+#     (n_positions 8192), one row of SEQ_TOKENS tokens, 4096 a rank,
+#     remat, the head-folded loss, AdamW: SEQ_BF16_STEPS bf16 steps with
+#     ring attention, as many with Ulysses (6 heads a rank), the ring's
+#     last profiled (the first warms up), then one fp32 step of each,
+#     against one rank on the same row with flash over all 8192 tokens;
+# (b) Llama-8B's attention geometry alone, q [1, 8192, 32, 128], k/v [1,
+#     8192, 8, 128] bf16: ring and Ulysses forward and backward over the
+#     two ranks (GQA, d=128), against the plain fp32 attention over the
+#     whole sequence by the flash and backward rules, one rank's
+#     flash_attention beside them on the same rules; beside those, the
+#     backward kernels on the plain o and lse (the backward rule's own
+#     contract) and SDPA's forward and backward, read on the same rules
+SEQ_TOKENS, SEQ_BF16_STEPS, SEQ_LR = 8192, 2, 1e-4
+# fp32, two seq ranks against one rank on the same row: the same
+# arithmetic with the keys' softmax merged by logsumexp and the gradient
+# sums in another order. The loss within 1e-5 relative; each leaf's
+# first-step gradient within 3e-5 of its norm, the key third of each
+# c_attn bias apart: it shifts every score of a query row alike, so its
+# gradient is rounding noise alone (mesh_phase's rule), and it is only
+# reported
+SEQ_LOSS_REL = 1e-5
+SEQ_GRAD_REL = 3e-5
+SEQ_ATTN = dict(b=1, h=32, kvh=8, d=128)
+
+
+def _seq_cfg(impl: str):
+    import dataclasses
+
+    from move2kube_tpu_torch import gpt2_small
+
+    return dataclasses.replace(gpt2_small(), n_positions=SEQ_TOKENS,
+                               attn_impl=impl)
+
+
+def _seq_ids(torch):
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(SEED + 31).integers(
+        0, _seq_cfg("flash").vocab_size, (1, SEQ_TOKENS))).cuda()
+
+
+def _seq_train(torch, mode: str, impl: str, ids, steps: int, mesh=None,
+               on_step=None, profile_last=False):
+    """``steps`` steps of gpt2-longctx's model (fp32 masters, ``mode``'s
+    policy, AdamW at SEQ_LR, remat, the head-folded loss) on the row
+    ``ids``, over ``mesh``'s seq axis when given; ``on_step(t, state,
+    loss, ms, busy)`` after each synchronised step (busy: the device's
+    busy ms of a profiled step, else None). Returns the state."""
+    from move2kube_tpu_torch import (
+        TrainState,
+        adamw,
+        init_gpt2,
+        instrument_optimizer,
+        make_lm_train_step,
+        policy,
+    )
+
+    pol = policy(mode)
+    model = init_gpt2(_seq_cfg(impl), seed=SEED, device="cuda",
+                      dtype=torch.float32)
+    state = TrainState(model, instrument_optimizer(pol.wrap_optimizer(
+        adamw(model.parameters(), SEQ_LR, weight_decay=0.1))))
+    step = make_lm_train_step(precision=pol, mesh=mesh)
+    for t in range(steps):
+        out, wall = [], []
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(step(state, {"input_ids": ids}))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+
+        busy = None
+        if profile_last and t == steps - 1:
+            busy = _profiled(torch, f"seq {mode} {impl} step {t + 1}", run)
+        else:
+            run()
+        state, loss = out[0]
+        if on_step is not None:
+            on_step(t, state, float(loss), wall[0], busy)
+    return state
+
+
+def _seq_attention_inputs(torch):
+    """(b)'s inputs, the same on every rank and in the parent."""
+    b, h, kvh, d = (SEQ_ATTN[k] for k in ("b", "h", "kvh", "d"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 29)
+    return [torch.randn(b, SEQ_TOKENS, n, d, device="cuda",
+                        generator=gen).bfloat16() for n in (h, kvh, kvh, h)]
+
+
+def seq_rank_work(torch, layout, out: str) -> dict:
+    """A rank's share of seq_phase in mesh_phase's world: (a)'s runs, each
+    step's loss, time, parameter digest, grad norm and ``sp_`` ring
+    stats, each run's launches and peak, and (on rank 0) the fp32 runs'
+    gradients in ``OUT-seq-<impl>-grads.pt``; then (b)'s forward and
+    backward, each rank's shards of o, dq, dk, dv in
+    ``OUT-seq-attn-<impl>-r<rank>.pt``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from move2kube_tpu_torch import grad_norm_from_state, reset_launch_counts
+    from move2kube_tpu_torch.ops.attention import KERNELS
+    from move2kube_tpu_torch.parallel import overlap
+    from move2kube_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from move2kube_tpu_torch.parallel.ring_attention import ring_attention
+    from move2kube_tpu_torch.parallel.ulysses import ulysses_attention
+
+    mesh = make_mesh(MeshConfig(seq=layout.world), device="cuda")
+    ids = _seq_ids(torch)
+    result = {}
+    for mode, impl, steps in (("bf16", "ring", SEQ_BF16_STEPS),
+                              ("bf16", "ulysses", SEQ_BF16_STEPS),
+                              ("fp32", "ring", 1), ("fp32", "ulysses", 1)):
+        rec = []
+
+        def on_step(t, state, loss, ms, busy, rec=rec):
+            # the parameters' digests on the card (a copy to the host
+            # would cost a second a step)
+            h = hashlib.sha256()
+            for p in state.model.parameters():
+                h.update(_device_digest(torch, p).encode())
+            rec.append({"loss": loss, "ms": ms, "busy_ms": busy,
+                        "sha": h.hexdigest(),
+                        "grad_norm": grad_norm_from_state(state),
+                        "ring": dict(overlap.RING_STATS)})
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        overlap.reset_ring_stats()
+        t_run = time.perf_counter()
+        # the bf16 ring run's last step under the profiler: a profiled
+        # step costs the script about 3.5 s
+        state = _seq_train(torch, mode, impl, ids, steps, mesh, on_step,
+                           profile_last=(mode, impl) == ("bf16", "ring"))
+        log(f"seq rank {layout.rank}: {mode} {impl} {steps} step(s) "
+            f"{time.perf_counter() - t_run:.1f} s")
+        result[f"{mode}-{impl}"] = {
+            "steps": rec, "peak": torch.cuda.max_memory_allocated(),
+            "launches": {k.name: k.launches for k in KERNELS}}
+        if mode == "fp32" and layout.rank == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in
+                        state.model.named_parameters()},
+                       f"{out}-seq-{impl}-grads.pt")
+        del state
+    # (b): the attention alone at Llama-8B's geometry
+    gc.collect()
+    torch.cuda.empty_cache()
+    q, k, v, g = _seq_attention_inputs(torch)
+    size = SEQ_TOKENS // layout.world
+    cut = slice(layout.rank * size, (layout.rank + 1) * size)
+    group = dist.group.WORLD
+    for impl, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        leaves = [t[:, cut].contiguous().requires_grad_() for t in (q, k, v)]
+        reset_launch_counts()
+        overlap.reset_ring_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*leaves, group, causal=True)
+        torch.autograd.backward(o, g[:, cut].contiguous())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"o": o.detach().cpu(),
+                    **{f"d{x}": t.grad.cpu() for x, t in zip("qkv", leaves)}},
+                   f"{out}-seq-attn-{impl}-r{layout.rank}.pt")
+        result[f"attn-{impl}"] = {
+            "ms": ms, "ring": dict(overlap.RING_STATS),
+            "launches": {k.name: k.launches for k in KERNELS}}
+        del o, leaves
+    return result
+
+
+def _seq_want_launches(impl: str, rank: int, steps: int, layers: int
+                       ) -> dict:
+    """A rank's launches in (a): ring rank r runs r + 1 live blocks a
+    layer (the forward, its remat recompute, dq, dkv); Ulysses one."""
+    blocks = rank + 1 if impl == "ring" else 1
+    return {"flash_fwd": 2 * blocks * layers * steps,
+            "flash_bwd_dq": blocks * layers * steps,
+            "flash_bwd_dkv": blocks * layers * steps,
+            "paged_decode": 0, "paged_decode_int8": 0}
+
+
+def _seq_reference_attention(torch, q, k, v, g, scale):
+    """The plain fp32 attention over the whole sequence, a GQA group at a
+    time (a [1, 4, 8192, 8192] fp32 score block each): per group of
+    query heads, (o32, lse, P.|V|, (dq, dk, dv), their T terms)."""
+    from move2kube_tpu_torch.ops import attention as att
+
+    rep = q.shape[2] // k.shape[2]
+    for j in range(k.shape[2]):
+        qj, gj = q[:, :, j * rep:(j + 1) * rep], g[:, :, j * rep:(j + 1) * rep]
+        kj, vj = k[:, :, j:j + 1], v[:, :, j:j + 1]
+        o32, lse = att.reference_attention_lse(qj.float(), kj.float(),
+                                               vj.float(), True, scale)
+        pv = att.reference_attention_abs_v(qj, kj, vj, True, scale)
+        o = o32.bfloat16().float()
+        want = att.flash_attention_bwd_reference(
+            qj.float(), kj.float(), vj.float(), o, lse, gj.float(), True,
+            scale)
+        terms = att.flash_attention_bwd_abs_terms(qj, kj, vj, o, lse, gj,
+                                                  True, scale)
+        yield j, o32, lse, pv, want, terms
+        del o32, pv, want, terms, lse, o
+
+
+def seq_phase_checks(torch, work: str, res: list, layers: int) -> dict:
+    """mesh_phase's seq half, in the parent once the ranks are done:
+    (a)'s gates against one rank on the same row, (b)'s against the plain
+    attention; returns (a)'s launches summed over the ranks."""
+    import torch.nn.functional as F
+
+    from move2kube_tpu_torch import flash_attention, grad_norm_from_state
+    from move2kube_tpu_torch.ops import attention as att
+
+    t_seq = time.perf_counter()
+    launches = dict.fromkeys(res[0]["seq"]["fp32-ring"]["launches"], 0)
+    for r, doc in enumerate(res):
+        for key, run in doc["seq"].items():
+            if key.startswith("attn-"):
+                impl = key[5:]
+                want = _seq_want_launches(impl, r, 1, 1)
+                want["flash_fwd"] //= 2  # no remat here
+                _check_launches(f"seq: rank {r} attention {impl}",
+                                run["launches"], want)
+                continue
+            mode, impl = key.split("-")
+            _check_launches(f"seq: rank {r} {key}", run["launches"],
+                            _seq_want_launches(impl, r, len(run["steps"]),
+                                               layers))
+            for name, n in run["launches"].items():
+                launches[name] += n
+    for key in res[0]["seq"]:
+        if key.startswith("attn-"):
+            continue
+        for t in range(len(res[0]["seq"][key]["steps"])):
+            shas = {doc["seq"][key]["steps"][t]["sha"] for doc in res}
+            if len(shas) != 1:
+                raise RuntimeError(f"seq: {key} step {t + 1}: the ranks' "
+                                   f"parameters differ {shas}")
+    log(f"seq: after every step of every run the {len(res)} ranks' "
+        f"parameters have one SHA-256; launches a rank as the ring's live "
+        f"blocks and Ulysses' one call give them, x {layers} layers x "
+        f"steps, the forward twice (remat)")
+
+    # (a) one rank on the same row, flash over all SEQ_TOKENS tokens
+    ids = _seq_ids(torch)
+    ref = {}
+    for mode, steps in (("bf16", SEQ_BF16_STEPS), ("fp32", 1)):
+        rec = []
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = _seq_train(
+            torch, mode, "flash", ids, steps,
+            on_step=lambda t, st, loss, ms, busy, rec=rec: rec.append(
+                {"loss": loss, "ms": ms,
+                 "grad_norm": grad_norm_from_state(st)}))
+        ref[mode] = (rec, torch.cuda.max_memory_allocated())
+        if mode == "fp32":
+            grads = {n: p.grad.detach()
+                     for n, p in state.model.named_parameters()}
+        del state
+    d = _seq_cfg("flash").d_model
+    for impl in ("ring", "ulysses"):
+        mine = res[0]["seq"][f"fp32-{impl}"]["steps"][0]
+        theirs = ref["fp32"][0][0]
+        loss_err = abs(mine["loss"] - theirs["loss"]) / abs(theirs["loss"])
+        got = torch.load(os.path.join(work, f"rank-seq-{impl}-grads.pt"),
+                         map_location="cuda")
+        worst, key_bias = (0.0, ""), 0.0
+        for n, want in grads.items():
+            have = got[n]
+            if n.endswith("c_attn.bias"):
+                key_bias = max(key_bias, float(
+                    (have[d:2 * d] - want[d:2 * d]).abs().max()))
+                keep = torch.cat([torch.arange(d), torch.arange(2 * d, 3 * d)]
+                                 ).to(have.device)
+                have, want = have[keep], want[keep]
+            err = float(torch.linalg.vector_norm(have - want)) / max(
+                float(torch.linalg.vector_norm(want)), 1e-30)
+            worst = max(worst, (err, n))
+        if loss_err > SEQ_LOSS_REL or worst[0] > SEQ_GRAD_REL:
+            raise RuntimeError(
+                f"seq: fp32 {impl}, two seq ranks against one: loss "
+                f"{mine['loss']} vs {theirs['loss']} ({loss_err:.2e} > "
+                f"{SEQ_LOSS_REL}?), worst gradient {worst[1]} {worst[0]:.2e}"
+                f" of its norm (> {SEQ_GRAD_REL}?)")
+        log(f"seq: fp32 {impl}, two seq ranks of 4096 tokens against one "
+            f"rank's flash over {SEQ_TOKENS}: loss {mine['loss']:.7f} vs "
+            f"{theirs['loss']:.7f} ({loss_err:.2e}, gate {SEQ_LOSS_REL}); "
+            f"worst leaf gradient {worst[1]} {worst[0]:.2e} of its norm "
+            f"(gate {SEQ_GRAD_REL}); c_attn key-bias gradients {key_bias:.2e}"
+            f" apart at most (rounding noise, reported)")
+        steps = res[0]["seq"][f"bf16-{impl}"]["steps"]
+        one = ref["bf16"][0]
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(steps, one))
+        norm_rel = abs(steps[0]["grad_norm"] - one[0]["grad_norm"]) / abs(
+            one[0]["grad_norm"])
+        if not (loss_rel <= BF16_TRAIN_LOSS_REL
+                and norm_rel <= BF16_TRAIN_GRAD_NORM_REL):
+            raise RuntimeError(
+                f"seq: bf16 {impl} against one rank: loss rel err "
+                f"{loss_rel:.3e} (tol {BF16_TRAIN_LOSS_REL}), first grad "
+                f"norm rel err {norm_rel:.3e} (tol "
+                f"{BF16_TRAIN_GRAD_NORM_REL})")
+        log(f"seq: bf16 {impl} against one rank: losses "
+            + ", ".join(f"{a['loss']:.5f}/{b['loss']:.5f}"
+                        for a, b in zip(steps, one))
+            + f", largest rel err {loss_rel:.3e} (gate {BF16_TRAIN_LOSS_REL}"
+            f"); first grad norm rel err {norm_rel:.3e} (gate "
+            f"{BF16_TRAIN_GRAD_NORM_REL})")
+    for mode in ("bf16", "fp32"):
+        for impl in ("ring", "ulysses"):
+            runs = [doc["seq"][f"{mode}-{impl}"] for doc in res]
+            steps = runs[0]["steps"]
+            totals = [x["ring"] for x in steps]
+            last = totals[-1] if len(totals) == 1 else {
+                k: totals[-1][k] - totals[-2][k] for k in totals[-1]}
+            busy = [x["steps"][-1]["busy_ms"] for x in runs]
+            busy_txt = ("; busy share not measured (no profiled step)"
+                        if None in busy else
+                        f"; the profiled step's kernels busy "
+                        f"{sum(busy):.1f} ms of {steps[-1]['ms']:.1f} "
+                        f"({100 * sum(busy) / steps[-1]['ms']:.1f} % busy)")
+            log(f"seq: {mode} {impl}, 2 ranks x 4096 tokens: step wall "
+                + ", ".join(f"{x['ms']:.1f}" for x in steps)
+                + f" ms; the last step (rank 0): {last['sp_calls']} sp "
+                f"exchanges, {last['sp_bytes'] / 1e9:.3f} GB sent, host "
+                f"copies {last['sp_copy_s'] * 1e3:.1f} ms, gloo "
+                f"{last['sp_ring_s'] * 1e3:.1f} ms; gradient ring "
+                f"{last['bytes'] / 1e9:.3f} GB, {last['copy_s'] * 1e3:.1f} "
+                f"+ {last['ring_s'] * 1e3:.1f} ms" + busy_txt
+                + "; peak a rank " + ", ".join(
+                    f"{x['peak'] / 2**30:.2f}" for x in runs)
+                + f" GiB; one rank's flash over {SEQ_TOKENS}: "
+                + ", ".join(f"{x['ms']:.1f}" for x in ref[mode][0])
+                + f" ms, peak {ref[mode][1] / 2**30:.2f} GiB ({CARD})")
+
+    log(f"seq: (a)'s checks {time.perf_counter() - t_seq:.1f} s")
+    # (b) Llama-8B's attention geometry against the plain fp32 attention
+    gc.collect()
+    torch.cuda.empty_cache()
+    q, k, v, g = _seq_attention_inputs(torch)
+    scale = q.shape[-1] ** -0.5
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o1 = flash_attention(*leaves, causal=True)
+    torch.autograd.backward(o1, g)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    got = {"flash": {"o": o1.detach(), **{f"d{x}": t.grad for x, t in
+                                          zip("qkv", leaves)}}}
+    del o1, leaves
+    # SDPA's forward and backward on the same inputs, K/V repeated inside
+    # the graph: a yardstick read on the same rules, never called by the
+    # port
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o1 = F.scaled_dot_product_attention(
+        *(_sdpa_layout(t, q.shape[2]) for t in leaves), is_causal=True)
+    torch.autograd.backward(o1.transpose(1, 2), g)
+    sdpa = {f"d{x}": t.grad for x, t in zip("qkv", leaves)}
+    del o1, leaves
+    for impl in ("ring", "ulysses"):
+        parts = [torch.load(os.path.join(
+            work, f"rank-seq-attn-{impl}-r{r}.pt"), map_location="cuda")
+            for r in range(len(res))]
+        got[impl] = {key: torch.cat([p_[key] for p_ in parts], 1)
+                     for key in ("o", "dq", "dk", "dv")}
+    rep = q.shape[2] // k.shape[2]
+    # shares of each rule's allowance: o against the plain result (the
+    # flash rule, gated for all three), each gradient against the plain
+    # result (reported) and, for ring and Ulysses, against one rank's
+    # flash_attention's (the backward rule, gated)
+    keys = ("o", "dq", "dk", "dv")
+    shares = {impl: dict.fromkeys(keys, 0.0) for impl in got}
+    errs = {impl: dict.fromkeys(keys, 0.0) for impl in got}
+    to_one = {impl: dict.fromkeys(keys[1:], 0.0) for impl in got}
+    # the backward kernels on the plain o and lse, and SDPA end to end
+    # (shares of the backward rule, reported)
+    aside = {src: dict.fromkeys(keys[1:], 0.0) for src in ("plain", "sdpa")}
+    for j, o32, lse, pv, want, terms in _seq_reference_attention(
+            torch, q, k, v, g, scale):
+        heads = slice(j * rep, (j + 1) * rep)
+        on_plain = att.flash_attention_bwd(
+            q[:, :, heads].contiguous(), k[:, :, j:j + 1].contiguous(),
+            v[:, :, j:j + 1].contiguous(), o32.bfloat16(), lse,
+            g[:, :, heads].contiguous(), True, scale)
+        for name, x, y, t in zip(keys[1:], on_plain, want, terms):
+            sl = heads if name == "dq" else slice(j, j + 1)
+            for src, mine in (("plain", x), ("sdpa", sdpa[name][:, :, sl])):
+                aside[src][name] = max(aside[src][name],
+                                       bwd_shares(torch, mine, y, t)[0])
+        del on_plain
+        for impl, x in got.items():
+            err, share = flash_check(torch, f"seq: {impl} o (Llama-8B "
+                                     f"geometry, kv head {j})",
+                                     x["o"][:, :, heads], o32, pv)
+            shares[impl]["o"] = max(shares[impl]["o"], share)
+            errs[impl]["o"] = max(errs[impl]["o"], err)
+            for name, y, t in zip(keys[1:], want, terms):
+                sl = heads if name == "dq" else slice(j, j + 1)
+                mine = x[name][:, :, sl]
+                share, _, err = bwd_shares(torch, mine, y, t)
+                shares[impl][name] = max(shares[impl][name], share)
+                errs[impl][name] = max(errs[impl][name], err)
+                if impl == "flash":
+                    continue
+                one = got["flash"][name][:, :, sl].float()
+                share = ((mine.float() - one).abs() / (
+                    BF16_ATOL + BF16_RTOL * y.abs() + BWD_T_RTOL * t)
+                         ).max().item()
+                if not share <= 1:
+                    raise RuntimeError(
+                        f"seq: {impl} {name} (Llama-8B geometry, kv head "
+                        f"{j}) differs from one rank's flash_attention by "
+                        f"more than {BF16_ATOL} + {BF16_RTOL} |x| + "
+                        f"{BWD_T_RTOL} T ({share:.3f} of the allowance at "
+                        "worst)")
+                to_one[impl][name] = max(to_one[impl][name], share)
+    for impl in ("ring", "ulysses"):
+        runs = [doc["seq"][f"attn-{impl}"] for doc in res]
+        log(f"seq: {impl} attention at Llama-8B's geometry (q [1, "
+            f"{SEQ_TOKENS}, 32, 128], k/v 8 heads, bf16, causal) over 2 "
+            f"ranks, forward and backward: o within the flash rule of the "
+            f"plain fp32 attention ({shares[impl]['o']:.3f} of its "
+            f"allowance at worst); the gradients within the backward rule "
+            f"of one rank's flash_attention's ("
+            + ", ".join(f"{n} {to_one[impl][n]:.3f}" for n in keys[1:])
+            + "), against the plain result "
+            + ", ".join(f"{n} {shares[impl][n]:.3f}" for n in keys[1:])
+            + "; max abs err " + ", ".join(
+                f"{n} {errs[impl][n]:.3e}" for n in keys)
+            + "; wall a rank " + ", ".join(f"{x['ms']:.1f}" for x in runs)
+            + " ms (both ranks at once on the card, "
+            f"{runs[0]['ring']['sp_bytes'] / 1e6:.1f} MB sent a rank) "
+            f"against one rank's {one_ms:.1f} ms ({CARD})")
+    log(f"seq: one rank's flash_attention forward and backward at that "
+        f"geometry against the plain fp32 attention: "
+        + ", ".join(f"{n} {shares['flash'][n]:.3f}" for n in keys)
+        + " of the flash and backward rules' allowance (the backward rule "
+        "holds the kernels on the plain residuals, bwd_phase; here each "
+        "backward runs on its own forward's o and lse); the backward "
+        "kernels on the plain o and lse at that geometry: "
+        + ", ".join(f"{n} {aside['plain'][n]:.3f}" for n in keys[1:])
+        + "; SDPA's forward and backward end to end: "
+        + ", ".join(f"{n} {aside['sdpa'][n]:.3f}" for n in keys[1:])
+        + " of the backward rule's allowance")
+    log(f"seq: checks {time.perf_counter() - t_seq:.1f} s ({CARD})")
+    return launches
 
 
 # fsdp_phase: Llama-8B at full width, cut to FSDP_LAYERS layers, trained

@@ -31,9 +31,16 @@ a plan with a tensor or expert axis (the gpt2-tp sample's Megatron
 split, the llama-moe sample's experts) each rank builds its parts over
 every axis the same way and the Llama, GPT-2 and MoE forwards split
 their heads, vocab rows and experts; the tensor and expert ranks of one
-batch coordinate train the same rows. A plan with a seq or pipe axis
-above 1, and ring or Ulysses attention, exit 2 naming the ROADMAP slice
-(Queue 1 items 9d-9e) that brings it. A pipelined workload planned on one device trains its
+batch coordinate train the same rows. On a plan with a seq axis (the
+gpt2-longctx and llama-ulysses samples' sequence parallelism) the seq
+ranks of a batch coordinate hold the same rows, each runs its shard of
+their tokens, and attention is ring (the baked default where the baked
+mesh has a seq axis) or Ulysses (``M2KT_ATTN_IMPL=ulysses``) over them;
+off a seq axis both run flash, as the JAX trainer's model falls back;
+``flash`` on a seq axis (``M2KT_MESH_SEQ`` on a sample baked without
+one) runs the ring. A
+plan with a pipe axis above 1 exits 2 naming the ROADMAP slice (Queue 1
+item 9e) that brings it. A pipelined workload planned on one device trains its
 plain model, as the JAX trainer falls back to it. Rank 0 prints the step
 lines; each pod's first rank serves the telemetry and writes the
 goodput, usage and flight files.
@@ -190,7 +197,9 @@ def write_plan_report(plan, model_cfg, batch_per_chip: int, n_devices: int,
     extents = dict(zip(m2kt_mesh.MeshConfig.AXES, plan.config.dims()))
     lm = {}
     if FAMILY in LM_FAMILIES:
-        lm = dict(seq_len=SEQ_LEN, d_model=model_cfg.d_model,
+        # a seq rank's activations are its shard's tokens
+        lm = dict(seq_len=SEQ_LEN // plan.config.seq,
+                  d_model=model_cfg.d_model,
                   num_layers=model_cfg.num_layers,
                   vocab_size=model_cfg.vocab_size)
     mem = train_memory_plan(meta_model(model_cfg), extents,
@@ -304,9 +313,6 @@ def build(device, global_batch: int, mesh):
         unit = "samples/s"
     elif FAMILY in LM_FAMILIES:
         attn = os.environ.get("M2KT_ATTN_IMPL", attn_default)
-        if attn in ("ring", "ulysses"):
-            refuse(f"attn_impl={attn} shards attention over a seq axis: "
-                   f"ROADMAP Queue 1 item 9d (sequence parallelism)")
         if FAMILY == "gpt2":
             from move2kube_tpu_torch.models.gpt2 import GPT2Config
 
@@ -627,7 +633,9 @@ def main():
                 overlap.fsdp_transient_bytes(
                     shards, overlap.fsdp_prefetched(mesh), accum,
                     PRECISION.compute_dtype)
-            write_plan_report(plan, model_cfg, global_batch // layout.world,
+            # rows over the ranks but seq's, tokens over seq (seq_len)
+            write_plan_report(plan, model_cfg,
+                              global_batch * mesh_cfg.seq // layout.world,
                               layout.world, telem._cost_report, plan_dir,
                               rank_peaks, transients)
         if ckpt_mngr is not None and ckpt_mngr.maybe_save(first, state,

@@ -41,8 +41,9 @@ In a ``torch.distributed`` world of n every rank restores (the directory
 is the pod's or a shared volume). Under data parallelism every tensor is
 replicated, so rank 0 writes one copy, the whole state. A model of fsdp
 shards (:func:`~move2kube_tpu_torch.parallel.sharding.layout_of`) is
-saved sharded: the first data rank of each coordinate on the other axes
-(fsdp, tensor, expert; file r the r-th coordinate, row-major) writes
+saved sharded: the first data and seq rank of each coordinate on the
+other axes (fsdp, tensor, expert; file r the r-th coordinate, row-major;
+the ranks of a seq group hold copies) writes
 ``shard-<r>.pt``, its parts of the parameters and of the optimizer's
 moments, and rank 0 writes ``state.pt`` with the whole leaves, the
 buffers and the rest of the optimizer's state; ``meta.json`` lists the
@@ -418,6 +419,11 @@ def write_sharded_part(ckpt_dir: str, step: int, part: dict,
     is there, at most ``timeout`` seconds, and commits the step by
     rename."""
     t0 = time.perf_counter()
+    if part.get("shard") is None and part.get("state") is None:
+        # a copy of parts other ranks write (data or seq coordinate above
+        # 0): it must not touch the step's directory, which rank 0 may be
+        # renaming into place at this moment
+        return {"step": step, "seconds": 0.0, "bytes": 0}
     tmp = _sharded_tmp(ckpt_dir, step)
     os.makedirs(tmp, exist_ok=True)
     nbytes = 0
@@ -487,7 +493,7 @@ def _sharded_part(state, loader, layout) -> dict:
                        if k not in shard_opt[name]}
     part = {"shard": None, "state": None,
             "shard_rank": layout.part_index()}
-    if layout.data_rank == 0:
+    if layout.first_copy:
         part["shard"] = {"model": shard_model, "optimizer": shard_opt}
     if _rank() == 0:
         state_pt = dict(full, model={n: t for n, t in full["model"].items()

@@ -491,12 +491,13 @@ def make_loader(path: str, global_batch: int, device=None,
     :class:`PrefetchLoader` unless ``prefetch=False`` (or
     ``M2KT_PREFETCH=0``): the inner loader stays on the host and the pump
     thread owns the copy, overlapping it with the running step. A
-    ``mesh`` with a seq or pipe axis above 1 raises (ROADMAP Queue 1
-    items 9d-9e); on a data x fsdp mesh each rank takes its rows, rank r
-    of the world (fsdp inner) the r-th block, as the reference shards the
-    batch over ``("data", "fsdp")``, and the tensor and expert ranks of
-    one batch coordinate take the same rows
-    (:func:`~move2kube_tpu_torch.parallel.mesh.batch_layout`)."""
+    ``mesh`` with a pipe axis above 1 raises (ROADMAP Queue 1 item 9e);
+    on a data x fsdp mesh each rank takes its rows, rank r of the world
+    (fsdp inner) the r-th block, as the reference shards the batch over
+    ``("data", "fsdp")``, and the tensor, seq and expert ranks of one
+    batch coordinate take the same rows
+    (:func:`~move2kube_tpu_torch.parallel.mesh.batch_layout`; the LM step
+    cuts a seq rank's tokens from them)."""
     dev = resolve_device(device)
     layout = current_layout()
     if mesh is not None:

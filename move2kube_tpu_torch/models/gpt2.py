@@ -13,9 +13,14 @@ module names (``wte``, ``wpe``, ``h.{i}`` for ``h_{i}``, ``ln_1``,
 :func:`move2kube_tpu_torch.models.convert.params_from_jax` maps one tree
 onto the other. Every projection has a bias.
 
-Attention is always :func:`move2kube_tpu_torch.ops.attention.
-flash_attention` (causal): the JAX model has no einsum path, and
-``flash`` is its only single-device ``attn_impl``. Decode against the
+Attention is :func:`move2kube_tpu_torch.ops.attention.flash_attention`
+(causal): the JAX model has no einsum path, and ``flash`` is its only
+single-device ``attn_impl``. ``ring`` and ``ulysses`` run ring or
+Ulysses attention over a seq group and flash off one (``flash`` on a
+seq group runs the ring), through the
+port's Llama dispatch (``llama.causal_attention``), as the JAX model
+shares the Llama dispatcher; on a seq group each rank's ``wpe`` rows are
+its tokens' global positions. Decode against the
 paged cache goes through ``paged_decode_attention`` (GPT-2 is MHA, so
 the kernels' GQA group is 1), an int8 cache included. Positions index a
 learned table of ``n_positions`` rows, so no position may reach it: the
@@ -49,6 +54,8 @@ from move2kube_tpu_torch._device import resolve_device
 from move2kube_tpu_torch.models.layers import LayerNorm
 from move2kube_tpu_torch.models.llama import (
     _lora_delta,
+    causal_attention,
+    first_position,
     masked_lookup,
     paged_attention_step,
     tensor_split,
@@ -58,7 +65,6 @@ from move2kube_tpu_torch.parallel.sharding import (
     RULES,
     with_logical_constraint,
 )
-from move2kube_tpu_torch.ops.attention import flash_attention
 from move2kube_tpu_torch.serving.kvcache import PAGE_KEYS
 
 
@@ -71,7 +77,7 @@ class GPT2Config:
     num_heads: int = 12
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    attn_impl: str = "flash"  # flash (ring/ulysses: not ported)
+    attn_impl: str = "flash"  # flash | ring | ulysses
 
     @property
     def head_dim(self) -> int:
@@ -89,11 +95,7 @@ def gpt2_tiny() -> GPT2Config:
 
 
 def _check_supported(cfg: GPT2Config) -> None:
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 9, multi-GPU)")
-    if cfg.attn_impl != "flash":
+    if cfg.attn_impl not in ("flash", "ring", "ulysses"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
@@ -139,7 +141,7 @@ class GPT2Block(nn.Module):
         if cache is not None:
             o = paged_attention_step(q, k, v, positions, cache)
         else:
-            o = flash_attention(q, k, v, causal=True)
+            o = causal_attention(q, k, v, cfg.attn_impl, mp)
         x = x + self.attn_out(o.reshape(b, s, d))
         h = self.c_fc(self.ln_2(x).to(x.dtype))
         h = self.mlp_out(F.gelu(h, approximate="tanh"))
@@ -158,7 +160,7 @@ class GPT2Block(nn.Module):
                                       ("batch", None, "heads"), (b, s, 3 * d))
         q, k, v = (u.reshape(b, s, heads, cfg.head_dim).contiguous()
                    for u in qkv.split(dl, dim=-1))
-        o = flash_attention(q, k, v, causal=True)
+        o = causal_attention(q, k, v, cfg.attn_impl, mp)
         y = overlap.row_exit(F.linear(o.reshape(b, s, dl),
                                       self.attn_out.weight), group)
         x = x + (y + self.attn_out.bias)
@@ -218,7 +220,9 @@ class GPT2(nn.Module):
                              "it does not return their K/V")
         b, s = input_ids.shape
         if positions is None:
-            positions = torch.arange(s, device=input_ids.device)[None, :]
+            start = first_position(self.mp, s)
+            positions = torch.arange(start, start + s,
+                                     device=input_ids.device)[None, :]
         x = self._embed(input_ids, positions)
         kvs = []
         for block in self.h:

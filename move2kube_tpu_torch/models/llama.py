@@ -17,6 +17,8 @@ Attention is selected by ``LlamaConfig.attn_impl``:
 - ``dense``: plain einsum attention with the additive -1e30 causal mask
 - ``flash``: :func:`move2kube_tpu_torch.ops.attention.flash_attention`
   (the CUDA kernel on the card)
+- ``ring`` and ``ulysses``: sequence parallelism (below), ``flash`` off a
+  seq group
 
 Decode against the paged cache always goes through
 :func:`move2kube_tpu_torch.ops.attention.paged_decode_attention`; an int8
@@ -27,9 +29,22 @@ The multi-LoRA logit delta (``lora=``) is added to the fp32 logits in
 every mode, as the JAX model adds it. With ``moe_experts > 0`` each
 block's MLP is :class:`~move2kube_tpu_torch.models.moe.MoEMlp` (named
 ``moe``, as in the JAX model); its load-balancing loss reaches the
-train step through ``Llama.moe_aux`` (see :meth:`Llama.forward`). Ring
-and ulysses attention are not ported yet (ROADMAP.md, Queue 1 item 9)
-and raise ``NotImplementedError``.
+train step through ``Llama.moe_aux`` (see :meth:`Llama.forward`).
+
+Sequence parallelism (a training step on a mesh with a seq axis sets
+``mp.sp > 1``): each rank of the seq group holds ``S`` consecutive tokens
+of the same rows, rank r the positions ``[r S, (r+1) S)``, which RoPE
+takes (``forward(positions=None)`` starts at ``r S``). ``ring`` and
+``ulysses`` attention then run
+:func:`~move2kube_tpu_torch.parallel.ring_attention.ring_attention` and
+:func:`~move2kube_tpu_torch.parallel.ulysses.ulysses_attention` over the
+group, K/V at their own head count (the kernels read the GQA groups);
+off a seq group (one card, ``seq=1``) they are ``flash``, as the JAX
+model falls back. ``flash`` on a seq group runs the ring (the same
+exact function; the JAX model's flash sees the whole sequence under
+GSPMD). ``dense`` gathers the group's K/V (its gradient summed
+back by a reduce-scatter) under the global causal mask, what GSPMD runs
+for the reference.
 
 Tensor parallelism (a training step on a mesh with a tensor axis sets
 ``mp``, a :class:`~move2kube_tpu_torch.parallel.sharding.ModelParallel`,
@@ -89,7 +104,7 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    attn_impl: str = "dense"  # dense | flash
+    attn_impl: str = "dense"  # dense | flash | ring | ulysses
     moe_experts: int = 0      # 0 = dense MLP; >0 = MoE (models/moe.py)
     moe_top_k: int = 2
 
@@ -109,12 +124,35 @@ def llama_tiny() -> LlamaConfig:
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 9, multi-GPU)")
-    if cfg.attn_impl not in ("dense", "flash"):
+    if cfg.attn_impl not in ("dense", "flash", "ring", "ulysses"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+
+
+def seq_split(mp) -> bool:
+    return mp is not None and mp.sp > 1
+
+
+def first_position(mp, s: int) -> int:
+    """The global position of this rank's first token: ``sp_rank * s`` on
+    a seq group, else 0."""
+    return mp.sp_rank * s if seq_split(mp) else 0
+
+
+def causal_attention(q, k, v, impl: str, mp):
+    """Causal attention of this call's tokens for ``attn_impl`` ``flash``,
+    ``ring`` or ``ulysses`` (the JAX model's dispatch): over ``mp``'s seq
+    group Ulysses attention, or ring attention for ``ring`` and ``flash``
+    (the reference's flash runs under GSPMD on the whole sequence), else
+    flash. ``k``/``v`` at their own head count."""
+    if seq_split(mp):
+        from move2kube_tpu_torch.parallel.ring_attention import (
+            ring_attention,
+        )
+        from move2kube_tpu_torch.parallel.ulysses import ulysses_attention
+
+        fn = ulysses_attention if impl == "ulysses" else ring_attention
+        return fn(q, k, v, mp.seq, causal=True)
+    return flash_attention(q, k, v, causal=True)
 
 
 def _rope(x, positions, theta: float):
@@ -263,10 +301,15 @@ class LlamaBlock(nn.Module):
         if cache is not None:
             o = paged_attention_step(q, k, v, positions[:, 0], cache)
             o = o.reshape(b, 1, q_size)
-        elif cfg.attn_impl == "flash":
-            o = flash_attention(q, k, v.contiguous(), causal=True)
+        elif cfg.attn_impl != "dense":
+            o = causal_attention(q, k.contiguous(), v.contiguous(),
+                                 cfg.attn_impl, mp)
             o = o.reshape(b, s, q_size)
         else:
+            if seq_split(mp):
+                # every rank's keys, under the mask of this rank's rows
+                k = overlap.gather_seq(k, mp.seq)
+                v = overlap.gather_seq(v, mp.seq)
             rep = heads // kv_heads
             o = _dense_attention(q, k.repeat_interleave(rep, dim=2),
                                  v.repeat_interleave(rep, dim=2), mask)
@@ -367,12 +410,17 @@ class Llama(nn.Module):
             x = vocab_parallel_embed(input_ids, w, self.mp)
         else:
             x = self.embed(input_ids)
+        start = first_position(self.mp, s)
         if positions is None:
-            positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+            positions = torch.arange(start, start + s,
+                                     device=x.device)[None, :].expand(b, s)
         mask = None
         if self.cfg.attn_impl == "dense":
-            idx = torch.arange(s, device=x.device)
-            mask = torch.where(idx[:, None] >= idx[None, :], 0.0,
+            idx = torch.arange(start, start + s, device=x.device)
+            keys = torch.arange(
+                s * (self.mp.sp if seq_split(self.mp) else 1),
+                device=x.device)
+            mask = torch.where(idx[:, None] >= keys[None, :], 0.0,
                                -1e30)[None, None].float()
         kvs, aux = [], []
         for layer in self.layers:

@@ -21,10 +21,12 @@ ModelParallel`, set by the training step):
 
 - Routing over the reference's token set. Where the reference's step
   sees the global batch (its GSPMD step and its sequential scan),
-  ``mp.route`` is the batch group (data x fsdp): each rank exchanges its
-  per-expert counts over it in rank order, capacity comes from the global
-  token count, a token's queue position is its local cumulative count
-  plus the counts of the earlier ranks, and ``frac_tokens`` and
+  ``mp.route`` is the batch group (data x fsdp x seq): each rank
+  exchanges its per-row, per-expert counts over it in rank order,
+  capacity comes from the global token count, a token's queue position
+  is its place in the global batch's token order (row by row, each row's
+  seq shards in order: the counts of the tokens before it on every rank,
+  plus its place in its row's shard), and ``frac_tokens`` and
   ``frac_probs`` are global means (``overlap.sum_over``, whose backward
   sums the gradients back), so the aux loss is the reference's. Each rank
   computes only its own tokens' rows: the expert MLP is row-wise, so its
@@ -63,11 +65,14 @@ from move2kube_tpu_torch.serving.quant import QuantLinear
 
 
 def _route(router_logits, num_experts: int, top_k: int, capacity: int,
-           route=None):
+           route=None, rows: int = 1, sp: int = 1):
     """``(dispatch [T, E, S], gates [T, E], aux)``: S = ``capacity`` slots
     for this call's tokens alone; over a ``route`` group (module
     docstring) the tokens of every rank of it count, and S = ``min(T,
-    capacity)`` slots numbered from this rank's first token."""
+    capacity)`` slots numbered from this rank's first token. ``rows``:
+    the call's rows (its T tokens are ``[rows, T / rows]``); ``sp``: the
+    seq extent of the route group, whose rank g holds batch coordinate
+    ``g // sp`` and seq coordinate ``g % sp``."""
     probs = torch.softmax(router_logits.float(), dim=-1)
     topk_p, topk_idx = torch.topk(probs, top_k, dim=-1)
     topk_p = topk_p / torch.clamp_min(topk_p.sum(-1, keepdim=True), 1e-9)
@@ -84,15 +89,27 @@ def _route(router_logits, num_experts: int, top_k: int, capacity: int,
         frac_tokens = mask.float().mean(dim=0)
         frac_probs = probs.mean(dim=0)
     else:
-        counts = mask.float().sum(dim=0)
-        # every rank's counts in rank order, [n, E]: exact in fp32
-        every = overlap.ring_all_gather(counts[None], route, 0)
-        r = torch.distributed.get_rank(route)
+        per_row = mask.reshape(rows, -1, num_experts)
+        # every rank's per-row counts in rank order, [n, rows, E]: exact
+        # in fp32
+        every = overlap.ring_all_gather(per_row.float().sum(1)[None],
+                                        route, 0)
         total = every.shape[0] * tokens
-        before = every[:r].sum(dim=0).long()
-        keep = mask & (position + before < capacity)
+        # a token's queue position in the global batch's token order:
+        # the earlier batch coordinates' tokens, this coordinate's earlier
+        # rows (every shard of them), this row's earlier shards, then its
+        # place in this row's shard
+        bc, j = divmod(torch.distributed.get_rank(route), sp)
+        grid = every.long().reshape(-1, sp, rows, num_experts)
+        whole_rows = grid[bc].sum(0)
+        offset = (grid[:bc].sum((0, 1, 2))[None]
+                  + torch.cumsum(whole_rows, 0) - whole_rows
+                  + grid[bc, :j].sum(0))
+        place = torch.cumsum(per_row.long(), dim=1) - 1
+        keep = mask & ((offset[:, None] + place).reshape(tokens, -1)
+                       < capacity)
         slots = min(tokens, capacity)
-        frac_tokens = every.sum(dim=0) / total
+        frac_tokens = every.sum(dim=(0, 1)) / total
         frac_probs = overlap.sum_over(probs.sum(dim=0), route) / total
     slot = torch.where(keep, position, torch.full_like(position, slots))
     dispatch = F.one_hot(slot.long(), slots + 1).float()[..., :slots]
@@ -157,7 +174,7 @@ class MoEMlp(nn.Module):
         xt = x.reshape(tokens, d)
         dispatch, gates, aux = _route(self.router_logits(xt),
                                       self.num_experts, self.top_k, capacity,
-                                      mp.route)
+                                      mp.route, b, mp.sp)
         local = self.w_in.shape[0]
         lo = mp.ep_rank * local
         gates = overlap.column_entry(gates, mp.te)[:, lo:lo + local]

@@ -84,8 +84,25 @@ a slice of are summed over the tensor group. Each leaf starts from the
 first rank of the ranks that hold the same copy of it. The optimizer's
 grad norm, guard and health summaries count each part once. An MoE
 routes the global batch's tokens where the reference's step sees the
-global batch (``models/moe.py``). A mesh with a seq or pipe axis above 1
-raises ``NotImplementedError`` naming its ROADMAP slice (9d-9e).
+global batch (``models/moe.py``).
+
+Sequence parallelism (the LM step): on a mesh with a seq axis the ranks
+of a seq group hold the same rows (the loader's batch layout), and each
+runs its shard of their tokens, positions ``[r S, (r+1) S)``
+(:func:`seq_shard`); the model's ``ring`` or ``ulysses`` attention runs
+over the group (``models/llama.py``). Each rank's loss is the sum over
+its targets over the global count ``b (s - 1)``, times the seq extent
+(:func:`seq_loss_weight`), so the batch x seq group's mean of the losses
+and of the gradients, which the rings take, is the reference's global
+mean: every leaf's gradient summed over the seq group and averaged over
+the batch. An MoE's aux loss, the same global value on every rank, is
+not weighted. A mesh with a seq axis takes the sequential schedule (the
+data path without overlap, or the sequential fsdp schedule, whose
+reduce-scatter is then all-reduced over data x seq), as the reference's
+``is_pure_fsdp`` says; an MoE routes over the batch x seq group. The
+BERT, ResNet and UNet steps refuse a seq axis, naming 9d (the reference
+leaves them to GSPMD). A mesh with a pipe axis above 1 raises
+``NotImplementedError`` naming its ROADMAP slice (9e).
 ``scan_steps``
 (k optimizer steps in one compiled call) has no counterpart: the caller
 runs the step k times. Each step updates the state in place and returns
@@ -116,14 +133,47 @@ from move2kube_tpu_torch.ops.crossentropy import (
 cross_entropy_loss = reference_cross_entropy
 
 
-def lm_loss(logits, input_ids, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+def lm_loss(logits, input_ids, chunk: int = DEFAULT_CHUNK,
+            targets=None) -> torch.Tensor:
     """Next-token-prediction loss on logits ``[b, s, vocab]``: the chunked
     CE when the vocab spans more than one ``chunk`` (the JAX ladder's
-    ``auto``), the reference otherwise."""
-    logits, labels = logits[:, :-1], input_ids[:, 1:]
+    ``auto``), the reference otherwise. ``targets`` ``[b, t]``, when
+    given, label the first t positions in place of the shifted
+    ``input_ids`` (:func:`seq_shard`)."""
+    if targets is None:
+        logits, labels = logits[:, :-1], input_ids[:, 1:]
+    else:
+        logits, labels = logits[:, :targets.shape[1]], targets
     if logits.shape[-1] > chunk:
         return fused_cross_entropy(logits, labels, chunk)
     return cross_entropy_loss(logits, labels)
+
+
+def seq_loss_weight(n_targets: int, s: int, sp: int) -> float:
+    """What a seq rank's mean over its ``n_targets`` targets is multiplied
+    by: its share of the global mean over the ``s - 1`` targets of a row,
+    times the seq extent ``sp``, so that the batch x seq group's mean of
+    the ranks' losses and gradients is the sum over the seq ranks and the
+    mean over the batch."""
+    return n_targets * sp / (s - 1)
+
+
+def seq_shard(ids, sp: int, r: int):
+    """Seq rank r of ``sp``'s share of rows ``ids`` ``[b, s]`` (every rank
+    of a seq group holds the rows whole): ``(inputs, targets, weight)``,
+    the inputs ``ids[:, r S:(r+1) S]`` (S = s / sp), their targets
+    ``ids[:, r S + 1:(r+1) S + 1]`` (the last rank's one fewer: no token
+    follows the row) and :func:`seq_loss_weight`. The reference's loss is
+    the mean over all ``b (s - 1)`` targets, never a mean of the shards'
+    means."""
+    b, s = ids.shape
+    if s % sp or s // sp < 2:
+        raise ValueError(f"a seq axis of {sp} cuts rows of {s} tokens into "
+                         "equal shards of at least 2")
+    size = s // sp
+    inputs = ids[:, r * size:(r + 1) * size]
+    targets = ids[:, r * size + 1:(r + 1) * size + 1]
+    return inputs, targets, seq_loss_weight(targets.shape[1], s, sp)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -489,13 +539,15 @@ class _ShardedTree:
 class _MeshPlan:
     """What a step runs on a mesh of more than one rank.
 
-    - ``batch``: the ring group of every rank of the batch (data x fsdp;
-      None when the batch is one rank's); the data path (9a) reduces
-      over it, and so do a sharded model's whole leaves.
+    - ``batch``: the ring group of every rank of the batch (data x fsdp
+      x seq; None when the batch is one rank's); the data path (9a)
+      reduces over it, and so do a sharded model's whole leaves.
     - ``layout``: the model's :class:`~move2kube_tpu_torch.parallel.
       sharding.ShardLayout` when it holds parts, else None.
     - ``fsdp``, ``data``, ``tensor``: the ring groups of this rank's
-      fsdp, data and tensor axes (None at extent 1).
+      fsdp, data x seq and tensor axes (None at extent 1).
+    - ``sequential``: a seq mesh's model without parts takes the
+      sequential schedule (no overlapped reduction) too.
     - ``prefetch``: the pure-fsdp schedule
       (:func:`~move2kube_tpu_torch.parallel.overlap.
       prefetched_fsdp_accum_grads`) rather than the sequential one.
@@ -503,10 +555,12 @@ class _MeshPlan:
       gradients are summed over the tensor group."""
 
     def __init__(self, batch, layout=None, fsdp=None, data=None,
-                 prefetch=False, tensor=None, partial=()) -> None:
+                 prefetch=False, tensor=None, partial=(),
+                 sequential=False) -> None:
         self.batch, self.layout = batch, layout
         self.fsdp, self.data, self.prefetch = fsdp, data, prefetch
         self.tensor, self.partial = tensor, set(partial)
+        self.sequential = sequential
 
 
 class _MeshContext:
@@ -568,8 +622,8 @@ class _MeshContext:
                 "trains a sharded model: build the state with "
                 "create_sharded_state (or shard_params before the "
                 "optimizer's first step)")
-        batch = self.group(("data", "fsdp"))
-        fsdp, data = self.group(("fsdp",)), self.group(("data",))
+        batch = self.group(("data", "fsdp", "seq"))
+        fsdp, data = self.group(("fsdp",)), self.group(("data", "seq"))
         tensor = self.group(("tensor",))
         if id(model) not in self._synced:
             self._sync(model, layout, cfg)
@@ -577,7 +631,7 @@ class _MeshContext:
         prefetch = layout is not None and overlap.fsdp_prefetched(self.mesh)
         self._attach(model, cfg, batch, tensor, prefetch)
         if layout is None:
-            return _MeshPlan(batch)
+            return _MeshPlan(batch, sequential=cfg.seq > 1)
         state.optimizer.sharding = self._sharded_tree(model, layout, cfg)
         # the whole leaves a tensor rank uses only its slice of: each
         # block names its own (``tensor_partial``)
@@ -606,8 +660,8 @@ class _MeshContext:
         return out & {"fsdp", "tensor", "expert"}
 
     def _attach(self, model, cfg, batch, tensor, prefetch) -> None:
-        """The model's :class:`ModelParallel`: its tensor and expert
-        groups, and the MoE route group: the batch group where the
+        """The model's :class:`ModelParallel`: its tensor, expert and seq
+        groups, and the MoE route group: the batch x seq group where the
         reference's step routes the global batch (its GSPMD step, its
         sequential scan), none on its per-device ``shard_map`` paths (pure
         data with accumulation, the prefetched fsdp step with it)."""
@@ -628,7 +682,9 @@ class _MeshContext:
                 t_rank=mesh.get_local_rank("tensor") if cfg.tensor > 1 else 0,
                 expert=self.group(("expert",)), ep=cfg.expert,
                 ep_rank=mesh.get_local_rank("expert") if cfg.expert > 1
-                else 0, te=self.group(("tensor", "expert")))
+                else 0, te=self.group(("tensor", "expert")),
+                seq=self.group(("seq",)), sp=cfg.seq,
+                sp_rank=mesh.get_local_rank("seq") if cfg.seq > 1 else 0)
             attach_model_parallel(model, mp)
         mp.route = None if per_device else batch
 
@@ -702,12 +758,12 @@ def _mesh_loss(plan, model, loss_of, batch, grad_accum: int):
     parameters at their global shapes; ``batch`` holds ``grad_accum``
     stacked microbatches when above 1); returns the group's mean loss.
     A data-parallel model takes 9a's ring over the batch group; a
-    sharded one the fsdp schedule of ``plan``."""
+    sharded one (or any on a seq mesh) the fsdp schedule of ``plan``."""
     from move2kube_tpu_torch.parallel import overlap
 
     named = list(model.named_parameters())
     params = [p for _, p in named]
-    if plan.layout is None:
+    if plan.layout is None and not plan.sequential:
         whole = dict(named)
         if grad_accum <= 1:
             loss = loss_of(whole, batch)
@@ -721,7 +777,8 @@ def _mesh_loss(plan, model, loss_of, batch, grad_accum: int):
         return overlap.overlapped_accum_grads(
             params, lambda mb: loss_of(whole, mb), batch, plan.batch)
     names = [n for n, _ in named]
-    dims = [plan.layout.dims[n] for n in names]
+    dims = [plan.layout.dims[n] if plan.layout is not None else None
+            for n in names]
     micro = [batch] if grad_accum <= 1 else batch
 
     def loss_fn(full, mb):
@@ -762,7 +819,7 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
     axis when > 1), reduce across the batch group on a ``mesh`` (a
     sharded model's loss function is handed the model on its gathered
     parameters), update. The families' steps below and minitrain's are
-    this one."""
+    this one. The ranks of a seq axis run the same rows as copies."""
     ctx = _MeshContext(mesh, grad_accum)
 
     def step(state: TrainState, batch: dict):
@@ -803,6 +860,21 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
     return step
 
 
+def _refuse_seq(mesh, family: str) -> None:
+    """A family step that does not shard its inputs over a seq axis
+    (BERT, ResNet, the UNet) refuses a mesh with one."""
+    if mesh is None:
+        return
+    from move2kube_tpu_torch.parallel.mesh import mesh_config_of
+
+    seq = mesh_config_of(mesh).seq
+    if seq > 1:
+        raise NotImplementedError(
+            f"seq={seq}: the {family} step does not shard its inputs over "
+            "a seq axis (ROADMAP Queue 1 item 9d runs the Llama and GPT-2 "
+            "LM steps on one; BERT, ResNet and the UNet on it are open)")
+
+
 def make_classifier_train_step(has_batch_stats: bool = False,
                                grad_accum: int = 1, mesh=None):
     """Train step for image/sequence classifiers (ResNet); ``step(state,
@@ -827,6 +899,7 @@ def make_classifier_train_step(has_batch_stats: bool = False,
                              "pass has_batch_stats=True")
         return cross_entropy_loss(model(batch["input"]), batch["label"])
 
+    _refuse_seq(mesh, "classifier")
     return make_train_step(loss_fn, grad_accum, mesh)
 
 
@@ -838,6 +911,7 @@ def make_bert_train_step(mesh=None):
         logits = model(batch["input_ids"], batch.get("attention_mask"))
         return cross_entropy_loss(logits, batch["label"])
 
+    _refuse_seq(mesh, "BERT")
     return make_train_step(loss_fn, mesh=mesh)
 
 
@@ -862,6 +936,7 @@ def make_diffusion_train_step(num_diffusion_steps: int = 1000, mesh=None):
         pred = model(x_t, t)
         return torch.mean((pred - noise32) ** 2)
 
+    _refuse_seq(mesh, "diffusion")
     return make_train_step(loss_fn, mesh=mesh)
 
 
@@ -890,6 +965,8 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
       paths; dense models have none.
     - ``mesh``: a pure data mesh reduces the gradients across its ranks
       (the module's docstring); each rank's ``input_ids`` are its rows.
+      On a seq axis they are the rows whole, and each rank runs its
+      shard of their tokens (:func:`seq_shard`).
 
     The batch runs where the model's parameters lie."""
     ctx = _MeshContext(mesh, grad_accum)
@@ -903,6 +980,9 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
             params = precision.cast_params(params)
         head_w = lm_head_weight(params)
         mp = getattr(model, "mp", None)
+        targets = None
+        if mp is not None and mp.sp > 1:
+            ids, targets, weight = seq_shard(ids, mp.sp, mp.sp_rank)
         # this tensor rank's head rows: the vocab-parallel loss
         split = (mp is not None and mp.t > 1
                  and head_w.shape[0] != model.cfg.vocab_size)
@@ -912,11 +992,13 @@ def make_lm_train_step(remat: bool = True, grad_accum: int = 1,
                                         "remat": remat})
             loss = linear_lm_loss(hidden, head_w, ids, chunk,
                                   mp.tensor if split else None,
-                                  mp.t_rank if split else 0)
+                                  mp.t_rank if split else 0, targets)
         else:
             logits = torch.func.functional_call(model, params, (ids,),
                                                 {"remat": remat})
-            loss = lm_loss(logits, ids, chunk)
+            loss = lm_loss(logits, ids, chunk, targets)
+        if targets is not None:
+            loss = loss * weight
         aux = getattr(model, "moe_aux", None)
         if aux is not None:
             model.moe_aux = None

@@ -151,11 +151,15 @@ def summarize_tree(tree, leaf_groups=None, num_groups=None, shards=None,
         # counted by float reductions, several times faster on the card
         # than isfinite (four kernels) and the sum of a bool mask
         bad = _count_nonzero(torch.mul(x, 0).reshape(-1))
-        # in fp32, as the reference reduces; a dot product, which sums
-        # more exactly than vector_norm (7e-6 relative off float64 on a
-        # 256 x 384 leaf, against 2e-8)
+        # on the card in fp32, as the reference reduces: cuBLAS's dot sums
+        # in a tree, more exactly than vector_norm (7e-6 relative off
+        # float64 on a 256 x 384 leaf, against 2e-8). The CPU's BLAS dot
+        # sums in an order set by its thread count (1.2e-6 off float64 on
+        # a tiny Llama's bf16 groups with one thread), so there it sums in
+        # float64
+        wide = torch.float32 if x.is_cuda else torch.float64
         safe = torch.nan_to_num(x, nan=0.0, posinf=0.0,
-                                neginf=0.0).to(torch.float32).reshape(-1)
+                                neginf=0.0).to(wide).reshape(-1)
         sumsq = torch.dot(safe, safe)
         # any non-finite entry makes the group's max +Inf below
         top = torch.linalg.vector_norm(x, ord=float("inf")).float()

@@ -382,14 +382,20 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float,
     return reference_attention(q, k, v, causal, scale), None
 
 
-def flash_attention_bwd(q, k, v, o, lse, g, causal: bool, scale: float):
+def flash_attention_bwd(q, k, v, o, lse, g, causal: bool, scale: float,
+                        delta=None):
     """Gradients ``(dq, dk, dv)`` of flash attention from the forward's
     residuals (``o``, ``lse``) and the output's gradient ``g``; ``dk``/
     ``dv`` at K/V's head count. CUDA tensors launch
     ``csrc/flash_bwd_dq.cu`` then ``csrc/flash_bwd_dkv.cu``; CPU tensors
-    take :func:`flash_attention_bwd_reference`."""
+    take :func:`flash_attention_bwd_reference`. ``o`` and ``lse`` may be
+    a whole row's over more keys than ``k`` holds (ring attention's
+    blocks): then these are the gradients of this block's share, and
+    ``delta`` (:func:`flash_bwd_delta` of ``o`` and ``g``, computed once
+    for all blocks) spares the kernels' path its recomputation."""
     if _on("flash_attention backward", q) == "cuda":
-        delta = flash_bwd_delta(o, g)
+        if delta is None:
+            delta = flash_bwd_delta(o, g)
         dq = flash_bwd_dq(q, k, v, g, lse, delta, causal, scale)
         return (dq, *flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale))
     return flash_attention_bwd_reference(q, k, v, o, lse, g, causal, scale)

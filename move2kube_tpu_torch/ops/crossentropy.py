@@ -215,10 +215,18 @@ def lm_head_weight(params: dict):
 
 
 def linear_lm_loss(hidden, weight, input_ids, chunk: int = DEFAULT_CHUNK,
-                   group=None, rank: int = 0) -> torch.Tensor:
+                   group=None, rank: int = 0,
+                   targets=None) -> torch.Tensor:
     """Next-token-prediction loss straight from the pre-head hidden
     states ``[b, s, D]``: shift, flatten, head-folded chunked CE (on this
     rank's head rows over ``group``, as in
-    :func:`fused_linear_cross_entropy`)."""
-    return fused_linear_cross_entropy(hidden[:, :-1, :], weight,
-                                      input_ids[:, 1:], chunk, group, rank)
+    :func:`fused_linear_cross_entropy`). ``targets`` ``[b, t]`` (t <= s),
+    when given, are the labels of the first t positions in place of the
+    shifted ``input_ids`` (a seq rank's shard, whose last target is the
+    next shard's first token)."""
+    if targets is None:
+        hidden, targets = hidden[:, :-1, :], input_ids[:, 1:]
+    else:
+        hidden = hidden[:, :targets.shape[1], :]
+    return fused_linear_cross_entropy(hidden, weight, targets, chunk, group,
+                                      rank)

@@ -12,10 +12,13 @@ parallel/``.
 - :mod:`.overlap`: the bucketed ring all-reduce, the FSDP all-gather and
   reduce-scatter rings, the accumulations that overlap them with the
   next microbatch's backward, the collectives of a model split over
-  tensor and expert ranks, and the collective decode matmul.
+  tensor and expert ranks, the seq group's K/V hop and all-to-all, and
+  the collective decode matmul;
+- :mod:`.ring_attention` and :mod:`.ulysses`: exact causal attention
+  over a seq group, on the port's flash kernels.
 
-Data parallelism, FSDP (ZeRO-3), tensor and expert parallelism run here;
-sequence and pipeline parallelism are ROADMAP Queue 1 items 9d-9e.
+Data parallelism, FSDP (ZeRO-3), tensor, expert and sequence parallelism
+run here; pipeline parallelism is ROADMAP Queue 1 item 9e.
 """
 
 from move2kube_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -25,4 +28,10 @@ from move2kube_tpu_torch.parallel.mesh import (  # noqa: F401
     initialize_distributed,
     make_mesh,
     process_layout,
+)
+from move2kube_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention,
+)
+from move2kube_tpu_torch.parallel.ulysses import (  # noqa: F401
+    ulysses_attention,
 )

@@ -156,7 +156,9 @@ def train_memory_plan(
     ``d_model`` and ``num_layers`` the activations are the per-layer
     boundaries (``num_layers * batch * seq * d_model`` at
     ``activation_dtype_bytes``) plus, with ``vocab_size``, twice the fp32
-    logits block (the logits and their cotangent)."""
+    logits block (the logits and their cotangent). On a seq axis a rank
+    holds ``s / seq`` tokens of its rows: pass that as ``seq_len`` (the
+    emitted trainer does)."""
     from move2kube_tpu_torch.models.convert import flax_params
 
     rules = rules or ShardingRules.default()

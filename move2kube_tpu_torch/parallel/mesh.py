@@ -102,9 +102,8 @@ def infer_mesh_config(n_devices: int, *, zero_stage: int = 0,
 
 
 # the ROADMAP slice that brings each model axis the port does not run yet
-# (Queue 1 item 9; data, fsdp, tensor and expert run)
-SLICE_OF_AXIS = {"seq": "9d (sequence parallelism)",
-                 "pipe": "9e (pipelines)"}
+# (Queue 1 item 9; data, fsdp, tensor, seq and expert run)
+SLICE_OF_AXIS = {"pipe": "9e (pipelines)"}
 
 
 def unported_axes(config: MeshConfig) -> list[str]:
@@ -115,7 +114,7 @@ def unported_axes(config: MeshConfig) -> list[str]:
 
 def check_ported_mesh(config: MeshConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP slice of each axis
-    of ``config`` the port does not run yet (data, fsdp, tensor and
+    of ``config`` the port does not run yet (data, fsdp, tensor, seq and
     expert run)."""
     axes = unported_axes(config)
     if axes:

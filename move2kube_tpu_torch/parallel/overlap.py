@@ -63,7 +63,16 @@ backward) leaves it, summing the ranks' partial products;
 this rank's slice) and :func:`sum_over` sums a value every rank then uses
 (its backward sums the gradients back). GSPMD inserts these collectives
 in the reference; here the model calls them. Their bytes and seconds are
-``RING_STATS``' ``tp_`` keys. :func:`collective_decode_matmul` is the
+``RING_STATS``' ``tp_`` keys.
+
+Sequence parallelism: :func:`seq_hop` sends tensors one rank on along a
+seq group's ring (the reference's ``ppermute``, the K/V hop of ring
+attention) and :func:`all_to_all` reshards an activation between its
+sequence and head dimensions (the reference's tiled ``all_to_all``,
+Ulysses' two exchanges), built from the same paired point-to-point
+exchanges, through pinned host memory for a card's tensor in a gloo
+group. Their bytes (each rank's sent bytes) and seconds are
+``RING_STATS``' ``sp_`` keys. :func:`collective_decode_matmul` is the
 reference's row-parallel decode product with the reduce-scatter's hops
 interleaved with the per-chunk partial products.
 """
@@ -85,7 +94,9 @@ RING_STATS = {"calls": 0, "bytes": 0, "copy_s": 0.0, "ring_s": 0.0,
               "ag_calls": 0, "ag_bytes": 0, "ag_copy_s": 0.0,
               "ag_ring_s": 0.0, "rs_calls": 0, "rs_bytes": 0,
               "rs_copy_s": 0.0, "rs_ring_s": 0.0, "tp_calls": 0,
-              "tp_bytes": 0, "tp_copy_s": 0.0, "tp_ring_s": 0.0}
+              "tp_bytes": 0, "tp_copy_s": 0.0, "tp_ring_s": 0.0,
+              "sp_calls": 0, "sp_bytes": 0, "sp_copy_s": 0.0,
+              "sp_ring_s": 0.0}
 
 _MESH_RING_GROUPS: dict = {}
 
@@ -794,6 +805,95 @@ def gather_split(x, group, dim: int):
     if group is None or dist.get_world_size(group) == 1:
         return x
     return _GatherSplit.apply(x, group, dim)
+
+
+# ------------------------------------------------- sequence parallelism
+
+def seq_hop(tensors, group):
+    """Each of ``tensors`` to the next rank of ``group``'s ring, the
+    previous rank's in return, in one exchange of their bytes (one
+    buffer, so tensors of several dtypes travel together). Every rank of
+    the group calls it at the same point of its program."""
+    _, _, nxt, prv = _neighbours(group)
+    # the widest elements first, so each tensor's bytes start aligned
+    order = sorted(range(len(tensors)),
+                   key=lambda i: -tensors[i].element_size())
+    flat = torch.cat([tensors[i].contiguous().view(-1).view(torch.uint8)
+                      for i in order])
+    RING_STATS["sp_calls"] += 1
+    RING_STATS["sp_bytes"] += flat.numel()
+
+    def run(buf):
+        recv = torch.empty_like(buf)
+        _exchange(buf, recv, nxt, prv, group)
+        return recv
+
+    got = _via_host(flat, group, run, "sp_")
+    out, offset = [None] * len(tensors), 0
+    for i in order:
+        t = tensors[i]
+        size = t.numel() * t.element_size()
+        out[i] = got[offset:offset + size].view(t.dtype).view(t.shape)
+        offset += size
+    return out
+
+
+def gather_seq(x, group):
+    """Every seq rank's tokens of ``x`` ``[b, S, ...]`` in rank order
+    along dimension 1 (the ring all-gather); its backward sums each
+    rank's gradient over the group and keeps this rank's slice (the ring
+    reduce-scatter), since every rank reads every rank's tokens. A group
+    of one (or None) is the identity."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _GatherLeaf.apply(x.contiguous(), group, 1)
+
+
+def _all_to_all(x, group, split_dim: int, concat_dim: int):
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    ranks = dist.get_process_group_ranks(group)
+    RING_STATS["sp_calls"] += 1
+    RING_STATS["sp_bytes"] += x.numel() * x.element_size() * (n - 1) // n
+
+    def run(t):
+        chunks = [c.contiguous() for c in t.chunk(n, split_dim)]
+        got = [None] * n
+        got[r] = chunks[r]
+        # at distance d rank r sends its chunk d ranks on and takes the
+        # chunk of the rank d back: every pair meets in one exchange
+        for d in range(1, n):
+            to, frm = (r + d) % n, (r - d) % n
+            recv = torch.empty_like(chunks[to])
+            _exchange(chunks[to], recv, ranks[to], ranks[frm], group)
+            got[frm] = recv
+        return torch.cat(got, concat_dim)
+
+    return _via_host(x.contiguous(), group, run, "sp_")
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(grad, ctx.group, concat_dim, split_dim), None,
+                None, None)
+
+
+def all_to_all(x, group, split_dim: int, concat_dim: int):
+    """The reference's tiled ``all_to_all``: ``x`` cut into n equal chunks
+    along ``split_dim``, chunk j sent to rank j of ``group``, and the
+    chunks received put together along ``concat_dim`` in rank order
+    (``[b, s/n, h, d] -> [b, s, h/n, d]`` with split 2 and concat 1). Its
+    backward is the exchange the other way. A group of one (or None) is
+    the identity."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 # ------------------------------------------------ collective decode matmul

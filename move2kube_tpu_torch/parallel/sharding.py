@@ -299,6 +299,11 @@ def leaf_cuts(specs: dict, extents: dict, cfg=None) -> dict:
     return out
 
 
+# the axes whose ranks hold copies of the same parts: the rules cut no
+# parameter over data or seq (seq cuts activations only)
+COPY_AXES = ("data", "seq")
+
+
 @dataclass
 class ShardLayout:
     """Where a sharded model's parameters lie: ``specs`` (global shapes),
@@ -327,16 +332,19 @@ class ShardLayout:
         return self.coords.get("fsdp", 0)
 
     @property
-    def data_rank(self) -> int:
-        return self.coords.get("data", 0)
+    def first_copy(self) -> bool:
+        """Whether this rank is the first of the ranks that hold copies of
+        its parts (coordinate 0 on the data and seq axes): the one that
+        writes them."""
+        return all(self.coords.get(a, 0) == 0 for a in COPY_AXES)
 
     def part_axes(self) -> list:
         """``[(axis, extent), ...]``: the axes above 1 whose ranks hold
-        distinct parts (every one but data), outer to inner."""
+        distinct parts (every one but data and seq), outer to inner."""
         from move2kube_tpu_torch.parallel.mesh import MeshConfig
 
         return [(a, self.extents[a]) for a in MeshConfig.AXES
-                if a != "data" and self.extents.get(a, 1) > 1]
+                if a not in COPY_AXES and self.extents.get(a, 1) > 1]
 
     def part_index(self) -> int:
         """This rank's index among the ranks of distinct parts (row-major
@@ -419,14 +427,16 @@ def shard_params(model, mesh, rules: ShardingRules | None = None
 
 @dataclass
 class ModelParallel:
-    """What a Llama's, GPT-2's or MoE's forward reads on a mesh with a
-    tensor or expert axis (set on the model's modules by
-    :func:`attach_model_parallel`): the ring groups of this rank's
-    ``tensor`` axis, its ``expert`` axis and both together (``te``), the
-    extents and coordinates, and ``route``: the group over which an MoE
-    layer routes its tokens (the batch group on the reference's GSPMD
-    and sequential paths; None: this call's tokens, as its per-device
-    paths route)."""
+    """What a Llama's, GPT-2's or MoE's forward reads on a mesh (set on
+    the model's modules by :func:`attach_model_parallel`): the ring
+    groups of this rank's ``tensor`` axis, its ``expert`` axis and both
+    together (``te``), and of its ``seq`` axis (whose ranks hold
+    consecutive tokens of the same rows, rank ``sp_rank`` of ``sp`` the
+    positions ``[sp_rank S, (sp_rank + 1) S)``), the extents and
+    coordinates, and ``route``: the group over which an MoE layer routes
+    its tokens (the batch x seq group on the reference's GSPMD and
+    sequential paths; None: this call's tokens, as its per-device paths
+    route)."""
 
     tensor: object = None
     t: int = 1
@@ -436,6 +446,9 @@ class ModelParallel:
     ep_rank: int = 0
     te: object = None
     route: object = None
+    seq: object = None
+    sp: int = 1
+    sp_rank: int = 0
 
 
 def attach_model_parallel(model, mp: ModelParallel | None) -> None:

@@ -33,10 +33,11 @@ each rank keeps its shards of the weights (``shard_params``), the step
 gathers them and reduce-scatters the gradients (the schedule that
 ``M2KT_FSDP_PREFETCH`` picks, as in the trainers: the step is theirs,
 :func:`make_step`), and the checkpoint is saved sharded.
-``M2KT_MESH_TENSOR`` and ``M2KT_MESH_EXPERT`` plan those axes: the
-rules cut none of this model's leaves over them (its kernels are not
-Megatron projections), so the ranks of one batch coordinate train the
-same rows as copies, as the reference's GSPMD step runs it. Global batch:
+``M2KT_MESH_TENSOR``, ``M2KT_MESH_SEQ`` and ``M2KT_MESH_EXPERT`` plan
+those axes: the rules cut none of this model's leaves over them (its
+kernels are not Megatron projections, and it has no token axis to cut),
+so the ranks of one batch coordinate train the same rows as copies, as
+the reference's GSPMD step runs it. Global batch:
 ``M2KT_BATCH_PER_DEVICE`` (default 4) x the planned data x fsdp extents;
 each step's batch is seeded by the step alone and each rank takes its
 rows, so two runs with the same global batch see the same data whatever

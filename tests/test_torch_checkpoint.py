@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 # torch sets TORCHINDUCTOR_CACHE_DIR in os.environ once, when _dynamo first
 # loads (an optimizer's first step loads it): load it before any test
 # snapshots the environment

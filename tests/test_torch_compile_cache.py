@@ -19,6 +19,7 @@ import signal
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.models import compile_cache as jcc  # noqa: E402
 from move2kube_tpu_torch.models import compile_cache as tcc  # noqa: E402

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.models import data as jdata  # noqa: E402
 from move2kube_tpu.native import gather_rows as jgather  # noqa: E402

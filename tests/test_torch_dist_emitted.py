@@ -23,10 +23,11 @@ data=8), at tiny widths, 10 steps.
 - The llama3-8b sample's world of two (fsdp=2) is
   ``tests/test_torch_dist_emitted_fsdp.py``'s, on this file's helpers.
 - A sample whose plan for two devices has an axis the port does not run
-  yet (llama-ulysses's seq axis) exits 2 naming its ROADMAP slice, from
-  the pod's process before any rank starts. The tensor and expert
-  samples (gpt2-tp, llama-moe) are ``tests/test_torch_dist_emitted_tp.
-  py``'s, on this file's helpers.
+  yet (gpt2-pp's pipe axis) exits 2 naming its ROADMAP slice, from the
+  pod's process before any rank starts. The tensor and expert samples
+  (gpt2-tp, llama-moe) are ``tests/test_torch_dist_emitted_tp.py``'s,
+  the seq samples (gpt2-longctx, llama-ulysses)
+  ``tests/test_torch_seq_emitted.py``'s, on this file's helpers.
 - ``M2KT_PLAN_REPORT`` writes the report from rank 0 alone, with every
   rank's measured peak.
 
@@ -43,6 +44,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.containerizer import jax_emit  # noqa: E402
 from tests.test_torch_emitted_train import (  # noqa: E402
@@ -201,8 +203,10 @@ def test_data_parallel_samples_train_in_a_world_of_two(tmp_path, sample):
 
 
 # gpt2-tp and llama-moe train their tensor and expert axes
-# (tests/test_torch_dist_emitted_tp.py); a seq axis is refused
-AXES_CASES = [("llama-ulysses", "9d", {})]
+# (tests/test_torch_dist_emitted_tp.py), gpt2-longctx and llama-ulysses
+# their seq axis (tests/test_torch_seq_emitted.py); a pipe axis is
+# refused
+AXES_CASES = [("gpt2-pp", "9e", {})]
 
 
 @pytest.mark.parametrize("sample,slice_,knobs", AXES_CASES,

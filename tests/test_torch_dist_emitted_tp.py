@@ -21,6 +21,7 @@ under a timeout.
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from tests.test_torch_dist_emitted import (  # noqa: E402
     LOSS_REL,

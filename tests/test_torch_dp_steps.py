@@ -53,6 +53,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 import torch._dynamo  # noqa: E402,F401 - before any optimizer steps
 
 import jax  # noqa: E402

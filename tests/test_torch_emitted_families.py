@@ -26,6 +26,7 @@ from types import SimpleNamespace
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.containerizer import jax_emit  # noqa: E402
 from move2kube_tpu_torch.containerizer import cuda_emit  # noqa: E402
@@ -126,6 +127,9 @@ def test_injected_exit_is_retried_under_the_supervisor(tmp_path):
     (dict(MESH_ONE, M2KT_MESH_TENSOR="2"),
      "topology=1 layout=[] source=single-chip"),
     (MESH_ONE, "topology=- layout=[] source=env-mesh"),
+    # ring attention with no seq axis runs flash, as in the JAX trainer
+    (dict(MESH_ONE, M2KT_ATTN_IMPL="ring"),
+     "topology=- layout=[] source=env-mesh"),
 ])
 def test_one_device_plans_and_trains_as_the_jax_trainer(tmp_path, knobs,
                                                         source):
@@ -149,15 +153,13 @@ def test_one_device_plans_and_trains_as_the_jax_trainer(tmp_path, knobs,
 @pytest.mark.parametrize("knobs,jax_trains,says", [
     (dict(MESH_ONE, M2KT_NUM_SLICES="2"), False, "names no rendezvous"),
     (dict(MESH_ONE, M2KT_NUM_HOSTS="2"), False, "names no rendezvous"),
-    (dict(MESH_ONE, M2KT_ATTN_IMPL="ring"), True,
-     "ROADMAP Queue 1 item 9d"),
 ])
 def test_more_than_one_device_exits_2_naming_item_9(tmp_path, knobs,
                                                     jax_trains, says):
     """The port's trainer refuses with exit 2, before any process group
     waits for an absent peer; the JAX trainer, on the same one CPU
     device, fails to start a world of two processes without a
-    coordinator, and runs ring attention (a path the port lacks)."""
+    coordinator."""
     svc, plan = _service("llama3-8b")
     payload = _port_payload(svc, tmp_path)
     env = _env(tmp_path, M2KT_STEPS=1, **LLAMA_TINY, **knobs)

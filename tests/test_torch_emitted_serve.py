@@ -36,6 +36,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.containerizer import jax_emit  # noqa: E402
 from tests.test_torch_emitted_train import (  # noqa: E402

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.containerizer import jax_emit  # noqa: E402
 from move2kube_tpu.engine.planner import create_plan  # noqa: E402
@@ -78,6 +79,9 @@ def _env(tmp: Path, **knobs) -> dict:
            if not k.startswith("M2KT_") and k not in ("PYTHONPATH",
                                                      "XLA_FLAGS")}
     env.update({"JAX_PLATFORMS": "cpu", "JAX_PLATFORM_NAME": "cpu",
+                # one thread a process: the trainers' ranks and the
+                # xdist workers share the box's cores (tiny widths)
+                "OMP_NUM_THREADS": "1",
                 "M2KT_METRICS_PORT": "0",
                 "M2KT_PREEMPT_FILE": str(tmp / "preempt"),
                 "M2KT_COMPILE_CACHE_DIR": str(tmp / "cache")})

@@ -15,6 +15,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "move2kube_tpu")
@@ -235,10 +236,11 @@ def test_importing_the_emission_modules_loads_no_jax():
 
 
 # item 9a: the mesh, the planner, the sharding rules the memory plan
-# reads, the memory plan and the ring
+# reads, the memory plan and the ring; item 9d: ring and Ulysses attention
 MESH_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/topology.py", "parallel/sharding.py",
-                "parallel/memory.py", "parallel/overlap.py")
+                "parallel/memory.py", "parallel/overlap.py",
+                "parallel/ring_attention.py", "parallel/ulysses.py")
 
 
 @pytest.mark.parametrize("module", MESH_MODULES)

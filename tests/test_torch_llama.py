@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -177,16 +178,35 @@ def test_init_llama_follows_flax_distributions():
 
 
 @pytest.mark.parametrize("change,exc", [
-    # MoE is ported: an MoE config raises only for its unported attention
-    (dict(moe_experts=4, attn_impl="ring"), NotImplementedError),
-    (dict(attn_impl="ring"), NotImplementedError),
-    (dict(attn_impl="ulysses"), NotImplementedError),
-    (dict(attn_impl="sparse"), ValueError),
+    pytest.param(dict(attn_impl="sparse"), ValueError,
+                 id="change3-ValueError"),
 ])
 def test_unported_configs_raise(change, exc):
     cfg = dataclasses.replace(tllama.llama_tiny(), **change)
     with pytest.raises(exc):
         tllama.Llama(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(moe_experts=4, attn_impl="ring"),
+    dict(attn_impl="ring"),
+    dict(attn_impl="ulysses"),
+])
+def test_seq_attention_configs_run_flash_with_no_mesh(change):
+    """Ring and Ulysses attention build, and with no mesh (no seq group)
+    run flash, as the JAX model falls back: the logits are the flash
+    config's, bit for bit."""
+    from move2kube_tpu_torch.models.convert import init_llama
+
+    cfg = dataclasses.replace(tllama.llama_tiny(), dtype=torch.float32,
+                              **change)
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)))
+    with torch.no_grad():
+        got = init_llama(cfg, seed=0, device="cpu")(ids)
+        want = init_llama(flash, seed=0, device="cpu")(ids)
+    assert torch.equal(got, want)
 
 
 def test_moe_config_builds():

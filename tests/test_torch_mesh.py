@@ -37,6 +37,7 @@ import re
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -174,9 +175,9 @@ def test_process_layout_from_the_jobset_env():
 
 @pytest.mark.parametrize("dims,slices", [
     ((1, 2, 1, 1, 1, 1), []), ((2, 1, 2, 1, 1, 1), ["9e"]),
-    ((1, 1, 1, 1, 2, 1), ["9d"]), ((8, 1, 1, 1, 1, 1), []),
+    ((1, 1, 1, 1, 2, 1), []), ((8, 1, 1, 1, 1, 1), []),
     ((1, 1, 1, 2, 1, 1), []), ((1, 1, 1, 1, 1, 2), []),
-    ((1, 2, 1, 2, 1, 2), []), ((1, 1, 2, 2, 2, 2), ["9e", "9d"])])
+    ((1, 2, 1, 2, 1, 2), []), ((1, 1, 2, 2, 2, 2), ["9e"])])
 def test_unported_axes_name_their_slice(dims, slices):
     cfg = tmesh.MeshConfig(*dims)
     if not slices:

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.obs import bridge as jbridge  # noqa: E402
 from move2kube_tpu.obs import fleetview as jfleet  # noqa: E402

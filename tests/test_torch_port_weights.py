@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.models import convert as jconvert  # noqa: E402
 from move2kube_tpu_torch.containerizer import cuda_emit  # noqa: E402

@@ -26,6 +26,7 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.resilience import goodput as jgoodput  # noqa: E402
 from move2kube_tpu.resilience import preemption as jpreempt  # noqa: E402
@@ -61,6 +62,8 @@ def child_env(**knobs) -> dict:
     """``os.environ`` without any ``M2KT_*`` key, then ``knobs``."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("M2KT_")}
     env["PYTHONPATH"] = REPO
+    # one thread a child: the xdist workers share the box's cores
+    env["OMP_NUM_THREADS"] = "1"
     env.update({k: str(v) for k, v in knobs.items()})
     return env
 

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -204,12 +205,14 @@ finally:
 
 
 class World:
-    """WORKER in a gloo world of ``n`` spawned processes, started at once;
-    :meth:`outputs` waits and returns each rank's outputs."""
+    """``script`` (default WORKER) in a gloo world of ``n`` spawned
+    processes, started at once; :meth:`outputs` waits and returns each
+    rank's outputs."""
 
-    def __init__(self, tmp_path, tag: str, n: int, spec: dict) -> None:
-        script = tmp_path / "worker.py"
-        script.write_text(WORKER)
+    def __init__(self, tmp_path, tag: str, n: int, spec: dict,
+                 script_text: str = WORKER) -> None:
+        script = tmp_path / f"{tag}-worker.py"
+        script.write_text(script_text)
         spec_path = tmp_path / f"{tag}.json"
         spec_path.write_text(json.dumps(spec))
         env = {k: v for k, v in os.environ.items()
@@ -218,21 +221,28 @@ class World:
         # the ranks share the box's cores: one thread each (tiny widths)
         env["OMP_NUM_THREADS"] = "1"
         self.outs = [tmp_path / f"{tag}-out-{r}.npz" for r in range(n)]
-        self.procs = [subprocess.Popen(
-            [sys.executable, str(script), str(r), str(n),
-             str(tmp_path / f"{tag}.store"), str(spec_path),
-             str(self.outs[r])],
-            cwd=tmp_path, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for r in range(n)]
+        # each rank writes to a file of its own: a pipe nobody reads while
+        # the test's process compiles its references would block a rank
+        # that writes more than the pipe holds, and its peers with it
+        self.logs = [tmp_path / f"{tag}-rank-{r}.log" for r in range(n)]
+        self.procs = []
+        for r in range(n):
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, str(script), str(r), str(n),
+                     str(tmp_path / f"{tag}.store"), str(spec_path),
+                     str(self.outs[r])],
+                    cwd=tmp_path, env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
 
     def outputs(self) -> list[dict]:
         try:
-            done = [p.communicate(timeout=WORLD_TIMEOUT_S)
-                    for p in self.procs]
+            for p in self.procs:
+                p.wait(timeout=WORLD_TIMEOUT_S)
         finally:
             self.kill()
-        for p, (_, err) in zip(self.procs, done):
-            assert p.returncode == 0, err[-3000:]
+        for p, log in zip(self.procs, self.logs):
+            assert p.returncode == 0, log.read_text()[-3000:]
         return [dict(np.load(o)) for o in self.outs]
 
     def kill(self) -> None:
@@ -360,9 +370,10 @@ def rings(tmp_path_factory):
                 "fsdp_cases": FSDP_RING_CASES,
                 "mesh_groups": [(extents, axes) for m, extents, axes
                                 in MESH_GROUPS if m == n]})
-        # the six references compile at once: XLA's compiles are most of
-        # this file's time, and they run outside the GIL
-        with ThreadPoolExecutor(6) as pool:
+        # the six references compile three at a time while the worlds run:
+        # XLA's compiles are most of this file's time and run outside the
+        # GIL (on an idle box 29.8 s six at a time, 31.5 s three, 95 s one)
+        with ThreadPoolExecutor(3) as pool:
             jobs = {n: [pool.submit(fn, n, inputs[n])
                         for fn in (_jax_ring, _jax_fsdp_rings)]
                     for n in worlds}

@@ -25,6 +25,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 # torch sets TORCHINDUCTOR_CACHE_DIR in os.environ once, when _dynamo first
 # loads (an optimizer's first step loads it): load it before any test
 # snapshots the environment
@@ -60,6 +61,8 @@ def child_env(**knobs) -> dict:
     """``os.environ`` without any ``M2KT_*`` key, then ``knobs``."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("M2KT_")}
     env["PYTHONPATH"] = REPO
+    # one thread a child: the xdist workers share the box's cores
+    env["OMP_NUM_THREADS"] = "1"
     env.update({k: str(v) for k, v in knobs.items()})
     return env
 

@@ -34,15 +34,12 @@ destroys its group, and the test's process holds no group.
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 import torch._dynamo  # noqa: E402,F401 - before any optimizer steps
 
 import jax  # noqa: E402
@@ -55,8 +52,7 @@ from move2kube_tpu.models import moe as jmoe  # noqa: E402
 from move2kube_tpu.models import train as jtrain  # noqa: E402
 from move2kube_tpu.parallel.mesh import MeshConfig, make_mesh  # noqa: E402
 from tests.test_torch_ring import (  # noqa: E402,F401
-    REPO,
-    WORLD_TIMEOUT_S,
+    World,
     _process_state_unchanged,
 )
 
@@ -154,43 +150,6 @@ try:
 finally:
     dist.destroy_process_group()
 '''
-
-
-class _World:
-    """WORKER in a gloo world of ``n`` spawned processes."""
-
-    def __init__(self, tmp, tag: str, n: int, spec: dict,
-                 worker: str = WORKER) -> None:
-        script = tmp / f"{tag}-worker.py"
-        script.write_text(worker)
-        spec_path = tmp / f"{tag}.json"
-        spec_path.write_text(json.dumps(spec))
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith("M2KT_")}
-        env["PYTHONPATH"] = REPO
-        env["OMP_NUM_THREADS"] = "1"
-        self.outs = [tmp / f"{tag}-out-{r}.npz" for r in range(n)]
-        self.procs = [subprocess.Popen(
-            [sys.executable, str(script), str(r), str(n),
-             str(tmp / f"{tag}.store"), str(spec_path), str(self.outs[r])],
-            cwd=tmp, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for r in range(n)]
-
-    def outputs(self) -> list:
-        try:
-            done = [p.communicate(timeout=WORLD_TIMEOUT_S)
-                    for p in self.procs]
-        finally:
-            self.kill()
-        for p, (_, err) in zip(self.procs, done):
-            assert p.returncode == 0, err[-3000:]
-        return [dict(np.load(o)) for o in self.outs]
-
-    def kill(self) -> None:
-        for p in self.procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
 
 
 def _jax_cfg(fam, vocab):
@@ -334,10 +293,10 @@ def run_worlds(tmp, meshes, cases_in):
     worlds = {}
     try:
         for mesh, extents in meshes.items():
-            worlds[mesh] = _World(tmp, mesh, int(np.prod(list(
+            worlds[mesh] = World(tmp, mesh, int(np.prod(list(
                 extents.values()))), {"inputs": str(tmp / "tp.npz"),
                                       "mesh": extents,
-                                      "cases": cases[mesh]})
+                                      "cases": cases[mesh]}, WORKER)
         refs = {}
         for bkey, batches in want.items():
             fam, vocab, k = bkey.split("-")

@@ -27,22 +27,19 @@ of 2 and 4 on the CPU.
 
 import dataclasses
 import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 import torch._dynamo  # noqa: E402,F401 - before any optimizer steps
 
 import jax.numpy as jnp  # noqa: E402
 
 from move2kube_tpu.models import moe as jmoe  # noqa: E402
 from tests.test_torch_ring import (  # noqa: E402,F401
-    REPO,
-    WORLD_TIMEOUT_S,
+    World,
     _process_state_unchanged,
 )
 
@@ -165,36 +162,6 @@ finally:
 '''
 
 
-def _world(tmp, tag, n, spec):
-    script = tmp / "ops-worker.py"
-    script.write_text(WORKER)
-    spec_path = tmp / f"{tag}.json"
-    spec_path.write_text(json.dumps(spec))
-    env = {k: v for k, v in os.environ.items() if not k.startswith("M2KT_")}
-    env["PYTHONPATH"] = REPO
-    env["OMP_NUM_THREADS"] = "1"
-    outs = [tmp / f"{tag}-out-{r}.npz" for r in range(n)]
-    return outs, [subprocess.Popen(
-        [sys.executable, str(script), str(r), str(n),
-         str(tmp / f"{tag}.store"), str(spec_path), str(outs[r])],
-        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for r in range(n)]
-
-
-def _outputs(world):
-    outs, procs = world
-    try:
-        done = [p.communicate(timeout=WORLD_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (_, err) in zip(procs, done):
-        assert p.returncode == 0, err[-3000:]
-    return [dict(np.load(o)) for o in outs]
-
-
 def _inputs(n):
     rng = np.random.default_rng(40 + n)
     f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
@@ -216,27 +183,26 @@ def ops(tmp_path_factory):
         for n in (2, 4):
             inputs[n] = _inputs(n)
             np.savez(tmp / f"in{n}.npz", **inputs[n])
-            worlds[n] = _world(tmp, f"ops{n}", n, {
+            worlds[n] = World(tmp, f"ops{n}", n, {
                 "inputs": str(tmp / f"in{n}.npz"), "jobs": ["ops", "matmul"],
                 "E": E, "K": K, "cap": ROUTE_CAP,
-                "shapes": MATMUL_SHAPES})
+                "shapes": MATMUL_SHAPES}, WORKER)
         np.savez(tmp / "ids.npz", ids=np.random.default_rng(5).integers(
             0, 512, (4, 32)))
-        save = _world(tmp, "save", 4, {
+        worlds["save"] = World(tmp, "save", 4, {
             "inputs": str(tmp / "ids.npz"), "jobs": ["save"],
-            "mesh": {"fsdp": 2, "tensor": 2}, "ckpt": str(tmp / "ckpt")})
-        out = {n: _outputs(w) for n, w in worlds.items()}
-        saved = _outputs(save)
-        restored = _outputs(_world(tmp, "restore", 2, {
+            "mesh": {"fsdp": 2, "tensor": 2}, "ckpt": str(tmp / "ckpt")},
+            WORKER)
+        out = {n: worlds[n].outputs() for n in (2, 4)}
+        saved = worlds["save"].outputs()
+        worlds["restore"] = World(tmp, "restore", 2, {
             "jobs": ["restore"], "mesh": {"tensor": 2},
-            "ckpt": str(tmp / "ckpt")}))
+            "ckpt": str(tmp / "ckpt")}, WORKER)
+        restored = worlds["restore"].outputs()
         return inputs, out, saved, restored, tmp / "ckpt"
     finally:
-        for outs, procs in worlds.values():
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        for w in worlds.values():
+            w.kill()
 
 
 @pytest.mark.parametrize("n", [2, 4])

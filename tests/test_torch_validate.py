@@ -15,6 +15,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+import tests.test_torch_threads  # noqa: E402,F401 - one torch thread
 
 from move2kube_tpu.source import validate as jvalidate  # noqa: E402
 from move2kube_tpu_torch import validate as tvalidate  # noqa: E402
